@@ -1,0 +1,166 @@
+"""Evidence integration for the standard nested sampler. Counterpart of
+``_NSIntegralState`` in ``nessai_tpu/evidence.py``.
+
+One repair against the JAX package: :meth:`simulate_log_evidence` keeps
+its scratch in float64. The JAX package exponentiates the cumulative
+log-shrinkage in float32, so beyond ~87 nats of compression every row
+underflows to zero and the simulated error becomes NaN.
+"""
+
+import logging
+import math
+from typing import List, Optional
+
+import numpy as np
+from scipy.special import logsumexp
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["logsubexp", "log_integrate_log_trap", "_NSIntegralState"]
+
+
+def logsubexp(x, y):
+    """log(exp(x) - exp(y)), elementwise, requires x >= y."""
+    if np.any(x < y):
+        raise RuntimeError("cannot take log of negative number")
+    return x + np.log1p(-np.exp(y - x))
+
+
+def log_integrate_log_trap(log_func, log_support):
+    """Trapezoid rule in log space."""
+    log_func_sum = np.logaddexp(log_func[:-1], log_func[1:]) - np.log(2)
+    log_dxs = logsubexp(log_support[:-1], log_support[1:])
+    return logsumexp(log_func_sum + log_dxs)
+
+
+class _NSIntegralState:
+    """Streaming nested-sampling evidence: logsumexp rectangle rule with
+    shrinkage ``logt = -1/nlive`` and a trapezoid re-integration at
+    :meth:`finalise`."""
+
+    def __init__(self, nlive: int):
+        self.base_nlive = int(nlive)
+        self.reset()
+
+    def reset(self) -> None:
+        self.logZ = -np.inf
+        self.oldZ = -np.inf
+        self.logw = 0.0
+        self.nonmonotonic_count = 0
+        self.info = [0.0]
+        self.logLs: List[float] = [-np.inf]
+        self.log_vols: List[float] = [0.0]
+        self.nlives: List[int] = []
+
+    def increment(self, logL, nlive: Optional[int] = None) -> None:
+        """Update the evidence with the next dead point's logL (scalar
+        ``math``, as the JAX package does, for bit-identical results)."""
+        logL = float(np.atleast_1d(logL)[0])
+        if nlive is None:
+            nlive = self.base_nlive
+        if logL <= self.logLs[-1]:
+            self.nonmonotonic_count += 1
+            if self.nonmonotonic_count <= 5:
+                logger.warning(
+                    "NS integrator received non-monotonic logL: %.5f -> %.5f",
+                    self.logLs[-1],
+                    logL,
+                )
+            elif self.nonmonotonic_count % 1000 == 0:
+                logger.warning(
+                    "NS integrator received %d non-monotonic logL values so "
+                    "far (ties are expected with float32 device likelihoods)",
+                    self.nonmonotonic_count,
+                )
+        logt = -1.0 / nlive
+        Wt = self.logw + logL + math.log(-math.expm1(logt))
+        if Wt > self.logZ:
+            self.logZ = Wt + math.log1p(math.exp(self.logZ - Wt))
+        elif Wt == -math.inf:
+            pass
+        else:
+            self.logZ = self.logZ + math.log1p(math.exp(Wt - self.logZ))
+        if math.isfinite(self.oldZ):
+            info = (
+                math.exp(Wt - self.logZ) * logL
+                + math.exp(self.oldZ - self.logZ) * (self.info[-1] + self.oldZ)
+                - self.logZ
+            )
+            self.info.append(0.0 if math.isnan(info) else info)
+        else:
+            self.info.append(0.0)
+        self.oldZ = self.logZ
+        self.logw += logt
+        self.logLs.append(logL)
+        self.log_vols.append(self.logw)
+        self.nlives.append(int(nlive))
+
+    @property
+    def log_evidence(self) -> float:
+        return float(self.logZ)
+
+    @property
+    def log_evidence_error(self) -> float:
+        """sqrt(H / nlive)."""
+        return float(np.sqrt(max(self.info[-1], 0.0) / self.base_nlive))
+
+    def finalise(self) -> float:
+        """Re-integrate with the trapezoid rule, closing at X=0 with an
+        extra point at max(L)."""
+        self.logZ = float(
+            log_integrate_log_trap(
+                np.array(self.logLs + [self.logLs[-1]]),
+                np.array(self.log_vols + [-np.inf]),
+            )
+        )
+        return self.logZ
+
+    def _nlive_schedule(self) -> np.ndarray:
+        n_iter = len(self.logLs) - 1
+        nlives = list(self.nlives)
+        if len(nlives) < n_iter:
+            nlives = [self.base_nlive] * (n_iter - len(nlives)) + nlives
+        return np.asarray(nlives[:n_iter], dtype=float)
+
+    def simulate_log_evidence(self, n_simulations: int = 500, rng=None) -> np.ndarray:
+        """Monte-Carlo draws of logZ under simulated prior-volume
+        contractions (``log t_i = -Exp(1)/nlive_i``), re-integrated with
+        the trapezoid rule of :meth:`finalise`; ``std`` of the result is
+        the simulated error.
+
+        The exponential draws are float32, as in the JAX package, so one
+        seed gives the same contractions in both; the cumulative sum,
+        the exponential and the matrix-vector product are float64."""
+        if rng is None:
+            rng = np.random.default_rng()
+        log_L = np.asarray(self.logLs + [self.logLs[-1]])
+        n_iter = len(self.logLs) - 1
+        if n_iter < 1:
+            return np.full(int(n_simulations), -np.inf)
+        neg_inv_nlives = -1.0 / self._nlive_schedule()
+        log_f_sum = np.logaddexp(log_L[:-1], log_L[1:]) - np.log(2)
+        # logZ = M + log(w_0 + X_inner @ (w[1:] - w[:-1])), with
+        # w = exp(log_f_sum - M) and X the simulated volumes
+        M = float(np.max(log_f_sum))
+        w = np.exp(log_f_sum - M)
+        w0 = float(w[0])
+        dw = w[1:] - w[:-1]
+        n_simulations = int(n_simulations)
+        chunk = max(1, min(n_simulations, int(1e7) // max(n_iter, 1)))
+        out = np.empty(n_simulations)
+        for s0 in range(0, n_simulations, chunk):
+            s = min(chunk, n_simulations - s0)
+            e = rng.standard_exponential((s, n_iter), dtype=np.float32).astype(np.float64)
+            e *= neg_inv_nlives
+            np.cumsum(e, axis=1, out=e)
+            np.exp(e, out=e)
+            out[s0 : s0 + s] = M + np.log(w0 + e @ dw)
+        return out
+
+    def log_posterior_weights(self):
+        """Posterior weight of every dead point."""
+        log_L = np.array(self.logLs + [self.logLs[-1]])
+        log_vols = np.array(self.log_vols + [-np.inf])
+        log_Z = log_integrate_log_trap(log_L, log_vols)
+        log_w = logsubexp(log_vols[:-1], log_vols[1:])
+        return log_L[1:-1] + log_w[:-1] - log_Z

@@ -1,0 +1,17 @@
+"""Flow training and inference. Counterpart of ``nessai_tpu/flowmodel``."""
+
+from .base import FlowModel
+from .config import (
+    FlowConfig,
+    TrainingConfig,
+    update_flow_config,
+    update_training_config,
+)
+
+__all__ = [
+    "FlowModel",
+    "FlowConfig",
+    "TrainingConfig",
+    "update_flow_config",
+    "update_training_config",
+]

@@ -1,0 +1,245 @@
+"""FlowModel: training and inference around one normalising flow.
+Counterpart of ``nessai_tpu/flowmodel/base.py``.
+
+Training is a plain eager loop: the batches are shuffled and split once
+per call, every epoch steps AdamW with optax's global-norm clipping over
+them, a held-out validation split drives patience-based early stopping,
+and the best weights are restored at the end. Host arrays come in and
+go out as numpy; the flow and its data live on ``device``.
+"""
+
+import logging
+import os
+import shutil
+
+import numpy as np
+import torch
+
+from ..flows import configure_model
+from ..flows.bijectors import ActNorm, Chain
+from ..utils.device import get_device
+from .config import (
+    FlowConfig,
+    TrainingConfig,
+    flow_config_to_dict,
+    update_flow_config,
+    update_training_config,
+)
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["FlowModel"]
+
+
+@torch.no_grad()
+def _clip_by_global_norm(params, max_norm: float) -> None:
+    """``optax.clip_by_global_norm``: scale every gradient by
+    ``max_norm / norm`` when the global norm is at least ``max_norm``
+    (without the 1e-6 that ``torch.nn.utils.clip_grad_norm_`` adds)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads])
+    )
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
+
+
+class FlowModel:
+    """Normalising-flow training and inference engine."""
+
+    def __init__(self, flow_config=None, training_config=None, output=None, rng=None, device=None):
+        self.device = get_device(device)
+        self.output = os.getcwd() if output is None else output
+        os.makedirs(self.output, exist_ok=True)
+        self.flow_config: FlowConfig = update_flow_config(flow_config)
+        self.training_config: TrainingConfig = update_training_config(training_config)
+        self.rng = rng if rng is not None else np.random.default_rng()
+        self.flow = None
+        self.optimiser = None
+        self.initialised = False
+        self.weights_file = None
+        self.history = {"loss": [], "val_loss": []}
+        self._actnorm_done = False
+
+    @property
+    def dims(self):
+        return self.flow_config.n_inputs
+
+    # ------------------------------------------------------------------
+    def initialise(self) -> None:
+        """Build the flow on the device, with weights drawn from a seed
+        taken from ``rng``, and its optimiser."""
+        if self.initialised:
+            return
+        cfg = flow_config_to_dict(self.flow_config)
+        cfg["seed"] = int(self.rng.integers(0, 2**31 - 1))
+        self.flow = configure_model(cfg).to(self.device)
+        self.reset_optimiser()
+        self.initialised = True
+
+    def reset_optimiser(self) -> None:
+        # optax.adamw's defaults: a weight decay of 1e-4 where torch's
+        # default is 1e-2
+        self.optimiser = torch.optim.AdamW(
+            self.flow.parameters(),
+            lr=self.training_config.lr,
+            betas=(0.9, 0.999),
+            eps=1e-8,
+            weight_decay=1e-4,
+        )
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+    def _to_device(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+    def prep_data(self, samples, val_size, batch_size=None):
+        """Shuffle, split off ``val_size`` for validation and cut the
+        training rows into batches (the last one may be smaller).
+        Returns ``(train_batches, val)`` as device tensors."""
+        samples = np.asarray(samples, dtype=np.float32)
+        if not np.isfinite(samples).all():
+            raise ValueError("Training data is not finite")
+        n = len(samples)
+        samples = samples[self.rng.permutation(n)]
+        n_val = int(round((val_size or 0.0) * n))
+        n_train = n - n_val
+        if n_train < 2:
+            raise ValueError(f"Too few training samples: {n_train}")
+        if batch_size is None:
+            batch_size = self.training_config.batch_size
+        if batch_size == 1:
+            raise ValueError("Cannot use a batch size of 1!")
+        batch_size = min(int(batch_size), n_train)
+        train = self._to_device(samples[:n_train])
+        batches = list(torch.split(train, batch_size))
+        val = self._to_device(samples[n_train:]) if n_val > 0 else None
+        return batches, val
+
+    def _state_copy(self) -> dict:
+        return {k: v.detach().clone() for k, v in self.flow.state_dict().items()}
+
+    def _trainable(self):
+        return [p for p in self.flow.parameters() if p.requires_grad]
+
+    def _train_step(self, x) -> torch.Tensor:
+        """One optimiser step on the batch ``x``; returns its loss (a
+        device scalar, no host synchronisation)."""
+        self.optimiser.zero_grad(set_to_none=True)
+        loss = -self.flow.log_prob(x).mean()
+        loss.backward()
+        if self.training_config.clip_grad_norm:
+            _clip_by_global_norm(self._trainable(), self.training_config.clip_grad_norm)
+        self.optimiser.step()
+        return loss.detach()
+
+    @torch.no_grad()
+    def _maybe_init_actnorm(self, x) -> None:
+        """Data-dependent actnorm initialisation: walk the chain once,
+        whitening the activations at each ActNorm."""
+        if self._actnorm_done:
+            return
+        if isinstance(self.flow.bijector, Chain):
+            h = self._to_device(x)
+            for b in self.flow.bijector.bijectors:
+                if isinstance(b, ActNorm):
+                    b.data_init(h)
+                h, _ = b(h)
+        self._actnorm_done = True
+
+    def train(self, samples, max_epochs=None, patience=None, val_size=None, save: bool = True, output=None):
+        """Train the flow on ``samples`` ([n, dims]). Returns the history
+        of this call, ``{"loss": [...], "val_loss": [...]}``."""
+        if not self.initialised:
+            self.initialise()
+        samples = np.asarray(samples, dtype=np.float32)
+        if samples.ndim != 2:
+            raise ValueError("Samples must be a 2D array")
+        tc = self.training_config
+        max_epochs = tc.max_epochs if max_epochs is None else max_epochs
+        patience = tc.patience if patience is None else patience
+        val_size = tc.val_size if val_size is None else val_size
+
+        self._maybe_init_actnorm(samples)
+        batches, val = self.prep_data(samples, val_size)
+        history = {"loss": [], "val_loss": []}
+        # as in the JAX package, the starting weights stand until an
+        # epoch improves on them (a run that goes non-finite at once
+        # keeps them)
+        best_state = self._state_copy()
+        best_val = np.inf
+        best_it = 0
+        for epoch in range(int(max_epochs)):
+            loss = torch.stack([self._train_step(x) for x in batches]).mean()
+            if val is not None:
+                with torch.no_grad():
+                    metric = -self.flow.log_prob(val).mean()
+                loss_v, metric_v = torch.stack([loss, metric]).tolist()
+                if np.isnan(metric_v):
+                    metric_v = loss_v
+            else:
+                loss_v = metric_v = loss.item()
+            history["loss"].append(loss_v)
+            history["val_loss"].append(metric_v)
+            if metric_v < best_val:
+                best_val = metric_v
+                best_it = epoch
+                best_state = self._state_copy()
+            if not np.isfinite(loss_v):
+                logger.warning("Training loss is not finite at epoch %d", epoch)
+                break
+            if epoch - best_it > patience:
+                break
+        self.flow.load_state_dict(best_state)
+        logger.debug("Trained %d epochs (best %d)", len(history["loss"]), best_it)
+        self.history["loss"].extend(history["loss"])
+        self.history["val_loss"].extend(history["val_loss"])
+        out_dir = self.output if output is None else output
+        if save and out_dir is not None:
+            self.save_weights(os.path.join(out_dir, "model.pt"))
+        return history
+
+    # ------------------------------------------------------------------
+    # Inference (numpy in / numpy out)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def forward_and_log_prob(self, x):
+        """x -> (z, log q(x)) as float64 numpy arrays."""
+        z, log_q = self.flow.forward_and_log_prob(self._to_device(x))
+        return z.double().cpu().numpy(), log_q.double().cpu().numpy()
+
+    @torch.no_grad()
+    def inverse_and_log_prob(self, z):
+        """z -> (x, log q(x)) as float64 numpy arrays."""
+        x, log_q = self.flow.inverse_and_log_prob(self._to_device(z))
+        return x.double().cpu().numpy(), log_q.double().cpu().numpy()
+
+    @torch.no_grad()
+    def log_prob(self, x):
+        return self.flow.log_prob(self._to_device(x)).double().cpu().numpy()
+
+    @torch.no_grad()
+    def base_log_prob(self, z):
+        return self.flow.base_log_prob(self._to_device(z)).double().cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Persistence
+    # ------------------------------------------------------------------
+    def save_weights(self, weights_file) -> None:
+        """Save the flow's ``state_dict``, moving an existing file to
+        ``<file>.old``."""
+        if os.path.exists(weights_file):
+            shutil.move(weights_file, weights_file + ".old")
+        torch.save(self.flow.state_dict(), weights_file)
+        self.weights_file = weights_file
+
+    def load_weights(self, weights_file) -> None:
+        if not self.initialised:
+            self.initialise()
+        self.flow.load_state_dict(torch.load(weights_file, map_location=self.device))
+        self.weights_file = weights_file
+        self._actnorm_done = True

@@ -1,0 +1,76 @@
+"""Default flow and training configuration. Counterpart of
+``nessai_tpu/flowmodel/config.py``."""
+
+from dataclasses import asdict, dataclass, field
+from typing import Optional, Union
+
+__all__ = [
+    "FlowConfig",
+    "TrainingConfig",
+    "update_flow_config",
+    "update_training_config",
+    "flow_config_to_dict",
+]
+
+
+@dataclass
+class FlowConfig:
+    ftype: str = "realnvp"
+    n_inputs: Optional[int] = None
+    n_blocks: int = 4
+    n_layers: int = 2
+    n_neurons: Union[int, str, None] = None
+    distribution: Optional[str] = None
+    seed: int = 0
+    kwargs: dict = field(default_factory=dict)
+
+
+@dataclass
+class TrainingConfig:
+    lr: float = 1e-3
+    clip_grad_norm: float = 5.0
+    batch_size: int = 1000
+    max_epochs: int = 500
+    patience: int = 20
+    val_size: Optional[float] = 0.1
+
+
+def _update(cls, config):
+    if config is None:
+        return cls()
+    if isinstance(config, cls):
+        return config
+    known = set(cls.__dataclass_fields__)
+    base = cls()
+    extra = {}
+    for k, v in dict(config).items():
+        if k in known:
+            setattr(base, k, v)
+        else:
+            extra[k] = v
+    if extra:
+        if hasattr(base, "kwargs"):
+            base.kwargs = {**base.kwargs, **extra}
+        else:
+            raise ValueError(
+                f"{cls.__name__} keys not in the PyTorch port: {sorted(extra)}"
+            )
+    return base
+
+
+def update_flow_config(config) -> FlowConfig:
+    """Merge a user dict onto the defaults; unknown keys go into
+    ``kwargs`` (passed to the architecture builder)."""
+    return _update(FlowConfig, config)
+
+
+def update_training_config(config) -> TrainingConfig:
+    if config is not None and not isinstance(config, (dict, TrainingConfig)):
+        raise TypeError("Must pass a dictionary to update the default model config")
+    return _update(TrainingConfig, config)
+
+
+def flow_config_to_dict(cfg: FlowConfig) -> dict:
+    d = asdict(cfg)
+    d.update(d.pop("kwargs", {}))
+    return d

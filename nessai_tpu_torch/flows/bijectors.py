@@ -1,0 +1,154 @@
+"""Bijectors as ``nn.Module``s. Counterpart of
+``nessai_tpu/flows/bijectors.py`` (the RealNVP subset: ``Chain``,
+``Permutation``, ``AffineCoupling``, ``ActNorm``).
+
+``forward(x)`` maps data to latent and ``inverse(z)`` latent to data;
+both return ``(output, log_det)`` with ``log_det`` the per-row log of
+the Jacobian determinant of the applied direction.
+"""
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.coupling import affine_coupling
+from .nets import MLP, ResNet
+
+__all__ = ["Chain", "Permutation", "AffineCoupling", "ActNorm"]
+
+
+class Chain(nn.Module):
+    """Composition; ``forward`` applies the bijectors in order."""
+
+    def __init__(self, bijectors):
+        super().__init__()
+        self.bijectors = nn.ModuleList(bijectors)
+
+    def forward(self, x):
+        log_det = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        for b in self.bijectors:
+            x, ld = b(x)
+            log_det = log_det + ld
+        return x, log_det
+
+    def inverse(self, z):
+        log_det = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
+        for b in reversed(self.bijectors):
+            z, ld = b.inverse(z)
+            log_det = log_det + ld
+        return z, log_det
+
+
+class Permutation(nn.Module):
+    """Fixed permutation of the columns (volume preserving)."""
+
+    def __init__(self, dim: int, permutation=None, generator=None):
+        super().__init__()
+        self.dim = dim
+        if permutation is None:
+            perm = torch.randperm(dim, generator=generator)
+        else:
+            perm = torch.as_tensor(np.asarray(permutation), dtype=torch.long)
+        self.register_buffer("perm", perm)
+        self.register_buffer("inv", torch.argsort(perm))
+
+    def forward(self, x):
+        return x[:, self.perm], torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+
+    def inverse(self, z):
+        return z[:, self.inv], torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
+
+
+class AffineCoupling(nn.Module):
+    """Affine (or additive) coupling layer (RealNVP, arXiv:1605.08803).
+
+    The identity half (``mask > 0``) conditions a net giving
+    ``(raw log-scale, shift)`` for the transform half. The soft-clamp,
+    the affine map and the row log-determinant are one call of the fused
+    kernel (:func:`~nessai_tpu_torch.ops.coupling.affine_coupling`).
+    """
+
+    def __init__(
+        self,
+        mask,
+        n_neurons: int,
+        n_layers: int = 2,
+        net: str = "resnet",
+        activation: str = "relu",
+        volume_preserving: bool = False,
+        scale_limit: float = 5.0,
+        generator=None,
+    ):
+        super().__init__()
+        mask = np.asarray(mask)
+        identity_idx = np.flatnonzero(mask > 0)
+        transform_idx = np.flatnonzero(mask <= 0)
+        self.dim = mask.size
+        self.n_tr = len(transform_idx)
+        self.volume_preserving = volume_preserving
+        self.scale_limit = float(scale_limit)
+        self.register_buffer("identity_idx", torch.as_tensor(identity_idx, dtype=torch.long))
+        self.register_buffer("transform_idx", torch.as_tensor(transform_idx, dtype=torch.long))
+        # column order of cat([x_id, x_tr]) back to the input order
+        self.register_buffer(
+            "scatter_idx",
+            torch.as_tensor(
+                np.argsort(np.concatenate([identity_idx, transform_idx])),
+                dtype=torch.long,
+            ),
+        )
+        n_out = self.n_tr if volume_preserving else 2 * self.n_tr
+        n_id = len(identity_idx)
+        if net == "mlp":
+            self.net = MLP(n_id, n_out, n_neurons, n_layers, activation, generator)
+        elif net == "resnet":
+            self.net = ResNet(n_id, n_out, n_neurons, n_layers, activation, generator)
+        else:
+            raise ValueError(f"Unknown net: {net}")
+
+    def _transform(self, x, inverse: bool):
+        x_id = x[:, self.identity_idx]
+        x_tr = x[:, self.transform_idx]
+        out = self.net(x_id)
+        if self.volume_preserving:
+            y_tr = x_tr - out if inverse else x_tr + out
+            log_det = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        else:
+            y_tr, log_det = affine_coupling(
+                x_tr, out[:, : self.n_tr], out[:, self.n_tr :], inverse, self.scale_limit
+            )
+        return torch.cat([x_id, y_tr], dim=1)[:, self.scatter_idx], log_det
+
+    def forward(self, x):
+        return self._transform(x, inverse=False)
+
+    def inverse(self, z):
+        return self._transform(z, inverse=True)
+
+
+class ActNorm(nn.Module):
+    """Per-dimension affine normalisation with a data-dependent
+    initialisation (Glow-style): ``z = (x + shift) * exp(log_scale)``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+        self.log_scale = nn.Parameter(torch.zeros(dim))
+        self.shift = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        z = (x + self.shift) * torch.exp(self.log_scale)
+        return z, torch.sum(self.log_scale) * torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+
+    def inverse(self, z):
+        x = z * torch.exp(-self.log_scale) - self.shift
+        return x, -torch.sum(self.log_scale) * torch.ones(z.shape[0], dtype=z.dtype, device=z.device)
+
+    @torch.no_grad()
+    def data_init(self, x) -> None:
+        """Whiten ``x``: zero mean and unit (population) variance, as
+        ``nessai_tpu/flowmodel/base.py:_maybe_init_actnorm`` does."""
+        mean = torch.mean(x, dim=0)
+        std = torch.std(x, dim=0, correction=0) + 1e-6
+        self.log_scale.copy_(-torch.log(std))
+        self.shift.copy_(-mean)

@@ -1,0 +1,103 @@
+"""Weight conversion between the JAX package's flow parameters and the
+port's modules.
+
+The JAX package keeps a flow's parameters as a pytree
+``{"bijector": [per-bijector dict, ...], "base": {}}``; here it is given
+and returned as numpy arrays. A dense layer is ``{"w": [n_in, n_out],
+"b": [n_out]}`` there and ``nn.Linear`` (weight ``[n_out, n_in]``) here,
+so weights are transposed. Permutations become buffers.
+"""
+
+import numpy as np
+import torch
+
+from .bijectors import ActNorm, AffineCoupling, Permutation
+from .nets import MLP, ResNet
+
+__all__ = ["params_from_jax", "params_to_jax"]
+
+
+def _dense_from(layer, p):
+    layer.weight.copy_(torch.tensor(np.asarray(p["w"], np.float32).T))
+    layer.bias.copy_(torch.tensor(np.asarray(p["b"], np.float32)))
+
+
+def _dense_to(layer):
+    return {
+        "w": layer.weight.detach().cpu().numpy().T.copy(),
+        "b": layer.bias.detach().cpu().numpy().copy(),
+    }
+
+
+def _net_from(net, p):
+    if isinstance(net, ResNet):
+        _dense_from(net.initial, p["initial"])
+        for block, bp in zip(net.blocks, p["blocks"], strict=True):
+            _dense_from(block.l1, bp["l1"])
+            _dense_from(block.l2, bp["l2"])
+        _dense_from(net.final, p["final"])
+    elif isinstance(net, MLP):
+        for layer, lp in zip(net.layers, p["layers"], strict=True):
+            _dense_from(layer, lp)
+        _dense_from(net.out, p["out"])
+    else:
+        raise TypeError(f"Unknown conditioner: {type(net).__name__}")
+
+
+def _net_to(net):
+    if isinstance(net, ResNet):
+        return {
+            "initial": _dense_to(net.initial),
+            "blocks": [
+                {"l1": _dense_to(b.l1), "l2": _dense_to(b.l2)} for b in net.blocks
+            ],
+            "final": _dense_to(net.final),
+        }
+    return {
+        "layers": [_dense_to(layer) for layer in net.layers],
+        "out": _dense_to(net.out),
+    }
+
+
+@torch.no_grad()
+def params_from_jax(flow, params) -> None:
+    """Load the JAX package's flow parameters (numpy pytree) into
+    ``flow`` in place."""
+    bijectors = flow.bijector.bijectors
+    for b, p in zip(bijectors, params["bijector"], strict=True):
+        if isinstance(b, Permutation):
+            device = b.perm.device
+            b.perm = torch.tensor(np.asarray(p["perm"]), dtype=torch.long, device=device)
+            b.inv = torch.tensor(np.asarray(p["inv"]), dtype=torch.long, device=device)
+        elif isinstance(b, AffineCoupling):
+            _net_from(b.net, p["net"])
+        elif isinstance(b, ActNorm):
+            b.log_scale.copy_(torch.tensor(np.asarray(p["log_scale"], np.float32)))
+            b.shift.copy_(torch.tensor(np.asarray(p["shift"], np.float32)))
+        else:
+            raise TypeError(f"Unknown bijector: {type(b).__name__}")
+
+
+def params_to_jax(flow) -> dict:
+    """The JAX package's parameter pytree (numpy arrays) for ``flow``."""
+    out = []
+    for b in flow.bijector.bijectors:
+        if isinstance(b, Permutation):
+            out.append(
+                {
+                    "perm": b.perm.cpu().numpy().astype(np.int32),
+                    "inv": b.inv.cpu().numpy().astype(np.int32),
+                }
+            )
+        elif isinstance(b, AffineCoupling):
+            out.append({"net": _net_to(b.net)})
+        elif isinstance(b, ActNorm):
+            out.append(
+                {
+                    "log_scale": b.log_scale.detach().cpu().numpy().copy(),
+                    "shift": b.shift.detach().cpu().numpy().copy(),
+                }
+            )
+        else:
+            raise TypeError(f"Unknown bijector: {type(b).__name__}")
+    return {"bijector": out, "base": {}}

@@ -1,0 +1,85 @@
+"""Conditioner networks (MLP and residual net) as ``nn.Module``s.
+Counterpart of ``nessai_tpu/flows/nets.py``.
+
+Dense layers are ``nn.Linear`` (weight ``[out, in]``; the JAX package
+stores ``w`` as ``[in, out]``, see ``convert.py``). Hidden layers start
+uniform in ±1/sqrt(n_in) with zero biases, as in the JAX package; the
+final layer starts at zero so every coupling starts as the identity.
+"""
+
+import math
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+__all__ = ["ACTIVATIONS", "MLP", "ResNet"]
+
+ACTIVATIONS = {
+    "relu": F.relu,
+    "tanh": torch.tanh,
+    "silu": F.silu,
+    "swish": F.silu,
+    # jax.nn.gelu defaults to the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "sigmoid": torch.sigmoid,
+}
+
+
+def _dense(n_in: int, n_out: int, generator=None, zero: bool = False) -> nn.Linear:
+    layer = nn.Linear(n_in, n_out)
+    with torch.no_grad():
+        if zero:
+            layer.weight.zero_()
+        else:
+            bound = 1.0 / math.sqrt(max(n_in, 1))
+            layer.weight.uniform_(-bound, bound, generator=generator)
+        layer.bias.zero_()
+    return layer
+
+
+class MLP(nn.Module):
+    """``n_layers`` hidden layers of width ``n_neurons``."""
+
+    def __init__(self, n_in, n_out, n_neurons, n_layers, activation="relu", generator=None):
+        super().__init__()
+        self.activation = activation
+        dims = [n_in] + [n_neurons] * n_layers
+        self.layers = nn.ModuleList(
+            _dense(a, b, generator) for a, b in zip(dims[:-1], dims[1:])
+        )
+        self.out = _dense(dims[-1], n_out, zero=True)
+
+    def forward(self, x):
+        act = ACTIVATIONS[self.activation]
+        for layer in self.layers:
+            x = act(layer(x))
+        return self.out(x)
+
+
+class ResBlock(nn.Module):
+    def __init__(self, n_neurons, generator=None):
+        super().__init__()
+        self.l1 = _dense(n_neurons, n_neurons, generator)
+        self.l2 = _dense(n_neurons, n_neurons, generator)
+
+
+class ResNet(nn.Module):
+    """Pre-activation residual net: an input layer, ``n_blocks`` blocks of
+    two dense layers, and a zero-initialised output layer."""
+
+    def __init__(self, n_in, n_out, n_neurons, n_blocks=2, activation="relu", generator=None):
+        super().__init__()
+        self.activation = activation
+        self.initial = _dense(n_in, n_neurons, generator)
+        self.blocks = nn.ModuleList(
+            ResBlock(n_neurons, generator) for _ in range(n_blocks)
+        )
+        self.final = _dense(n_neurons, n_out, zero=True)
+
+    def forward(self, x):
+        act = ACTIVATIONS[self.activation]
+        h = self.initial(x)
+        for block in self.blocks:
+            h = h + block.l2(act(block.l1(act(h))))
+        return self.final(act(h))

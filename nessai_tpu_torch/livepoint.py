@@ -1,0 +1,93 @@
+"""Live-point codec: structured NumPy arrays on the host, dense
+``[n, dims]`` arrays for the device. Counterpart of
+``nessai_tpu/livepoint.py``."""
+
+import numpy as np
+
+from . import config
+
+__all__ = [
+    "get_dtype",
+    "empty_structured_array",
+    "numpy_array_to_live_points",
+    "live_points_to_array",
+    "unstructured_view",
+]
+
+
+def get_dtype(names, array_dtype=None) -> np.dtype:
+    """Structured dtype with the sampling parameters followed by the
+    non-sampling fields (logP, logL, it)."""
+    if array_dtype is None:
+        array_dtype = config.livepoints.default_float_dtype
+    fields = [(n, array_dtype) for n in names]
+    fields += list(
+        zip(
+            config.livepoints.non_sampling_parameters,
+            config.livepoints.non_sampling_dtype,
+        )
+    )
+    return np.dtype(fields)
+
+
+def empty_structured_array(n: int, names=None, dtype=None):
+    """Structured array of length ``n`` with parameters set to NaN and
+    the non-sampling fields set to their defaults."""
+    if dtype is None:
+        dtype = get_dtype(names)
+    elif names is None:
+        names = [
+            f
+            for f in np.dtype(dtype).names
+            if f not in config.livepoints.non_sampling_parameters
+        ]
+    out = np.empty(n, dtype=dtype)
+    if n == 0:
+        return out
+    for name in names:
+        out[name] = np.nan
+    for f, v in zip(
+        config.livepoints.non_sampling_parameters,
+        config.livepoints.non_sampling_defaults,
+    ):
+        out[f] = v
+    return out
+
+
+def numpy_array_to_live_points(array, names):
+    """Unstructured ``[n, dims]`` array -> live points."""
+    array = np.atleast_1d(np.asarray(array))
+    if array.size == 0:
+        return empty_structured_array(0, names=names)
+    if array.ndim == 1:
+        array = array[None, :]
+    out = empty_structured_array(array.shape[0], names=names)
+    for i, n in enumerate(names):
+        out[n] = array[:, i]
+    return out
+
+
+def live_points_to_array(live_points, names=None):
+    """Live points -> float64 array ``[n, len(names)]``."""
+    if names is None:
+        names = [
+            f
+            for f in live_points.dtype.names
+            if f not in config.livepoints.non_sampling_parameters
+        ]
+    return np.stack(
+        [np.asarray(live_points[n], dtype=float) for n in names], axis=-1
+    )
+
+
+def unstructured_view(x, names=None):
+    """Zero-copy ``[n, dims]`` view of the parameter fields."""
+    from numpy.lib import recfunctions as rfn
+
+    if names is None:
+        names = [
+            f
+            for f in x.dtype.names
+            if f not in config.livepoints.non_sampling_parameters
+        ]
+    return rfn.structured_to_unstructured(x[list(names)], copy=False)

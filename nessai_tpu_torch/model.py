@@ -1,0 +1,314 @@
+"""User model definition. Counterpart of ``nessai_tpu/model.py``.
+
+A ``Model`` has ``names`` and ``bounds`` and implements ``log_prior`` and
+``log_likelihood`` over structured arrays. The optional
+``torch_log_likelihood(x)`` hook takes a ``[n, dims]`` float32 tensor on
+the model's device (columns ordered like ``names``) and returns ``[n]``
+log-likelihoods; when present, batched evaluation and the flow
+proposal's populate run it on the device.
+"""
+
+import datetime
+import logging
+from abc import ABC, abstractmethod
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .livepoint import (
+    empty_structured_array,
+    live_points_to_array,
+    numpy_array_to_live_points,
+    unstructured_view as _unstructured_view,
+)
+from .utils.device import get_device
+from .utils.errors import RNGNotSetError, RNGSetError
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["Model", "ModelError", "OneDimensionalModelError"]
+
+
+class ModelError(RuntimeError):
+    """Raised for invalid models."""
+
+
+class OneDimensionalModelError(ModelError):
+    """Raised for 1-D models, which nessai does not support."""
+
+
+def _check_vectorised_function(func, x) -> bool:
+    """Whether ``func`` applied to a batch matches per-row application."""
+    try:
+        batch = np.asarray(func(x), dtype="float64").flatten()
+    except (TypeError, ValueError, IndexError, AttributeError):
+        return False
+    if batch.shape != (len(x),):
+        return False
+    single = np.array([func(xx) for xx in x], dtype="float64").flatten()
+    return np.allclose(batch, single, atol=1e-15, rtol=1e-15, equal_nan=True)
+
+
+def _batch_evaluate(func, x, vectorised: bool) -> np.ndarray:
+    if vectorised:
+        return func(x)
+    return np.array([func(xx) for xx in x])
+
+
+class Model(ABC):
+    """Base class for user-defined problems."""
+
+    _names: Optional[List[str]] = None
+    _bounds: Optional[dict] = None
+    _lower = None
+    _upper = None
+    _dims = None
+    _vectorised_likelihood = None
+    _vectorised_prior = None
+
+    likelihood_evaluations: int = 0
+    likelihood_evaluation_time = datetime.timedelta()
+    allow_vectorised: bool = True
+    allow_multi_valued_likelihood: bool = False
+    rng: Optional[np.random.Generator] = None
+    #: Device of ``torch_log_likelihood`` (``None`` means CUDA); the
+    #: sampler sets it to its own device.
+    device = None
+    #: Optional device hook: ``[n, dims]`` float32 tensor -> ``[n]``.
+    torch_log_likelihood = None
+
+    @property
+    def names(self) -> List[str]:
+        return self._names if self._names is not None else []
+
+    @names.setter
+    def names(self, names):
+        if not isinstance(names, list):
+            raise TypeError("`names` must be a list")
+        if not names:
+            raise ValueError("`names` list is empty!")
+        if len(names) == 1:
+            raise OneDimensionalModelError(
+                "names list has length 1. nessai is not designed to handle "
+                "one-dimensional models."
+            )
+        self._names = names
+        self._dims = None
+
+    @property
+    def bounds(self) -> dict:
+        return self._bounds if self._bounds is not None else {}
+
+    @bounds.setter
+    def bounds(self, bounds):
+        if not isinstance(bounds, dict):
+            raise TypeError("`bounds` must be a dictionary")
+        if len(bounds) == 1:
+            raise OneDimensionalModelError(
+                "bounds dictionary has length 1. nessai is not designed "
+                "to handle one-dimensional models."
+            )
+        if not all(len(b) == 2 for b in bounds.values()):
+            raise ValueError("Each entry in `bounds` must have length 2")
+        self._bounds = {p: np.asarray(b) for p, b in bounds.items()}
+        self._lower = None
+        self._upper = None
+
+    @property
+    def dims(self) -> int:
+        if self._dims is None and self.names:
+            self._dims = len(self.names)
+        return self._dims
+
+    @property
+    def lower_bounds(self) -> np.ndarray:
+        if self._lower is None and self.bounds:
+            self._lower = np.array(
+                [self.bounds[n][0] for n in self.names], dtype=float
+            )
+        return self._lower
+
+    @property
+    def upper_bounds(self) -> np.ndarray:
+        if self._upper is None and self.bounds:
+            self._upper = np.array(
+                [self.bounds[n][1] for n in self.names], dtype=float
+            )
+        return self._upper
+
+    def set_rng(self, rng: Optional[np.random.Generator] = None) -> None:
+        """Set the model's random number generator (once)."""
+        if rng is None:
+            rng = np.random.default_rng()
+        if self.rng is not None:
+            raise RNGSetError()
+        self.rng = rng
+
+    def _require_rng(self) -> np.random.Generator:
+        if self.rng is None:
+            raise RNGNotSetError()
+        return self.rng
+
+    @abstractmethod
+    def log_prior(self, x) -> np.ndarray:
+        """Log-prior of structured live points."""
+        raise NotImplementedError
+
+    @abstractmethod
+    def log_likelihood(self, x) -> np.ndarray:
+        """Log-likelihood of structured live points."""
+        raise NotImplementedError
+
+    @property
+    def has_torch_likelihood(self) -> bool:
+        return callable(self.torch_log_likelihood)
+
+    def in_bounds(self, x) -> np.ndarray:
+        """Elementwise check that points lie in the prior box."""
+        return ~np.any(
+            [
+                (x[n] < self.bounds[n][0]) | (x[n] > self.bounds[n][1])
+                for n in self.names
+            ],
+            axis=0,
+        )
+
+    def unstructured_view(self, x) -> np.ndarray:
+        return _unstructured_view(x, names=self.names)
+
+    def new_point(self, N: int = 1):
+        """Draw N points from the prior box with finite log-prior, by
+        rejection."""
+        rng = self._require_rng()
+        out = empty_structured_array(N, names=self.names)
+        count = 0
+        while count < N:
+            arr = rng.uniform(
+                self.lower_bounds, self.upper_bounds, (N - count, self.dims)
+            )
+            points = numpy_array_to_live_points(arr, self.names)
+            finite = np.isfinite(self.batch_evaluate_log_prior(points))
+            n_ok = int(finite.sum())
+            if n_ok:
+                out[count : count + n_ok] = points[finite]
+                count += n_ok
+        if N == 1:
+            return out[0:1]
+        return out
+
+    def new_point_log_prob(self, x) -> np.ndarray:
+        """Proposal log-density of :meth:`new_point` (constant: zeros)."""
+        return np.zeros(x.size)
+
+    @property
+    def vectorised_likelihood(self) -> bool:
+        if self._vectorised_likelihood is None:
+            if self.has_torch_likelihood:
+                self._vectorised_likelihood = True
+            elif not self.allow_vectorised:
+                self._vectorised_likelihood = False
+            else:
+                self._vectorised_likelihood = _check_vectorised_function(
+                    self.log_likelihood, self.new_point(4)
+                )
+        return self._vectorised_likelihood
+
+    @property
+    def vectorised_prior(self) -> bool:
+        if self._vectorised_prior is None:
+            arr = self._require_rng().uniform(
+                self.lower_bounds, self.upper_bounds, (4, self.dims)
+            )
+            self._vectorised_prior = _check_vectorised_function(
+                self.log_prior, numpy_array_to_live_points(arr, self.names)
+            )
+        return self._vectorised_prior
+
+    def evaluate_log_likelihood(self, x):
+        """Single-point evaluation with counter update."""
+        self.likelihood_evaluations += 1
+        return self.log_likelihood(x)
+
+    def batch_evaluate_log_likelihood(self, x) -> np.ndarray:
+        """Log-likelihoods of a batch of live points, with the counter
+        and wall-time updated. With a ``torch_log_likelihood`` hook the
+        batch is evaluated on the model's device in float32 and returned
+        as float64."""
+        st = datetime.datetime.now()
+        if self.has_torch_likelihood:
+            arr = torch.as_tensor(
+                live_points_to_array(x, self.names),
+                dtype=torch.float32,
+                device=get_device(self.device),
+            )
+            with torch.no_grad():
+                out = self.torch_log_likelihood(arr)
+            out = out.cpu().numpy().astype(np.float64)
+        else:
+            out = _batch_evaluate(
+                self.log_likelihood, x, self.vectorised_likelihood
+            )
+        self.likelihood_evaluation_time += datetime.datetime.now() - st
+        self.likelihood_evaluations += len(x)
+        return out
+
+    def batch_evaluate_log_prior(self, x) -> np.ndarray:
+        return _batch_evaluate(self.log_prior, x, self.vectorised_prior)
+
+    def verify_model(self) -> None:
+        """Sanity-check the model definition."""
+        if not self.names:
+            raise ModelError("Names for model parameters are not set")
+        if not self.bounds:
+            raise ModelError("Bounds are not set for model")
+        for n in self.names:
+            b = self.bounds.get(n)
+            if b is None or len(b) != 2:
+                raise ModelError(f"Bounds for {n} are invalid: {b}")
+            if b[1] <= b[0]:
+                raise ModelError(f"Bounds for {n} are not ordered: {b}")
+        rng = self._require_rng()
+        if not (
+            np.isfinite(self.lower_bounds).all()
+            and np.isfinite(self.upper_bounds).all()
+        ):
+            raise ModelError("The port supports finite prior bounds only")
+        log_p = -np.inf
+        counter = 0
+        while log_p == -np.inf or log_p == np.inf:
+            arr = rng.uniform(self.lower_bounds, self.upper_bounds, (1, self.dims))
+            probe = numpy_array_to_live_points(arr, self.names)
+            try:
+                log_p = self.log_prior(probe)
+            except Exception as e:
+                raise ModelError(f"Log-prior raised an error: {e}")
+            if log_p is None:
+                raise ModelError("Log-prior returned None")
+            log_p = float(np.asarray(log_p).flatten()[0])
+            counter += 1
+            if counter == 1000:
+                raise ModelError(
+                    "Could not draw a valid point from within the prior "
+                    "bounds after 1000 tries, check the log prior function."
+                )
+        x = self.new_point()
+        if self.log_prior(x) is None:
+            raise ModelError("Log-prior returned None")
+        log_l = self.evaluate_log_likelihood(x)
+        if log_l is None:
+            raise ModelError("Log-likelihood returned None")
+        if np.isnan(float(np.asarray(log_l).flatten()[0])):
+            raise ModelError("Log-likelihood is NaN at a prior draw")
+        if not self.allow_multi_valued_likelihood:
+            vals = np.array(
+                [
+                    np.asarray(self.log_likelihood(x)).flatten()[0]
+                    for _ in range(16)
+                ]
+            )
+            if not np.all(vals == vals[0]):
+                raise ModelError(
+                    "Repeated likelihood calls return different values; "
+                    "set allow_multi_valued_likelihood=True to permit this."
+                )

@@ -1,0 +1,81 @@
+"""Build the port's CUDA kernels at first use.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
+library with a plain C interface, bound with ``ctypes``. Libraries go to
+``nessai_tpu_torch/_build/`` (listed in ``.gitignore``) under a name
+keyed by a hash of the source and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. Nothing is built when a
+module is imported: :func:`load` runs inside the first launch.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+        candidate = candidate / "bin" / "nvcc"
+        if candidate.exists():
+            nvcc = str(candidate)
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA toolkit is needed to build the "
+            "port's kernels (on PATH, or under $CUDA_HOME/bin)"
+        )
+    return nvcc
+
+
+def _library_path(name: str) -> Path:
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless it is built; returns the path."""
+    target = _library_path(name)
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed to build csrc/{name}.cu "
+            f"(exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, target)
+    return target
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load the library of ``csrc/<name>.cu``."""
+    return ctypes.CDLL(str(build(name)))

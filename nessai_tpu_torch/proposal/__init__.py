@@ -1,0 +1,8 @@
+"""Proposals. Counterpart of ``nessai_tpu/proposal``."""
+
+from .analytic import AnalyticProposal
+from .base import Proposal
+from .flowproposal import FlowProposal
+from .rejection import RejectionProposal
+
+__all__ = ["AnalyticProposal", "Proposal", "FlowProposal", "RejectionProposal"]

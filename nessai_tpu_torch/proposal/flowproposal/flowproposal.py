@@ -1,0 +1,138 @@
+"""FlowProposal: the flagship proposal. Counterpart of
+``nessai_tpu/proposal/flowproposal/flowproposal.py`` (its ``rounds``
+populate).
+
+Each populate round draws latent points on the host (the truncated
+Gaussian, from ``self.rng``), then one device call,
+:meth:`FlowProposal._fused_backward`, takes them through the flow inverse
+(four affine-coupling kernel launches for the flagship RealNVP), the base
+log-density, the inverse reparameterisation, the prior-bounds check and
+the model's ``torch_log_likelihood``; rejection sampling against the
+prior runs on the host.
+"""
+
+import datetime
+import logging
+
+import numpy as np
+import torch
+
+from ...livepoint import empty_structured_array
+from .base import BaseFlowProposal
+from .truncation import LatentRadiusTruncation
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["FlowProposal"]
+
+
+class FlowProposal(BaseFlowProposal):
+    """Flow proposal with latent truncation and rejection sampling.
+
+    Each round draws ``poolsize`` latent points, scaled up by the
+    previous populate's 1/acceptance (capped). One populate stops after
+    :attr:`max_samples` draws.
+    """
+
+    #: cap on the acceptance-adaptive latent draw scale
+    _max_draw_scale: float = 32.0
+    #: latent draws after which one populate gives up
+    max_samples: int = 1_000_000
+
+    def initialise(self) -> None:
+        super().initialise()
+        self._truncation = LatentRadiusTruncation(self.prime_dims, rng=self.rng)
+
+    @property
+    def _draw_n(self) -> int:
+        """Latent draws per populate round."""
+        n = int(self._poolsize)
+        acc = self.population_acceptance
+        if acc is not None and np.isfinite(acc) and 0 < acc < 1:
+            n = int(n * min(max(1.0 / acc, 1.0), self._max_draw_scale))
+        return n
+
+    @torch.no_grad()
+    def _fused_backward(self, z, with_likelihood: bool = True):
+        """One device call: latent ``z`` -> x (proposal-parameter order),
+        log q(x), [logL,] in-bounds mask. Returns float64 numpy arrays
+        (``log_l`` is None without the likelihood)."""
+        device = self.device
+        model = self.model
+        flow = self.flow.flow
+        zt = torch.as_tensor(np.asarray(z, np.float32), device=device)
+        x_prime, log_q = flow.inverse_and_log_prob(zt)
+        cols = {pp: x_prime[:, i] for i, pp in enumerate(self.prime_parameters)}
+        cols, log_j = self._reparameterisation.torch_inverse(cols)
+        log_q = log_q - log_j
+        x = torch.stack([cols[p] for p in self.parameters], dim=1)
+        lower = torch.as_tensor(model.lower_bounds, dtype=torch.float32, device=device)
+        upper = torch.as_tensor(model.upper_bounds, dtype=torch.float32, device=device)
+        in_b = torch.all((x >= lower) & (x <= upper), dim=1)
+        columns = [x, log_q[:, None], in_b[:, None].to(x.dtype)]
+        if with_likelihood:
+            columns.append(model.torch_log_likelihood(x)[:, None])
+        # one device -> host copy for everything
+        out = torch.cat(columns, dim=1).cpu().numpy().astype(np.float64)
+        d = x.shape[1]
+        log_l = out[:, d + 2] if with_likelihood else None
+        return out[:, :d], out[:, d], log_l, out[:, d + 1] > 0.5
+
+    def populate(self, worst_point, n_samples: int = 10000) -> None:
+        """Fill the pool with ``n_samples`` accepted draws."""
+        st = datetime.datetime.now()
+        if not self.initialised:
+            raise RuntimeError("Proposal has not been initialised; call initialise() first")
+        self.indices = []
+        samples = empty_structured_array(n_samples, dtype=self.x_dtype)
+        n_proposed = 0
+        n_accepted = 0
+        with_ll = self.model.has_torch_likelihood
+        while n_accepted < n_samples:
+            z = self._truncation.sample_latent(self._draw_n)
+            n_proposed += len(z)
+            z = self._truncation.apply_latent(z)
+            if not len(z):
+                if n_proposed > self.max_samples:
+                    logger.warning("Reached max samples (%s)", self.max_samples)
+                    break
+                continue
+            st_lik = datetime.datetime.now()
+            x_arr, log_q, log_l, in_b = self._fused_backward(z, with_likelihood=with_ll)
+            if with_ll:
+                self.model.likelihood_evaluation_time += datetime.datetime.now() - st_lik
+                self.model.likelihood_evaluations += len(z)
+            keep = in_b & np.isfinite(log_q)
+            x = empty_structured_array(int(keep.sum()), dtype=self.x_dtype)
+            for i, name in enumerate(self.parameters):
+                x[name] = x_arr[keep, i]
+            if with_ll:
+                x["logL"] = log_l[keep]
+            log_q = log_q[keep]
+            if not len(x):
+                if n_proposed > self.max_samples:
+                    logger.warning("Reached max samples (%s)", self.max_samples)
+                    break
+                continue
+            log_w = self.compute_weights(x, log_q)
+            log_w = log_w - np.nanmax(log_w)
+            log_u = np.log(self.rng.random(len(log_w)))
+            batch_accept = log_w > log_u
+            n_batch = int(batch_accept.sum())
+            m = min(n_samples - n_accepted, n_batch)
+            samples[n_accepted : n_accepted + m] = x[batch_accept][:m]
+            n_accepted += n_batch
+            if n_proposed > self.max_samples:
+                logger.warning("Reached max samples (%s)", self.max_samples)
+                break
+        self.x = samples[: min(n_accepted, n_samples)]
+        if not len(self.x):
+            raise RuntimeError("Failed to populate the proposal pool (0 accepted samples)")
+        self.samples = self.convert_to_samples(self.x)
+        self.population_time += datetime.datetime.now() - st
+        if not with_ll:
+            self.samples["logL"] = self.model.batch_evaluate_log_likelihood(self.samples)
+        self.indices = self.rng.permutation(self.samples.size).tolist()
+        self.population_acceptance = n_accepted / n_proposed if n_proposed else np.nan
+        self.populated_count += 1
+        self.populated = True

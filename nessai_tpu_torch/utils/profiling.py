@@ -1,0 +1,138 @@
+"""Device-time measurement with ``torch.profiler`` (CUPTI).
+
+Counterpart of ``nessai_tpu/utils/profiling.py``. Event timers on the
+host clock measure what a caller waits for, which for small kernels is
+the launch overhead; the profiler's kernel records give the time the
+GPU spent. Run as a script on a GPU machine to trace the flagship run::
+
+    python -m nessai_tpu_torch.utils.profiling
+
+It runs the flagship three times in one process: a first run (which
+also pays for the CUDA context, the kernel build or load and the
+library handles), a run without tracing and a run under the profiler,
+and prints one JSON object: the wall time of each run, the training
+times, the GPU time and record count of the traced run, the GPU busy
+share of the untraced wall time, and the kernels that take the most GPU
+time.
+"""
+
+import json
+import subprocess
+import tempfile
+import time
+
+import torch
+
+__all__ = ["FLAGSHIP", "gpu_kernel_events", "device_time_ms", "profile_flagship"]
+
+#: The flagship configuration of ``bench.py`` (lines 51-63): the 2-D
+#: unit Gaussian of ``IntegrationTestModel(2)`` with nlive = 1000 and a
+#: RealNVP of 4 × [Permutation, AffineCoupling (resnet), ActNorm].
+FLAGSHIP = dict(
+    nlive=1000,
+    seed=1234,
+    resume=False,
+    plot=False,
+    checkpointing=False,
+    flow_config=dict(n_blocks=4, n_neurons="auto", n_layers=2),
+    training_config=dict(max_epochs=100, patience=20, batch_size=1000),
+    poolsize=1000,
+)
+
+
+def gpu_kernel_events(prof):
+    """The GPU activity records of a finished profile (kernels, copies,
+    memsets), without the user-annotation ranges the optimisers add."""
+    return [
+        e
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+    ]
+
+
+def _profile():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def device_time_ms(fn, calls: int = 200, warmup: int = 5):
+    """GPU time per call of ``fn``: the summed duration of the GPU work
+    that ``calls`` calls launch. Returns ``(ms per call, GPU records per
+    call)``; raises if the profiler recorded no GPU work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with _profile() as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = gpu_kernel_events(prof)
+    if not events:
+        raise RuntimeError("torch.profiler recorded no GPU work")
+    return sum(e.device_time_total for e in events) / calls / 1e3, len(events) / calls
+
+
+def _run_flagship(output):
+    from ..flowsampler import FlowSampler
+    from .testing import IntegrationTestModel
+
+    fs = FlowSampler(IntegrationTestModel(2), output=output, device="cuda", **FLAGSHIP)
+    fs.run(plot=False, save=False)
+    torch.cuda.synchronize()
+    return fs
+
+
+def profile_flagship(top: int = 12) -> dict:
+    """Time and trace the flagship run on the GPU."""
+    with tempfile.TemporaryDirectory(prefix=".profile_", dir=".") as output:
+        start = time.perf_counter()
+        _run_flagship(output)
+        first = time.perf_counter() - start
+        start = time.perf_counter()
+        fs = _run_flagship(output)
+        untraced = time.perf_counter() - start
+        with _profile() as prof:
+            start = time.perf_counter()
+            fs_traced = _run_flagship(output)
+            traced = time.perf_counter() - start
+    events = gpu_kernel_events(prof)
+    busy_s = sum(e.device_time_total for e in events) / 1e6
+    by_name = {}
+    for e in events:
+        count, total = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (count + 1, total + e.device_time_total / 1e6)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        timeout=60,
+    ).stdout.strip()
+    return dict(
+        card=card,
+        first_run_wall_s=first,
+        untraced_wall_s=untraced,
+        untraced_training_time_s=fs.ns.training_time.total_seconds(),
+        untraced_population_time_s=fs.ns.flow_proposal.population_time.total_seconds(),
+        traced_wall_s=traced,
+        traced_training_time_s=fs_traced.ns.training_time.total_seconds(),
+        gpu_records=len(events),
+        gpu_busy_s=busy_s,
+        gpu_busy_share_of_untraced_wall=busy_s / untraced,
+        logZ=fs.logZ,
+        logZ_traced=fs_traced.logZ,
+        top=[
+            dict(name=name[:90], count=count, seconds=seconds)
+            for name, (count, seconds) in ranked
+        ],
+    )
+
+
+if __name__ == "__main__":
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling the flagship needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps(profile_flagship()))

@@ -1,0 +1,115 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, and its entry points refuse to run on the CPU unless asked."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "nessai_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "optax", "nessai_tpu")
+
+
+def _top_level_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_jax_imports_in_source(path):
+    bad = [m for m in _top_level_imports(path) if m in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_every_module_without_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import nessai_tpu_torch\n"
+        "for m in pkgutil.walk_packages(nessai_tpu_torch.__path__, 'nessai_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok', len([m for m in sys.modules if m.startswith('nessai_tpu_torch')]))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=str(ROOT),
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+    assert int(out.stdout.split()[1]) > 30
+
+
+def _model():
+    from nessai_tpu_torch.utils.testing import IntegrationTestModel
+
+    return IntegrationTestModel(2)
+
+
+def test_flowsampler_without_gpu_raises(tmp_path, monkeypatch):
+    from nessai_tpu_torch.flowsampler import FlowSampler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="GPU"):
+        FlowSampler(_model(), output=str(tmp_path), nlive=50)
+    with pytest.raises(RuntimeError, match="GPU"):
+        FlowSampler(_model(), output=str(tmp_path), nlive=50, device="cuda")
+
+
+def test_flowsampler_on_cpu_when_asked(tmp_path):
+    from nessai_tpu_torch.flowsampler import FlowSampler
+
+    fs = FlowSampler(_model(), output=str(tmp_path), nlive=50, device="cpu")
+    assert fs.ns.device == torch.device("cpu")
+    assert fs.ns.flow_proposal.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize(
+    "entry", ["flowmodel", "proposal", "model"]
+)
+def test_other_entry_points_without_gpu_raise(entry, tmp_path, monkeypatch):
+    from nessai_tpu_torch.flowmodel import FlowModel
+    from nessai_tpu_torch.proposal import FlowProposal
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="GPU"):
+        if entry == "flowmodel":
+            FlowModel(dict(n_inputs=2), output=str(tmp_path))
+        elif entry == "proposal":
+            FlowProposal(_model(), output=str(tmp_path))
+        else:
+            m = _model()
+            m.set_rng(np.random.default_rng(1))
+            m.batch_evaluate_log_likelihood(m.new_point(4))
+
+
+def test_cpu_tensors_take_the_plain_version():
+    from nessai_tpu_torch.ops import coupling
+
+    coupling.affine_coupling.launches = 0
+    rng = np.random.default_rng(3)
+    x, s, t = (torch.as_tensor(rng.normal(size=(16, 2)), dtype=torch.float32) for _ in range(3))
+    y, ld = coupling.affine_coupling(x, s, t)
+    y_ref, ld_ref = coupling.affine_coupling_plain(x, s, t)
+    assert torch.equal(y, y_ref) and torch.equal(ld, ld_ref)
+    assert coupling.affine_coupling.launches == 0
