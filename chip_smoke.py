@@ -7,14 +7,17 @@ CUDA toolkit::
     python3 chip_smoke.py
 
 Phases, each printing one JSON line: the environment; the nvcc build of
-the affine-coupling kernel from ``nessai_tpu_torch/csrc``; that kernel
-against its plain PyTorch version (both directions, gradients, times);
-the flagship RealNVP on the GPU against the same weights on the CPU; the
-flagship nested-sampling run (``bench.py``'s configuration) through
-``FlowSampler(..., device="cuda")``; a ``kernels`` summary. The last line
-is ``{"ok": true, "device": {...}}``. Any failing phase ends the script
-with a non-zero exit code and without that line. Without a GPU the
-script exits with code 2 at once.
+the kernels from ``nessai_tpu_torch/csrc`` (one nvcc per source, all at
+once); the affine-coupling kernel (K1) against its plain PyTorch version
+(both directions, gradients, times); the rational-quadratic spline
+kernels (K2: forward, inverse and the backward of the forward) against
+theirs; the flagship RealNVP and the neural-spline flow on the GPU
+against the same weights on the CPU; the flagship nested-sampling run
+(``bench.py``'s configuration) through ``FlowSampler(..., device="cuda")``
+and the same run with the neural spline flow; a ``kernels`` summary. The
+last line is ``{"ok": true, "device": {...}}``. Any failing phase ends
+the script with a non-zero exit code and without that line. Without a
+GPU the script exits with code 2 at once.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -59,6 +62,48 @@ GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
 FLOW_ATOL, FLOW_RTOL = 1e-5, 1e-5
 PULL_LIMIT = 3.0
 
+#: K2 check shapes [n, d_tr, K]: the NSF flagship's training batch, its
+#: validation pass and pool draws (d_tr = 1, 8 bins), wider layers, and
+#: one shape with 4 bins.
+K2_SHAPES = [
+    (900, 1, 8),
+    (100, 1, 8),
+    (1000, 1, 8),
+    (4096, 1, 8),
+    (16384, 1, 8),
+    (13, 3, 8),
+    (65536, 16, 8),
+    (4096, 2, 4),
+]
+#: shape of the kernels-line numbers: an NSF flagship training step
+K2_MAIN_SHAPE = (900, 1, 8)
+TAIL_BOUND = 5.0
+#: The kernels compute in double between float32 loads and stores, so
+#: each output is the float32 rounding of the plain version run in
+#: float64 on the same inputs: held to about 16 ulp.
+K2_F64_ATOL = K2_F64_RTOL = 1e-6
+#: Against the plain version in float32, which strays from float64 by
+#: up to 1.4e-3 in the log-derivative and 5e-4 in y over 10^6 elements
+#: (float32 knots round to an ulp of the tail bound, and narrow, steep
+#: bins amplify that): y atol, log-derivative atol, and gradients as a
+#: share of the largest plain gradient.
+K2_F32_Y_ATOL, K2_F32_LD_ATOL, K2_F32_GRAD_SHARE = 2e-3, 1e-2, 1e-3
+#: Round trip: the float32 rounding of y, stretched by the inverse's slope
+#: 1 + exp(-ld): x to 1e-6, the log-derivatives' sum to 1e-3 of it.
+K2_RT_X, K2_RT_LD = 1e-6, 1e-3
+#: K2's timing runs: the plain version launches 90-184 kernels a call,
+#: and profiling 200 of them at eight shapes would take minutes
+K2_PLAIN_PROFILE_CALLS = 50
+K2_EVENT_TIMING = dict(inner=10, repeats=10)
+#: weight perturbation of the NSF in the flow check: the splines move
+#: away from the identity (log-derivatives of order 1)
+NSF_FLOW_PERTURBATION = 0.1
+#: what ``ms`` and ``plain_ms`` are where the profiler sees no GPU work
+EVENT_FALLBACK = (
+    "where the profiler records no GPU work, CUDA-event time per call over "
+    "the same back-to-back calls (GPU time plus launch gaps, so an upper bound)"
+)
+
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -87,6 +132,25 @@ def k1_bound_ms(n, d):
     n_bytes = 4 * n * (4 * d + 1)
     # per element: divide, tanh, multiply, exp, multiply, add, row-sum add
     n_ops = 7 * n * d
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def k2_bound_ms(x, K, backward=False):
+    """Least time for the spline on this data: bytes (x and the outputs
+    for every element, the 3K - 1 parameters only where x is inside the
+    tails) against float32 operations (about 21K + 45 per inside element
+    forward, 31K + 105 backward; none outside)."""
+    m = x.numel()
+    inside = int(((x >= -TAIL_BOUND) & (x <= TAIL_BOUND)).sum().item())
+    if backward:
+        # x, gy, gl read; dx, dw, dh, dd written for every element
+        n_bytes = 4 * (3 * m + (3 * K - 1) * inside + 3 * K * m)
+        n_ops = (31 * K + 105) * inside
+    else:
+        n_bytes = 4 * (3 * m + (3 * K - 1) * inside)
+        n_ops = (21 * K + 45) * inside
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / FP32_OPS_PER_S * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
@@ -124,13 +188,14 @@ def phase_build():
     from nessai_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    lib = _build.build("affine_coupling")
+    libs = _build.build_all()
     seconds = time.perf_counter() - t0
     emit(
         "build",
         seconds=seconds,
         flags=" ".join(_build.NVCC_FLAGS),
-        library=os.path.basename(str(lib)),
+        library=os.path.basename(str(libs["affine_coupling"])),
+        libraries={k: os.path.basename(str(v)) for k, v in libs.items()},
     )
 
 
@@ -173,13 +238,15 @@ def phase_k1():
                 torch.testing.assert_close(g_k, g_p, atol=GRAD_ATOL, rtol=GRAD_RTOL)
             kernel = functools.partial(coupling._launch, x, raw_s, t, inverse, 5.0)
             plain = functools.partial(coupling.affine_coupling_plain, x, raw_s, t, inverse)
-            ms, _ = device_time_ms(kernel)
-            plain_ms, plain_kernels = device_time_ms(plain)
+            ms, _, timer = device_time_ms(kernel)
+            plain_ms, plain_kernels, plain_timer = device_time_ms(plain)
             bound, bound_by = k1_bound_ms(n, d)
             row[tag] = {
                 "max_abs_err": err,
                 "ms": ms,
                 "plain_ms": plain_ms,
+                "timer": timer,
+                "plain_timer": plain_timer,
                 "plain_kernels_per_call": plain_kernels,
                 "call_ms": time_ms(kernel),
                 "plain_call_ms": time_ms(plain),
@@ -201,32 +268,191 @@ def phase_k1():
                    "grad_atol": GRAD_ATOL, "grad_rtol": GRAD_RTOL},
         timing=(
             "ms, plain_ms: GPU kernel time per call from torch.profiler over "
-            "200 calls; call_ms, plain_call_ms: CUDA-event time per call, "
-            "median of 30 samples of 50 back-to-back calls"
+            f"200 calls, or {EVENT_FALLBACK} (timer, plain_timer); call_ms, "
+            "plain_call_ms: CUDA-event time per call, median of 30 samples "
+            "of 50 back-to-back calls"
         ),
         shapes=rows,
     )
     return max_err, main
 
 
-def _flagship_flow(device, seed=0):
+def _k2_inputs(gen, n, d, K):
+    """x ~ U(-6, 6) (tails covered), raw parameters ~ N(0, 1), the
+    parameters as the slices of one [n, d, 3K - 1] conditioner output
+    that the coupling passes (strided views, as on the main path)."""
+    x = 12.0 * torch.rand(n, d, device="cuda", generator=gen) - 6.0
+    out = torch.randn(n, d, 3 * K - 1, device="cuda", generator=gen)
+    return x, out[..., :K], out[..., K : 2 * K], out[..., 2 * K :]
+
+
+def _max_err(a, b):
+    return (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
+
+
+def phase_k2():
+    from nessai_tpu_torch.ops.rqs import _launch, _launch_backward, rqs, rqs_plain
+    from nessai_tpu_torch.utils.profiling import device_time_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(20261017)
+    rows = []
+    max_err = {"rqs": 0.0, "rqs_backward": 0.0}
+    main = {}
+    for n, d, K in K2_SHAPES:
+        x, w, h, dd = _k2_inputs(gen, n, d, K)
+        x64 = [a.double() for a in (x, w, h, dd)]
+        row = {"n": n, "d": d, "K": K}
+        for inverse in (False, True):
+            tag = "inverse" if inverse else "forward"
+            with torch.no_grad():
+                y, ld = rqs(x, w, h, dd, inverse, TAIL_BOUND)
+                y64, ld64 = rqs_plain(*x64, inverse, TAIL_BOUND)
+                y32, ld32 = rqs_plain(x, w, h, dd, inverse, TAIL_BOUND)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y.double(), y64, atol=K2_F64_ATOL, rtol=K2_F64_RTOL)
+            torch.testing.assert_close(ld.double(), ld64, atol=K2_F64_ATOL, rtol=K2_F64_RTOL)
+            torch.testing.assert_close(y, y32, atol=K2_F32_Y_ATOL, rtol=0.0)
+            torch.testing.assert_close(ld, ld32, atol=K2_F32_LD_ATOL, rtol=0.0)
+            err = max(_max_err(y, y64), _max_err(ld, ld64))
+            max_err["rqs"] = max(max_err["rqs"], err)
+            kernel = functools.partial(_launch, x, w, h, dd, inverse, TAIL_BOUND)
+            plain = functools.partial(rqs_plain, x, w, h, dd, inverse, TAIL_BOUND)
+            ms, _, timer = device_time_ms(kernel)
+            plain_ms, plain_kernels, plain_timer = device_time_ms(
+                plain, calls=K2_PLAIN_PROFILE_CALLS
+            )
+            bound, bound_by = k2_bound_ms(x, K)
+            row[tag] = {
+                "max_abs_err": err,
+                "max_abs_err_vs_float32_plain": max(_max_err(y, y32), _max_err(ld, ld32)),
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "timer": timer,
+                "plain_timer": plain_timer,
+                "plain_kernels_per_call": plain_kernels,
+                "call_ms": time_ms(kernel, **K2_EVENT_TIMING),
+                "plain_call_ms": time_ms(plain, **K2_EVENT_TIMING),
+                "bound_ms": bound,
+                "bound_by": bound_by,
+            }
+            if (n, d, K) == K2_MAIN_SHAPE and not inverse:
+                main["rqs"] = row[tag]
+        # backward of the forward: the kernel against autograd of the
+        # plain version (float64, and float32 as a share of the largest
+        # plain gradient), for a random linear loss of both outputs
+        w_y = torch.randn(n, d, device="cuda", generator=gen)
+        w_ld = torch.randn(n, d, device="cuda", generator=gen)
+        grads = {}
+        graphs = {}
+        for name, f, dtype in (
+            ("kernel", rqs, torch.float32),
+            ("plain64", rqs_plain, torch.float64),
+            ("plain32", rqs_plain, torch.float32),
+        ):
+            args = [a.detach().to(dtype).requires_grad_(True) for a in (x, w, h, dd)]
+            yy, ll = f(*args, False, TAIL_BOUND)
+            cot = (w_y.to(dtype), w_ld.to(dtype))
+            grads[name] = torch.autograd.grad((yy, ll), args, cot, retain_graph=True)
+            graphs[name] = (yy, ll, args, cot)
+        torch.cuda.synchronize()
+        share = 0.0
+        for g_k, g_64, g_32 in zip(grads["kernel"], grads["plain64"], grads["plain32"]):
+            torch.testing.assert_close(g_k.double(), g_64, atol=K2_F64_ATOL, rtol=K2_F64_RTOL)
+            if g_32.numel():
+                scale = g_32.abs().max().item()
+                share = max(share, _max_err(g_k, g_32) / max(scale, 1e-30))
+        if share > K2_F32_GRAD_SHARE:
+            raise RuntimeError(
+                f"rqs_backward at {(n, d, K)} differs from the float32 plain gradient by "
+                f"{share} of its largest entry (limit {K2_F32_GRAD_SHARE})"
+            )
+        err = max(_max_err(a, b) for a, b in zip(grads["kernel"], grads["plain64"]))
+        max_err["rqs_backward"] = max(max_err["rqs_backward"], err)
+        yy, ll, args, cot = graphs["plain32"]
+        kernel = functools.partial(_launch_backward, x, w, h, dd, w_y, w_ld, TAIL_BOUND)
+        plain = functools.partial(torch.autograd.grad, (yy, ll), args, cot, retain_graph=True)
+        ms, _, timer = device_time_ms(kernel)
+        plain_ms, plain_kernels, plain_timer = device_time_ms(plain, calls=K2_PLAIN_PROFILE_CALLS)
+        bound, bound_by = k2_bound_ms(x, K, backward=True)
+        row["backward"] = {
+            "max_abs_err": err,
+            "max_share_of_largest_float32_plain_gradient": share,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "timer": timer,
+            "plain_timer": plain_timer,
+            "plain_kernels_per_call": plain_kernels,
+            "call_ms": time_ms(kernel, **K2_EVENT_TIMING),
+            "plain_call_ms": time_ms(plain, **K2_EVENT_TIMING),
+            "bound_ms": bound,
+            "bound_by": bound_by,
+        }
+        if (n, d, K) == K2_MAIN_SHAPE:
+            main["rqs_backward"] = row["backward"]
+        del graphs, grads
+        # forward -> inverse round trip through the kernel
+        with torch.no_grad():
+            z, ld_f = rqs(x, w, h, dd, False, TAIL_BOUND)
+            x_back, ld_i = rqs(z, w, h, dd, True, TAIL_BOUND)
+        slope = 1.0 + torch.exp(-ld_f.double())
+        rt_x = ((x_back - x).abs() / slope).max().item()
+        rt_ld = ((ld_f + ld_i).abs() / slope).max().item()
+        if not (rt_x <= K2_RT_X and rt_ld <= K2_RT_LD):
+            raise RuntimeError(
+                f"rqs round trip at {(n, d, K)}: x {rt_x} (limit {K2_RT_X}), "
+                f"log-derivative {rt_ld} (limit {K2_RT_LD}), in units of 1 + exp(-ld)"
+            )
+        row["round_trip"] = {
+            "max_abs_err_x": _max_err(x_back, x),
+            "max_abs_err_ld": (ld_f + ld_i).abs().max().item(),
+            "max_x_err_over_slope": rt_x,
+            "max_ld_err_over_slope": rt_ld,
+        }
+        rows.append(row)
+    emit(
+        "k2_vs_plain",
+        tolerance={
+            "vs_float64_plain_atol": K2_F64_ATOL,
+            "vs_float64_plain_rtol": K2_F64_RTOL,
+            "vs_float32_plain_y_atol": K2_F32_Y_ATOL,
+            "vs_float32_plain_ld_atol": K2_F32_LD_ATOL,
+            "vs_float32_plain_grad_share_of_max": K2_F32_GRAD_SHARE,
+            "round_trip_x_per_slope": K2_RT_X,
+            "round_trip_ld_per_slope": K2_RT_LD,
+        },
+        timing=(
+            "ms, plain_ms: GPU time per call from torch.profiler over 200 kernel "
+            f"calls and {K2_PLAIN_PROFILE_CALLS} plain calls (plain: float32, "
+            f"backward = autograd of the plain graph), or {EVENT_FALLBACK} "
+            "(timer, plain_timer); call_ms, plain_call_ms: "
+            f"CUDA-event time per call, median of {K2_EVENT_TIMING['repeats']} "
+            f"samples of {K2_EVENT_TIMING['inner']} back-to-back calls"
+        ),
+        shapes=rows,
+    )
+    return max_err, main
+
+
+def _flagship_flow(device, config, seed=0):
     from nessai_tpu_torch.flows import configure_model
 
-    flow = configure_model(
-        dict(n_inputs=2, n_blocks=4, n_neurons="auto", n_layers=2, seed=seed)
-    )
+    flow = configure_model(dict(config["flow_config"], n_inputs=2, seed=seed))
     return flow.to(device)
 
 
-def phase_flow(seed=7):
-    flow_gpu = _flagship_flow("cuda")
+def phase_flow(config, name, scale, seed=7, reference_dtype=torch.float32):
+    """The flagship's flow (``config``) on the GPU against the same
+    weights on the CPU in ``reference_dtype``, every weight perturbed by
+    ``scale`` so that the couplings are not the identity."""
+    flow_gpu = _flagship_flow("cuda", config)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         # move every weight away from the zero-initialised last layers
         for p in flow_gpu.parameters():
-            p.add_(0.05 * torch.randn(p.shape, generator=gen).to(p.device))
-    flow_cpu = _flagship_flow("cpu")
+            p.add_(scale * torch.randn(p.shape, generator=gen).to(p.device))
+    flow_cpu = _flagship_flow("cpu", config)
     flow_cpu.load_state_dict({k: v.cpu() for k, v in flow_gpu.state_dict().items()})
+    flow_cpu.to(reference_dtype)
     # inputs in the range the flagship feeds the flow: z-scored live
     # points and latents truncated at a radius of a few sigma. (The
     # float32 error of log q grows with |z| · error(z): at |z| ~ 8 it
@@ -235,54 +461,66 @@ def phase_flow(seed=7):
     x = torch.as_tensor(x[np.linalg.norm(x, axis=1) <= 3.0][:4096], dtype=torch.float32)
     errs = {}
     shares = {}
-    scale = {}
+    largest = {}
     with torch.no_grad():
-        for name, f in (
+        for method, f in (
             ("forward", lambda fl, a: fl(a)),
             ("inverse", lambda fl, a: fl.inverse(a)),
             ("log_prob", lambda fl, a: (fl.log_prob(a),)),
         ):
             out_gpu = f(flow_gpu, x.cuda())
-            out_cpu = f(flow_cpu, x)
+            out_cpu = f(flow_cpu, x.to(reference_dtype))
             err = share = 0.0
             for a, b in zip(out_gpu, out_cpu):
-                torch.testing.assert_close(a.cpu(), b, atol=FLOW_ATOL, rtol=FLOW_RTOL)
-                diff = (a.cpu() - b).abs()
+                a = a.cpu().to(reference_dtype)
+                torch.testing.assert_close(a, b, atol=FLOW_ATOL, rtol=FLOW_RTOL)
+                diff = (a - b).abs()
                 err = max(err, diff.max().item())
                 share = max(share, (diff / (FLOW_ATOL + FLOW_RTOL * b.abs())).max().item())
-            errs[name] = err
-            shares[name] = share
-            scale[name] = max(b.abs().max().item() for b in out_cpu)
+            errs[method] = err
+            shares[method] = share
+            largest[method] = max(b.abs().max().item() for b in out_cpu)
+        # how far the perturbed flow is from its permutations alone
+        z_cpu, _ = flow_cpu(x.to(reference_dtype))
+    perm = x.to(reference_dtype)
+    for b in flow_cpu.bijector.bijectors:
+        if hasattr(b, "perm"):
+            perm = perm[:, b.perm]
     emit(
         "flow_gpu_vs_cpu",
+        flow=name,
         n=4096,
+        weight_perturbation=scale,
+        reference_dtype=str(reference_dtype),
         atol=FLOW_ATOL,
         rtol=FLOW_RTOL,
         max_abs_err=errs,
         max_share_of_tolerance=shares,
-        max_abs_value=scale,
+        max_abs_value=largest,
+        max_abs_distance_from_permutation=(z_cpu - perm).abs().max().item(),
     )
 
 
-def phase_flagship():
+def _flagship_run(config, counters):
+    """One nested-sampling run of ``config`` on the GPU, with every
+    launch counter in ``counters`` (wrapper, attribute) set to 0 just
+    before it and read just after. Returns the run's summary, the counts
+    and the sampler."""
     from nessai_tpu_torch.flowsampler import FlowSampler
-    from nessai_tpu_torch.ops import coupling
-    from nessai_tpu_torch.utils.profiling import FLAGSHIP
     from nessai_tpu_torch.utils.testing import IntegrationTestModel
 
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as output:
         model = IntegrationTestModel(2)
         torch.cuda.reset_peak_memory_stats()
-        coupling.affine_coupling.launches = 0
+        for wrapper, attr in counters.values():
+            setattr(wrapper, attr, 0)
         start = time.perf_counter()
-        # bench.py:51-63: nlive 1000, seed 1234, RealNVP 4 x [permutation,
-        # resnet affine coupling, actnorm], 100 epochs, patience 20
-        fs = FlowSampler(model, output=output, device="cuda", **FLAGSHIP)
+        fs = FlowSampler(model, output=output, device="cuda", **config)
         logZ, nested = fs.run(plot=False, save=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-        launches = coupling.affine_coupling.launches
+        launches = {key: int(getattr(w, a)) for key, (w, a) in counters.items()}
     ns = fs.ns
     analytic = float(model.analytic_log_evidence)
     err = float(fs.logZ_error)
@@ -306,21 +544,71 @@ def phase_flagship():
         populates=int(ns.flow_proposal.populated_count),
         uninformed_population_time_s=ns._uninformed_proposal.population_time.total_seconds(),
         likelihood_evaluations_per_s=evals / wall,
-        k1_launches=int(launches),
+        **launches,
         max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
         posterior_samples=int(fs.posterior_samples.size),
     )
-    emit("flagship", **result)
-    if launches == 0:
-        raise RuntimeError("the flagship run launched the affine-coupling kernel 0 times")
+    return result, nested, fs
+
+
+def _check_run(result, nested, fs):
+    pull = result["pull"]
     if not math.isfinite(pull) or abs(pull) >= PULL_LIMIT:
         raise RuntimeError(f"logZ pull {pull} is not within {PULL_LIMIT} sigma")
-    if len(nested) != ns.iteration + ns.nlive:
+    if len(nested) != fs.ns.iteration + fs.ns.nlive:
         raise RuntimeError("nested samples do not match iterations + nlive")
     post = fs.posterior_samples
-    if not post.size or not all(np.isfinite(post[n]).all() for n in model.names):
+    if not post.size or not all(np.isfinite(post[n]).all() for n in fs.ns.model.names):
         raise RuntimeError("posterior samples are empty or not finite")
+
+
+def phase_flagship():
+    from nessai_tpu_torch.ops import coupling
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP
+
+    # bench.py:51-63: nlive 1000, seed 1234, RealNVP 4 x [permutation,
+    # resnet affine coupling, actnorm], 100 epochs, patience 20
+    result, nested, fs = _flagship_run(
+        FLAGSHIP, {"k1_launches": (coupling.affine_coupling, "launches")}
+    )
+    emit("flagship", **result)
+    if result["k1_launches"] == 0:
+        raise RuntimeError("the flagship run launched the affine-coupling kernel 0 times")
+    _check_run(result, nested, fs)
     return result
+
+
+def phase_flagship_nsf():
+    from nessai_tpu_torch.ops import coupling, rqs
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_NSF
+
+    # the same run with the neural spline flow: 4 x [permutation, resnet
+    # RQS coupling with 8 bins and linear tails on [-5, 5]], no actnorm
+    result, nested, fs = _flagship_run(
+        FLAGSHIP_NSF,
+        {
+            "rqs_launches": (rqs, "launches"),
+            "rqs_backward_launches": (rqs, "backward_launches"),
+            "k1_launches": (coupling.affine_coupling, "launches"),
+        },
+    )
+    emit("flagship_nsf", **result)
+    if result["rqs_launches"] == 0 or result["rqs_backward_launches"] == 0:
+        raise RuntimeError(
+            "the NSF flagship launched the spline kernels "
+            f"{result['rqs_launches']} (forward/inverse) and "
+            f"{result['rqs_backward_launches']} (backward) times"
+        )
+    _check_run(result, nested, fs)
+    return result
+
+
+def timed(seconds, name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, with its wall time in ``seconds[name]``."""
+    start = time.perf_counter()
+    out = fn(*args, **kwargs)
+    seconds[name] = time.perf_counter() - start
+    return out
 
 
 def main():
@@ -329,11 +617,22 @@ def main():
               file=sys.stderr)
         return 2
     try:
-        smi = phase_environment()
-        phase_build()
-        max_err, main_k1 = phase_k1()
-        phase_flow()
-        flagship = phase_flagship()
+        from nessai_tpu_torch.utils.profiling import FLAGSHIP, FLAGSHIP_NSF
+
+        seconds = {}
+        smi = timed(seconds, "environment", phase_environment)
+        timed(seconds, "build", phase_build)
+        max_err, main_k1 = timed(seconds, "k1_vs_plain", phase_k1)
+        max_err_k2, main_k2 = timed(seconds, "k2_vs_plain", phase_k2)
+        timed(seconds, "flow_realnvp", phase_flow, FLAGSHIP, "realnvp", scale=0.05)
+        # the reference in float64: the plain spline in float32 strays
+        # from the exact spline by more than the kernel, which computes
+        # in double (PERF.md, Findings)
+        timed(seconds, "flow_nsf", phase_flow, FLAGSHIP_NSF, "nsf",
+              scale=NSF_FLOW_PERTURBATION, reference_dtype=torch.float64)
+        flagship = timed(seconds, "flagship", phase_flagship)
+        flagship_nsf = timed(seconds, "flagship_nsf", phase_flagship_nsf)
+        emit("seconds", **seconds, total=sum(seconds.values()))
     except Exception:
         traceback.print_exc()
         return 1
@@ -350,10 +649,38 @@ def main():
             "bound_ms": main_k1["bound_ms"],
             "bound_by": main_k1["bound_by"],
             "library_ms": None,
+            "timer": main_k1["timer"],
+            "plain_timer": main_k1["plain_timer"],
             "shape": list(K1_MAIN_SHAPE),
             "card": smi,
         }
     ]
+    for name, replaces, launches in (
+        ("rqs", "nessai_tpu/ops/rqs_pallas.py:180", flagship_nsf["rqs_launches"]),
+        # the JAX package's backward: jax.vjp of the jnp reference
+        ("rqs_backward", "nessai_tpu/ops/rqs_pallas.py:228", flagship_nsf["rqs_backward_launches"]),
+    ):
+        row = main_k2[name]
+        kernels.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": "nessai_tpu_torch/csrc/rqs.cu",
+                "replaces": replaces,
+                "launches": launches,
+                "max_abs_err": max_err_k2[name],
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                # no single PyTorch call computes a rational-quadratic spline
+                "library_ms": None,
+                "timer": row["timer"],
+                "plain_timer": row["plain_timer"],
+                "shape": list(K2_MAIN_SHAPE),
+                "card": smi,
+            }
+        )
     print(json.dumps({"kernels": kernels}), flush=True)
     print(
         json.dumps(

@@ -5,13 +5,15 @@ The JAX package keeps a flow's parameters as a pytree
 ``{"bijector": [per-bijector dict, ...], "base": {}}``; here it is given
 and returned as numpy arrays. A dense layer is ``{"w": [n_in, n_out],
 "b": [n_out]}`` there and ``nn.Linear`` (weight ``[n_out, n_in]``) here,
-so weights are transposed. Permutations become buffers.
+so weights are transposed. Permutations become buffers. A coupling
+(affine or spline) is ``{"net": ...}``; a chain without ActNorm simply
+has no such entries.
 """
 
 import numpy as np
 import torch
 
-from .bijectors import ActNorm, AffineCoupling, Permutation
+from .bijectors import ActNorm, AffineCoupling, Permutation, RQSCoupling
 from .nets import MLP, ResNet
 
 __all__ = ["params_from_jax", "params_to_jax"]
@@ -69,7 +71,7 @@ def params_from_jax(flow, params) -> None:
             device = b.perm.device
             b.perm = torch.tensor(np.asarray(p["perm"]), dtype=torch.long, device=device)
             b.inv = torch.tensor(np.asarray(p["inv"]), dtype=torch.long, device=device)
-        elif isinstance(b, AffineCoupling):
+        elif isinstance(b, (AffineCoupling, RQSCoupling)):
             _net_from(b.net, p["net"])
         elif isinstance(b, ActNorm):
             b.log_scale.copy_(torch.tensor(np.asarray(p["log_scale"], np.float32)))
@@ -89,7 +91,7 @@ def params_to_jax(flow) -> dict:
                     "inv": b.inv.cpu().numpy().astype(np.int32),
                 }
             )
-        elif isinstance(b, AffineCoupling):
+        elif isinstance(b, (AffineCoupling, RQSCoupling)):
             out.append({"net": _net_to(b.net)})
         elif isinstance(b, ActNorm):
             out.append(

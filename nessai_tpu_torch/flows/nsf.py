@@ -1,0 +1,53 @@
+"""Neural spline flow builder (arXiv:1906.04032). Counterpart of
+``nessai_tpu/flows/nsf.py``: ``n_blocks`` × [linear transform →
+RQSCoupling (→ ActNorm)], with 8 bins and linear tails on [-5, 5] by
+default."""
+
+from .bijectors import ActNorm, Chain, RQSCoupling
+from .realnvp import block_masks, make_linear_transform
+
+__all__ = ["build_nsf_bijector"]
+
+
+def build_nsf_bijector(
+    dim: int,
+    n_blocks: int = 4,
+    n_neurons: int = 8,
+    n_layers: int = 2,
+    num_bins: int = 8,
+    tail_bound: float = 5.0,
+    tails="linear",
+    mask=None,
+    net: str = "resnet",
+    activation: str = "relu",
+    linear_transform="permutation",
+    batch_norm_between_layers: bool = False,
+    pre_transform=None,
+    generator=None,
+):
+    if pre_transform == "logit":
+        raise NotImplementedError(
+            "pre_transform='logit' needs the Logit bijector, which is not in "
+            "the PyTorch port yet (ROADMAP §1 item 1)"
+        )
+    if pre_transform is not None:
+        raise ValueError(f"Unknown pre-transform: {pre_transform}")
+    bijectors = []
+    for m in block_masks(dim, n_blocks, mask):
+        bijectors += make_linear_transform(linear_transform, dim, generator)
+        bijectors.append(
+            RQSCoupling(
+                m,
+                n_neurons=n_neurons,
+                n_layers=n_layers,
+                num_bins=num_bins,
+                tail_bound=tail_bound,
+                tails=tails,
+                net=net,
+                activation=activation,
+                generator=generator,
+            )
+        )
+        if batch_norm_between_layers:
+            bijectors.append(ActNorm(dim))
+    return Chain(bijectors)

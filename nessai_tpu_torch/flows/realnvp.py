@@ -1,16 +1,45 @@
 """RealNVP builder. Counterpart of ``nessai_tpu/flows/realnvp.py``:
-``n_blocks`` × [Permutation → AffineCoupling → ActNorm]."""
+``n_blocks`` × [linear transform → AffineCoupling → ActNorm]."""
 
 import numpy as np
 
 from .bijectors import ActNorm, AffineCoupling, Chain, Permutation
 
-__all__ = ["build_realnvp_bijector", "alternating_masks"]
+__all__ = ["build_realnvp_bijector", "alternating_masks", "block_masks", "make_linear_transform"]
 
 
 def alternating_masks(dim: int, n_blocks: int):
     base = np.arange(dim) % 2
     return [base if i % 2 == 0 else 1 - base for i in range(n_blocks)]
+
+
+def block_masks(dim: int, n_blocks: int, mask=None):
+    """One coupling mask per block: alternating by default, a 1-D mask
+    and its complement in turn, or one mask per block."""
+    if mask is None:
+        return alternating_masks(dim, n_blocks)
+    mask = np.asarray(mask)
+    if mask.ndim == 1:
+        return [mask if i % 2 == 0 else 1 - mask for i in range(n_blocks)]
+    if len(mask) != n_blocks:
+        raise ValueError("Mask does not match number of blocks")
+    return list(mask)
+
+
+def make_linear_transform(kind, dim: int, generator=None):
+    """The linear transform between coupling blocks
+    (``nessai_tpu/flows/realnvp.py:36-50``): a random permutation, or
+    nothing for ``None``/``"none"``."""
+    if kind is None or kind == "none":
+        return []
+    if kind == "permutation":
+        return [Permutation(dim, generator=generator)]
+    if kind in ("lu", "svd"):
+        raise NotImplementedError(
+            f"linear_transform={kind!r} needs LULinear/SVDLinear, which are not "
+            "in the PyTorch port yet (ROADMAP §1 item 1)"
+        )
+    raise ValueError(f"Unknown linear transform: {kind}")
 
 
 def build_realnvp_bijector(
@@ -21,25 +50,17 @@ def build_realnvp_bijector(
     mask=None,
     net: str = "resnet",
     activation: str = "relu",
+    linear_transform="permutation",
+    batch_norm_between_layers: bool = True,
     volume_preserving: bool = False,
     generator=None,
 ):
-    if mask is None:
-        masks = alternating_masks(dim, n_blocks)
-    else:
-        mask = np.asarray(mask)
-        if mask.ndim == 1:
-            masks = [mask if i % 2 == 0 else 1 - mask for i in range(n_blocks)]
-        else:
-            if len(mask) != n_blocks:
-                raise ValueError("Mask does not match number of blocks")
-            masks = list(mask)
     bijectors = []
-    for i in range(n_blocks):
-        bijectors.append(Permutation(dim, generator=generator))
+    for m in block_masks(dim, n_blocks, mask):
+        bijectors += make_linear_transform(linear_transform, dim, generator)
         bijectors.append(
             AffineCoupling(
-                masks[i],
+                m,
                 n_neurons=n_neurons,
                 n_layers=n_layers,
                 net=net,
@@ -48,5 +69,6 @@ def build_realnvp_bijector(
                 generator=generator,
             )
         )
-        bijectors.append(ActNorm(dim))
+        if batch_norm_between_layers:
+            bijectors.append(ActNorm(dim))
     return Chain(bijectors)

@@ -1,16 +1,44 @@
 """Flow construction. Counterpart of ``nessai_tpu/flows/utils.py``
-(``get_n_neurons``, ``configure_model``) for the RealNVP family."""
+(``get_n_neurons``, the builder registry, ``configure_model``) for the
+RealNVP and neural-spline families."""
 
 import copy
+
 import torch
 
 from .base import Flow
 from .distributions import StandardNormal
+from .nsf import build_nsf_bijector
 from .realnvp import build_realnvp_bijector
 
-__all__ = ["get_n_neurons", "configure_model"]
+__all__ = ["get_n_neurons", "get_flow_builder", "configure_model"]
 
-_BUILDER_KEYS = ("mask", "net", "volume_preserving", "activation")
+#: ``ftype`` names and their builders (``nessai_tpu/flows/utils.py:42-52``);
+#: the glasflow-prefixed names map to the same builders.
+_BUILDERS = {
+    "realnvp": build_realnvp_bijector,
+    "frealnvp": build_realnvp_bijector,
+    "spline": build_nsf_bijector,
+    "nsf": build_nsf_bijector,
+    "rq-nsf": build_nsf_bijector,
+    "glasflow-realnvp": build_realnvp_bijector,
+    "glasflow-nsf": build_nsf_bijector,
+}
+
+#: Config keys forwarded to the builder, as the JAX package's
+#: ``configure_model`` does (those the port's builders take).
+_BUILDER_KEYS = (
+    "mask",
+    "net",
+    "linear_transform",
+    "batch_norm_between_layers",
+    "num_bins",
+    "tail_bound",
+    "tails",
+    "pre_transform",
+    "volume_preserving",
+    "activation",
+)
 
 
 def get_n_neurons(n_neurons, n_inputs: int) -> int:
@@ -23,18 +51,28 @@ def get_n_neurons(n_neurons, n_inputs: int) -> int:
     return int(n_neurons)
 
 
+def get_flow_builder(ftype: str):
+    """The bijector builder registered under ``ftype``."""
+    name = ftype.lower()
+    if name == "maf":
+        raise NotImplementedError(
+            "Flow 'maf' is not in the PyTorch port yet (ROADMAP §1 item 2)"
+        )
+    if name not in _BUILDERS:
+        raise ValueError(f"Unknown flow: {name}. Known flows are: {sorted(_BUILDERS)}")
+    return _BUILDERS[name]
+
+
 def configure_model(config: dict) -> Flow:
     """Build a :class:`Flow` from a flow config dict (keys ``n_inputs,
-    n_blocks, n_layers, n_neurons, ftype, distribution, kwargs, seed``).
-    Weights and permutations are drawn from a ``torch.Generator`` seeded
-    with ``config['seed']`` (default 0)."""
+    n_blocks, n_layers, n_neurons, ftype, distribution, kwargs, seed``
+    and the builder keys). Weights and permutations are drawn from a
+    ``torch.Generator`` seeded with ``config['seed']`` (default 0)."""
     config = copy.deepcopy(config)
     dim = config.get("n_inputs")
     if not isinstance(dim, int):
         raise TypeError(f"Number of inputs (n_inputs) must be an int, got: {dim}")
-    ftype = (config.get("ftype") or "realnvp").lower()
-    if ftype != "realnvp":
-        raise ValueError(f"Flow {ftype!r} is not in the PyTorch port yet; known: realnvp")
+    builder = get_flow_builder(config.get("ftype") or "realnvp")
     if config.get("distribution") not in (None, "normal", "mvn"):
         raise ValueError(
             f"Base distribution {config['distribution']!r} is not in the "
@@ -45,7 +83,7 @@ def configure_model(config: dict) -> Flow:
         if k in config:
             extra[k] = config[k]
     generator = torch.Generator().manual_seed(int(config.get("seed", 0)))
-    bijector = build_realnvp_bijector(
+    bijector = builder(
         dim,
         n_blocks=config.get("n_blocks", 4),
         n_neurons=get_n_neurons(config.get("n_neurons"), n_inputs=dim),

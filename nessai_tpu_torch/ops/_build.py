@@ -8,6 +8,7 @@ rebuilt and an unchanged one is loaded as it is. Nothing is built when a
 module is imported: :func:`load` runs inside the first launch.
 """
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -17,10 +18,12 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "build", "build_all", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+#: The sources under ``csrc/``, one library each.
+KERNELS = ("affine_coupling", "rqs")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode",
@@ -73,6 +76,13 @@ def build(name: str) -> Path:
         )
     os.replace(tmp, target)
     return target
+
+
+def build_all(names=KERNELS) -> dict:
+    """Build every named source at once, one nvcc process each; returns
+    ``{name: path}``."""
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 @functools.lru_cache(maxsize=None)

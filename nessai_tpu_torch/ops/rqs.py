@@ -1,0 +1,250 @@
+"""Rational-quadratic spline with linear tails: the CUDA kernels, the
+wrapper and its autograd rule.
+
+Replaces the Pallas TPU kernel ``nessai_tpu/ops/rqs_pallas.py``
+(``rqs_pallas``, ``pl.pallas_call`` at line 180, and its training
+wrapper ``rqs_pallas_vjp``). The kernels are ``csrc/rqs.cu``, built with
+nvcc for ``sm_90a`` and bound with ctypes (see ``_build.py``):
+``rqs_forward_launch`` (the forward or inverse transform) and
+``rqs_backward_launch`` (the gradient of the forward transform, which
+the JAX package takes by autodiff of its jnp reference).
+
+What bounds them on an H100: bytes. The forward moves 4·m·3K bytes in
+and 8·m out for m elements and K bins; the backward 4·m·(3K + 2) in and
+4·m·3K out. At the flagship's shapes (m ~ 10³) that is tens of
+nanoseconds; each thread's chain of double-precision exponentials sets
+the time there (``csrc/rqs.cu``).
+
+:func:`rqs` is the wrapper: a CPU tensor takes the plain version
+(``flows/rqs.py``) with autograd through it, a CUDA tensor launches the
+kernels or raises. There is no fall-back from one to the other.
+
+Layout: the parameters are read through their strides. The coupling's
+conditioner output ``[n, n_tr, 3K - 1]`` is sliced into widths, heights
+and derivatives, and each slice flattens to ``[m, K]`` rows with a row
+stride of ``3K - 1`` and unit column stride: the kernels read those
+views as they are, with no copy. A parameter whose columns are not
+contiguous is copied once.
+"""
+
+import ctypes
+import functools
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from ..flows.rqs import (
+    DEFAULT_MIN_BIN_HEIGHT,
+    DEFAULT_MIN_BIN_WIDTH,
+    DEFAULT_MIN_DERIVATIVE,
+    derivative_shift,
+    rational_quadratic_spline,
+)
+
+__all__ = ["rqs", "rqs_plain", "RQSFunction", "MAX_BINS", "on_card"]
+
+#: The kernels keep up to this many bins per element in registers
+#: (``kMaxBins`` in ``csrc/rqs.cu``).
+MAX_BINS = 16
+
+#: The queue item that would add the gradient of the inverse direction.
+_INVERSE_GRAD_ITEM = "ROADMAP §1 item 1 (the inverse-direction gradient of K2)"
+
+
+def rqs_plain(x, w, h, d, inverse: bool = False, tail_bound: float = 5.0):
+    """The plain PyTorch version: :func:`rational_quadratic_spline` with
+    linear tails, returning ``(y, per-element log-derivative)``."""
+    return rational_quadratic_spline(x, w, h, d, inverse=inverse, tail_bound=tail_bound)
+
+
+def on_card(x) -> bool:
+    """Whether ``x`` goes to the kernels: True for a CUDA tensor, False
+    for a CPU tensor; any other device raises."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise RuntimeError(f"rqs: no kernel for device {x.device}")
+
+
+def _check_inputs(x, w, h, d) -> None:
+    K = w.shape[-1] if w.dim() else 0
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"rqs: x must be float32 (or float64 on the CPU), got {x.dtype}")
+    for name, a, last in (("x", x, None), ("w", w, K), ("h", h, K), ("d", d, K - 1)):
+        if a.dtype != x.dtype:
+            raise TypeError(f"rqs: {name} is {a.dtype}, x is {x.dtype}")
+        if a.device != x.device:
+            raise ValueError(f"rqs: {name} is on {a.device}, x on {x.device}")
+        want = tuple(x.shape) + (() if last is None else (last,))
+        if tuple(a.shape) != want:
+            raise ValueError(
+                f"rqs: {name} has shape {tuple(a.shape)}, expected {want} "
+                f"(x {tuple(x.shape)}, K = {K} bins)"
+            )
+    if K < 1:
+        raise ValueError("rqs: needs at least one bin")
+
+
+def _rows(a, m: int, k: int):
+    """``a`` as ``[m, k]`` rows with unit column stride: a view where the
+    strides allow it, else one contiguous copy."""
+    a = a.reshape(m, k)
+    if k > 1 and a.stride(1) != 1:
+        a = a.contiguous()
+    return a
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    """The C entries of ``csrc/rqs.cu``, built at first use."""
+    from ._build import load
+
+    lib = load("rqs")
+    ptr, i64, i32, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
+    params = [i64, i32, f64, f64, f64, f64, f64]  # m, K, B, min_w, min_h, min_d, shift
+    fwd = lib.rqs_forward_launch
+    fwd.argtypes = [ptr, ptr, i64, ptr, i64, ptr, i64, ptr, ptr, *params, i32, ptr]
+    fwd.restype = ctypes.c_int
+    bwd = lib.rqs_backward_launch
+    bwd.argtypes = [ptr, ptr, i64, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr, *params, ptr]
+    bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _spline_args(m, K, tail_bound):
+    return (
+        m,
+        K,
+        float(tail_bound),
+        DEFAULT_MIN_BIN_WIDTH,
+        DEFAULT_MIN_BIN_HEIGHT,
+        DEFAULT_MIN_DERIVATIVE,
+        derivative_shift(DEFAULT_MIN_DERIVATIVE),
+    )
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch(x, w, h, d, inverse: bool, tail_bound: float):
+    """Launch ``rqs_forward_launch`` on PyTorch's current stream; returns
+    ``(y, ld)`` shaped as ``x``."""
+    K = w.shape[-1]
+    m = x.numel()
+    xf = x.reshape(m).contiguous()
+    w2, h2, d2 = _rows(w, m, K), _rows(h, m, K), _rows(d, m, K - 1)
+    y = torch.empty_like(xf)
+    ld = torch.empty_like(xf)
+    if m:
+        fwd, _ = _kernels()
+        with torch.cuda.device(x.device):
+            err = fwd(
+                xf.data_ptr(),
+                w2.data_ptr(), w2.stride(0),
+                h2.data_ptr(), h2.stride(0),
+                d2.data_ptr(), d2.stride(0),
+                y.data_ptr(), ld.data_ptr(),
+                *_spline_args(m, K, tail_bound),
+                int(bool(inverse)),
+                _stream(x),
+            )
+        if err != 0:
+            raise RuntimeError(f"rqs forward kernel launch failed with cudaError {err}")
+        rqs.launches += 1
+    return y.reshape(x.shape), ld.reshape(x.shape)
+
+
+def _launch_backward(x, w, h, d, gy, gl, tail_bound: float):
+    """Launch ``rqs_backward_launch``: the gradients of the forward
+    transform for the cotangents ``gy`` (of y) and ``gl`` (of the
+    log-derivative). Returns ``(dx, dw, dh, dd)`` shaped as the inputs."""
+    K = w.shape[-1]
+    m = x.numel()
+    xf = x.reshape(m).contiguous()
+    w2, h2, d2 = _rows(w, m, K), _rows(h, m, K), _rows(d, m, K - 1)
+    gy = gy.reshape(m).contiguous()
+    gl = gl.reshape(m).contiguous()
+    dx = torch.empty_like(xf)
+    dw = torch.empty(m, K, dtype=x.dtype, device=x.device)
+    dh = torch.empty_like(dw)
+    dd = torch.empty(m, K - 1, dtype=x.dtype, device=x.device)
+    if m:
+        _, bwd = _kernels()
+        with torch.cuda.device(x.device):
+            err = bwd(
+                xf.data_ptr(),
+                w2.data_ptr(), w2.stride(0),
+                h2.data_ptr(), h2.stride(0),
+                d2.data_ptr(), d2.stride(0),
+                gy.data_ptr(), gl.data_ptr(),
+                dx.data_ptr(), dw.data_ptr(), dh.data_ptr(), dd.data_ptr(),
+                *_spline_args(m, K, tail_bound),
+                _stream(x),
+            )
+        if err != 0:
+            raise RuntimeError(f"rqs backward kernel launch failed with cudaError {err}")
+        rqs.backward_launches += 1
+    return dx.reshape(x.shape), dw.reshape(w.shape), dh.reshape(h.shape), dd.reshape(d.shape)
+
+
+class RQSFunction(torch.autograd.Function):
+    """Forward through ``rqs_forward_launch``; backward (forward direction
+    only) through ``rqs_backward_launch``."""
+
+    @staticmethod
+    def forward(ctx, x, w, h, d, inverse, tail_bound):
+        y, ld = _launch(x, w, h, d, inverse, tail_bound)
+        ctx.inverse = bool(inverse)
+        ctx.tail_bound = float(tail_bound)
+        ctx.save_for_backward(x, w, h, d)
+        return y, ld
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gl):
+        if ctx.inverse:
+            raise NotImplementedError(
+                f"rqs: no gradient through the inverse direction on the GPU; {_INVERSE_GRAD_ITEM}"
+            )
+        # an output without a gradient arrives as zeros (autograd
+        # materialises them by default)
+        x, w, h, d = ctx.saved_tensors
+        dx, dw, dh, dd = _launch_backward(x, w, h, d, gy, gl, ctx.tail_bound)
+        return dx, dw, dh, dd, None, None
+
+
+def rqs(x, w, h, d, inverse: bool = False, tail_bound: float = 5.0):
+    """Rational-quadratic spline with linear tails on ``[-tail_bound,
+    tail_bound]``, elementwise over ``x`` (``[...]``), with
+    unnormalised widths and heights ``[..., K]`` and interior derivatives
+    ``[..., K - 1]``, all of one dtype. Returns ``(y, log-derivative)``,
+    both shaped as ``x``; differentiable in all four inputs in the
+    forward direction.
+
+    CUDA tensors launch ``csrc/rqs.cu`` (each forward or inverse launch
+    adds one to ``rqs.launches``, each backward launch one to
+    ``rqs.backward_launches``); they must be float32, take up to
+    :data:`MAX_BINS` bins, and a gradient through the inverse direction
+    raises. CPU tensors (float32 or float64) use the plain version, with
+    autograd through it."""
+    _check_inputs(x, w, h, d)
+    if not on_card(x):
+        return rqs_plain(x, w, h, d, inverse, tail_bound)
+    if x.dtype != torch.float32:
+        raise TypeError(f"rqs: the CUDA kernel takes float32, got {x.dtype}")
+    K = w.shape[-1]
+    if K > MAX_BINS:
+        raise ValueError(f"rqs: the CUDA kernel takes at most {MAX_BINS} bins, got {K}")
+    if inverse and torch.is_grad_enabled() and any(a.requires_grad for a in (x, w, h, d)):
+        raise NotImplementedError(
+            f"rqs: no gradient through the inverse direction on the GPU; {_INVERSE_GRAD_ITEM}"
+        )
+    return RQSFunction.apply(x, w, h, d, inverse, tail_bound)
+
+
+#: Forward and inverse kernel launches since the count was last set to 0.
+rqs.launches = 0
+#: Backward kernel launches since the count was last set to 0.
+rqs.backward_launches = 0

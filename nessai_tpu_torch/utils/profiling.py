@@ -3,17 +3,18 @@
 Counterpart of ``nessai_tpu/utils/profiling.py``. Event timers on the
 host clock measure what a caller waits for, which for small kernels is
 the launch overhead; the profiler's kernel records give the time the
-GPU spent. Run as a script on a GPU machine to trace the flagship run::
+GPU spent. Run as a script on a GPU machine to trace the flagship runs::
 
     python -m nessai_tpu_torch.utils.profiling
 
-It runs the flagship three times in one process: a first run (which
-also pays for the CUDA context, the kernel build or load and the
-library handles), a run without tracing and a run under the profiler,
-and prints one JSON object: the wall time of each run, the training
-times, the GPU time and record count of the traced run, the GPU busy
-share of the untraced wall time, and the kernels that take the most GPU
-time.
+It profiles the RealNVP flagship, then the neural-spline flagship. Each
+runs three times in one process: a first run (which also pays for the
+CUDA context, the kernel build or load and the library handles), a run
+without tracing and a run under the profiler. For each it prints one
+JSON object: the wall time of each run, the training times, the GPU
+time and record count of the traced run, the GPU busy share of the
+untraced wall time, and the kernels that take the most GPU time (the
+neural-spline line also names itself and counts its spline launches).
 """
 
 import json
@@ -23,7 +24,14 @@ import time
 
 import torch
 
-__all__ = ["FLAGSHIP", "gpu_kernel_events", "device_time_ms", "profile_flagship"]
+__all__ = [
+    "FLAGSHIP",
+    "FLAGSHIP_NSF",
+    "gpu_kernel_events",
+    "event_time_ms",
+    "device_time_ms",
+    "profile_flagship",
+]
 
 #: The flagship configuration of ``bench.py`` (lines 51-63): the 2-D
 #: unit Gaussian of ``IntegrationTestModel(2)`` with nlive = 1000 and a
@@ -37,6 +45,14 @@ FLAGSHIP = dict(
     flow_config=dict(n_blocks=4, n_neurons="auto", n_layers=2),
     training_config=dict(max_epochs=100, patience=20, batch_size=1000),
     poolsize=1000,
+)
+
+#: The neural-spline flagship: the same run with the JAX package's NSF
+#: defaults (``nessai_tpu/flows/nsf.py:18-34``), 4 × [Permutation,
+#: RQSCoupling (resnet, 8 bins, linear tails on [-5, 5])] and no ActNorm.
+FLAGSHIP_NSF = dict(
+    FLAGSHIP,
+    flow_config=dict(ftype="nsf", n_blocks=4, n_neurons="auto", n_layers=2),
 )
 
 
@@ -57,10 +73,31 @@ def _profile():
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
+def event_time_ms(fn, calls: int = 200, warmup: int = 5):
+    """Time per call of ``fn`` between two CUDA events around ``calls``
+    back-to-back calls: the GPU time plus the gaps the host leaves
+    between launches, so at least the GPU time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def device_time_ms(fn, calls: int = 200, warmup: int = 5):
     """GPU time per call of ``fn``: the summed duration of the GPU work
     that ``calls`` calls launch. Returns ``(ms per call, GPU records per
-    call)``; raises if the profiler recorded no GPU work."""
+    call, timer)`` with timer ``"torch.profiler"``. Where the profiler
+    records no GPU work (CUPTI tracing is not available to the process,
+    as when another tool already subscribes to it), the time is
+    ``event_time_ms`` over the same calls instead, the records per call
+    are None and the timer is ``"cuda_events"``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -70,35 +107,37 @@ def device_time_ms(fn, calls: int = 200, warmup: int = 5):
         torch.cuda.synchronize()
     events = gpu_kernel_events(prof)
     if not events:
-        raise RuntimeError("torch.profiler recorded no GPU work")
-    return sum(e.device_time_total for e in events) / calls / 1e3, len(events) / calls
+        return event_time_ms(fn, calls, warmup=0), None, "cuda_events"
+    ms = sum(e.device_time_total for e in events) / calls / 1e3
+    return ms, len(events) / calls, "torch.profiler"
 
 
-def _run_flagship(output):
+def _run_flagship(output, config):
     from ..flowsampler import FlowSampler
     from .testing import IntegrationTestModel
 
-    fs = FlowSampler(IntegrationTestModel(2), output=output, device="cuda", **FLAGSHIP)
+    fs = FlowSampler(IntegrationTestModel(2), output=output, device="cuda", **config)
     fs.run(plot=False, save=False)
     torch.cuda.synchronize()
     return fs
 
 
-def profile_flagship(top: int = 12) -> dict:
-    """Time and trace the flagship run on the GPU."""
+def profile_flagship(top: int = 12, config=FLAGSHIP) -> dict:
+    """Time and trace a flagship run (``config``) on the GPU."""
     with tempfile.TemporaryDirectory(prefix=".profile_", dir=".") as output:
         start = time.perf_counter()
-        _run_flagship(output)
+        _run_flagship(output, config)
         first = time.perf_counter() - start
         start = time.perf_counter()
-        fs = _run_flagship(output)
+        fs = _run_flagship(output, config)
         untraced = time.perf_counter() - start
         with _profile() as prof:
             start = time.perf_counter()
-            fs_traced = _run_flagship(output)
+            fs_traced = _run_flagship(output, config)
             traced = time.perf_counter() - start
     events = gpu_kernel_events(prof)
-    busy_s = sum(e.device_time_total for e in events) / 1e6
+    # None where the profiler recorded no GPU work (no CUPTI tracing)
+    busy_s = sum(e.device_time_total for e in events) / 1e6 if events else None
     by_name = {}
     for e in events:
         count, total = by_name.get(e.name, (0, 0.0))
@@ -120,7 +159,7 @@ def profile_flagship(top: int = 12) -> dict:
         traced_training_time_s=fs_traced.ns.training_time.total_seconds(),
         gpu_records=len(events),
         gpu_busy_s=busy_s,
-        gpu_busy_share_of_untraced_wall=busy_s / untraced,
+        gpu_busy_share_of_untraced_wall=None if busy_s is None else busy_s / untraced,
         logZ=fs.logZ,
         logZ_traced=fs_traced.logZ,
         top=[
@@ -135,4 +174,11 @@ if __name__ == "__main__":
         raise SystemExit("profiling the flagship needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(json.dumps(profile_flagship()))
+    print(json.dumps(profile_flagship()), flush=True)
+    from ..ops.rqs import rqs
+
+    rqs.launches = rqs.backward_launches = 0
+    nsf = profile_flagship(config=FLAGSHIP_NSF)
+    # three runs: first, untraced, traced
+    launches = dict(rqs_launches_per_run=rqs.launches / 3, rqs_backward_launches_per_run=rqs.backward_launches / 3)
+    print(json.dumps(dict(flagship="nsf", **nsf, **launches)))

@@ -46,3 +46,113 @@ def test_affine_coupling_kernel_rejects_bad_input(cuda):
         coupling.affine_coupling(x.double(), x.double(), x.double())
     with pytest.raises(ValueError):
         coupling.affine_coupling(x, x.cpu(), x)
+
+
+def _spline_inputs(cuda, n, d, K, seed):
+    """x ~ U(-6, 6) (the tails are covered) and raw parameters ~ N(0, 1),
+    the parameters as slices of one conditioner-shaped output."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = 12.0 * torch.rand(n, d, device=cuda, generator=gen) - 6.0
+    out = torch.randn(n, d, 3 * K - 1, device=cuda, generator=gen)
+    return x, out[..., :K], out[..., K : 2 * K], out[..., 2 * K :]
+
+
+def _f64(*tensors):
+    return [t.double() for t in tensors]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n,d,K", [(0, 1, 8), (13, 3, 8), (900, 1, 8), (4096, 4, 4), (257, 2, 16)])
+def test_rqs_kernel_matches_plain(cuda, n, d, K, inverse):
+    """The kernel computes in double between float32 loads and stores, so
+    it is the float32 rounding of the plain version run in float64 on the
+    same inputs (atol 1e-6 + rtol 1e-6, some 16 ulp)."""
+    from nessai_tpu_torch.ops.rqs import rqs, rqs_plain
+
+    x, w, h, dd = _spline_inputs(cuda, n, d, K, seed=n + d + K)
+    before = rqs.launches
+    with torch.no_grad():
+        y, ld = rqs(x, w, h, dd, inverse)
+        y_ref, ld_ref = rqs_plain(*_f64(x, w, h, dd), inverse)
+    torch.cuda.synchronize()
+    assert y.dtype == ld.dtype == torch.float32 and y.shape == ld.shape == x.shape
+    torch.testing.assert_close(y.double(), y_ref, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(ld.double(), ld_ref, atol=1e-6, rtol=1e-6)
+    assert rqs.launches == before + (1 if n else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,K", [(900, 1, 8), (13, 3, 8), (2048, 2, 4)])
+def test_rqs_backward_kernel_matches_autograd_of_plain(cuda, n, d, K):
+    from nessai_tpu_torch.ops.rqs import rqs, rqs_plain
+
+    inputs = _spline_inputs(cuda, n, d, K, seed=7 * n + K)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    w_y, w_ld = (torch.randn(n, d, device=cuda, generator=gen) for _ in range(2))
+    grads = []
+    before = rqs.backward_launches
+    for f, dtype in ((rqs, torch.float32), (rqs_plain, torch.float64)):
+        args = [a.detach().to(dtype).requires_grad_(True) for a in inputs]
+        y, ld = f(*args)
+        ((y * w_y.to(dtype)).sum() + (ld * w_ld.to(dtype)).sum()).backward()
+        grads.append([a.grad for a in args])
+    torch.cuda.synchronize()
+    assert rqs.backward_launches == before + 1
+    for g_k, g_p in zip(*grads):
+        assert g_k.dtype == torch.float32
+        torch.testing.assert_close(g_k.double(), g_p, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_rqs_kernel_round_trip_and_counters(cuda):
+    from nessai_tpu_torch.ops.rqs import rqs
+
+    x, w, h, dd = _spline_inputs(cuda, 1000, 1, 8, seed=3)
+    rqs.launches = rqs.backward_launches = 0
+    with torch.no_grad():
+        z, ld = rqs(x, w, h, dd)
+        x_back, ld_inv = rqs(z, w, h, dd, inverse=True)
+    torch.cuda.synchronize()
+    assert rqs.launches == 2 and rqs.backward_launches == 0
+    # the float32 rounding of z, stretched by the inverse's slope
+    slope = 1.0 + torch.exp(-ld)
+    assert torch.all((x_back - x).abs() <= 1e-6 * slope)
+    assert torch.all((ld + ld_inv).abs() <= 1e-3 * slope)
+
+
+@pytest.mark.cuda
+def test_rqs_kernel_rejects_bad_input(cuda):
+    from nessai_tpu_torch.ops.rqs import rqs
+
+    x, w, h, dd = _spline_inputs(cuda, 8, 2, 8, seed=1)
+    with pytest.raises(TypeError):
+        rqs(x.double(), w.double(), h.double(), dd.double())
+    with pytest.raises(ValueError):
+        rqs(x, w.cpu(), h, dd)
+    with pytest.raises(ValueError, match="shape"):
+        rqs(x, w, h, w)
+    with pytest.raises(ValueError, match="at most 16"):
+        big = torch.zeros(8, 2, 17, device=cuda)
+        rqs(x, big, big, big[..., :16])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rqs(x, w.detach().requires_grad_(True), h, dd, inverse=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tracing", [True, False])
+def test_device_time_ms_with_and_without_gpu_tracing(cuda, tracing, monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    from nessai_tpu_torch.utils import profiling
+
+    if not tracing:
+        # a profiler that records no GPU work, as where CUPTI is taken
+        monkeypatch.setattr(profiling, "_profile", lambda: profile(activities=[ProfilerActivity.CPU]))
+    x = torch.randn(1 << 20, device=cuda)
+    ms, records, timer = profiling.device_time_ms(lambda: x.mul(2.0), calls=20)
+    assert ms > 0.0
+    if tracing:
+        assert timer == "torch.profiler" and records >= 1.0
+    else:
+        assert timer == "cuda_events" and records is None

@@ -129,8 +129,8 @@ def test_chain_order():
     np.testing.assert_allclose((ld + ld_inv).numpy(), 0.0, atol=1e-7)
 
 
-def _pair(dims, n_blocks, n_neurons=4, n_layers=2, net="resnet", seed=11):
-    cfg = dict(n_inputs=dims, n_blocks=n_blocks, n_neurons=n_neurons, n_layers=n_layers, net=net)
+def _pair(dims, n_blocks, n_neurons=4, n_layers=2, net="resnet", seed=11, **extra):
+    cfg = dict(n_inputs=dims, n_blocks=n_blocks, n_neurons=n_neurons, n_layers=n_layers, net=net, **extra)
     jflow, jparams, _ = jax_configure_model(dict(cfg, seed=seed))
     p = _perturb(jparams, seed + 1, scale=0.2)
     tflow = configure_model(cfg)
@@ -160,9 +160,39 @@ def test_realnvp_matches_jax(dims, n_blocks, net):
     _close(lq_t, np.asarray(jflow.base_log_prob(jp, x)) - np.asarray(lji_j))
 
 
+@pytest.mark.parametrize(
+    "dims,n_blocks,net,num_bins",
+    [(2, 4, "resnet", 8), (3, 2, "resnet", 4), (4, 2, "mlp", 8)],
+)
+def test_nsf_matches_jax(dims, n_blocks, net, num_bins):
+    """The neural spline flow (no ActNorm, linear tails) on converted,
+    perturbed weights: the splines are far from the identity, and inputs
+    of scale 2 reach the linear tails beyond 5."""
+    jflow, jp, tflow, _ = _pair(
+        dims, n_blocks, net=net, ftype="nsf", num_bins=num_bins, seed=21
+    )
+    assert any(isinstance(b, tbij.RQSCoupling) for b in tflow.bijector.bijectors)
+    assert not any(isinstance(b, tbij.ActNorm) for b in tflow.bijector.bijectors)
+    x = 2.0 * _x(64, dims, seed=dims + n_blocks)
+    z_j, lj_j = jflow.forward(jp, x)
+    xi_j, lji_j = jflow.inverse(jp, x)
+    lp_j = jflow.log_prob(jp, x)
+    with torch.no_grad():
+        xt = torch.as_tensor(x)
+        z_t, lj_t = tflow(xt)
+        xi_t, lji_t = tflow.inverse(xt)
+        lp_t = tflow.log_prob(xt)
+        x_lp_t, lq_t = tflow.inverse_and_log_prob(xt)
+    for a, b in ((z_t, z_j), (lj_t, lj_j), (xi_t, xi_j), (lji_t, lji_j), (lp_t, lp_j)):
+        _close(a, b)
+    _close(x_lp_t, xi_j)
+    _close(lq_t, np.asarray(jflow.base_log_prob(jp, x)) - np.asarray(lji_j))
+
+
+@pytest.mark.parametrize("ftype", ["realnvp", "nsf"])
 @pytest.mark.parametrize("net", ["resnet", "mlp"])
-def test_converter_round_trip_is_exact(net):
-    _, _, tflow, p = _pair(3, 3, net=net)
+def test_converter_round_trip_is_exact(net, ftype):
+    _, _, tflow, p = _pair(3, 3, net=net, ftype=ftype)
     back = params_to_jax(tflow)
     leaves_a, tree_a = jax.tree.flatten(back)
     leaves_b, tree_b = jax.tree.flatten(p)
@@ -183,3 +213,72 @@ def test_port_flow_init_starts_at_identity_couplings():
             perm = perm[:, b.perm]
     np.testing.assert_allclose(z.numpy(), perm.numpy(), atol=1e-7)
     np.testing.assert_allclose(log_j.numpy(), 0.0, atol=1e-7)
+
+
+def test_nsf_init_is_the_identity_spline():
+    flow = configure_model(dict(n_inputs=3, n_blocks=3, n_neurons=4, ftype="nsf", seed=3))
+    x = torch.as_tensor(2.0 * _x(10, 3))
+    with torch.no_grad():
+        z, log_j = flow(x)
+    perm = x
+    for b in flow.bijector.bijectors:
+        if isinstance(b, tbij.Permutation):
+            perm = perm[:, b.perm]
+    np.testing.assert_allclose(z.numpy(), perm.numpy(), atol=1e-6)
+    np.testing.assert_allclose(log_j.numpy(), 0.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("ftype", ["nsf", "spline", "rq-nsf", "glasflow-nsf"])
+def test_nsf_names_build_the_jax_layout(ftype):
+    """Each spline name builds [Permutation, RQSCoupling] per block, as
+    the JAX package does, with a conditioner of n_tr * (3K - 1) outputs."""
+    cfg = dict(n_inputs=2, n_blocks=4, n_neurons="auto", n_layers=2, ftype=ftype)
+    tflow = configure_model(cfg)
+    jflow, _, _ = jax_configure_model(cfg)
+    assert [type(b).__name__ for b in tflow.bijector.bijectors] == [
+        type(b).__name__ for b in jflow.bijector.bijectors
+    ]
+    coupling = tflow.bijector.bijectors[1]
+    assert coupling.num_bins == 8 and coupling.tail_bound == 5.0 and coupling.tails == "linear"
+    assert coupling.net.final.out_features == 1 * (3 * 8 - 1)
+
+
+def test_unported_flow_options_raise():
+    with pytest.raises(NotImplementedError, match="maf"):
+        configure_model(dict(n_inputs=2, ftype="maf"))
+    for kind in ("lu", "svd"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            configure_model(dict(n_inputs=2, ftype="nsf", linear_transform=kind))
+    with pytest.raises(NotImplementedError, match="Logit"):
+        configure_model(dict(n_inputs=2, ftype="nsf", pre_transform="logit"))
+    with pytest.raises(ValueError, match="Unknown flow"):
+        configure_model(dict(n_inputs=2, ftype="nope"))
+
+
+def test_realnvp_options_match_jax_layout():
+    """``linear_transform=None`` and ``batch_norm_between_layers=False``
+    drop the permutations and the ActNorms, as in the JAX package."""
+    cfg = dict(
+        n_inputs=2, n_blocks=2, n_neurons=4, linear_transform=None, batch_norm_between_layers=False
+    )
+    tflow = configure_model(cfg)
+    jflow, _, _ = jax_configure_model(cfg)
+    assert [type(b).__name__ for b in tflow.bijector.bijectors] == [
+        type(b).__name__ for b in jflow.bijector.bijectors
+    ] == ["AffineCoupling", "AffineCoupling"]
+
+
+def test_realnvp_flagship_initial_state_is_pinned():
+    """The RealNVP flagship's flow draws its permutations and weights from
+    the generator in the same order as before the neural-spline builders
+    shared its block loop (the seeded GPU run's logZ rests on it)."""
+    import hashlib
+
+    flow = configure_model(dict(n_inputs=2, n_blocks=4, n_neurons="auto", n_layers=2, seed=1234))
+    digest = hashlib.sha256()
+    for k, v in flow.state_dict().items():
+        digest.update(k.encode())
+        digest.update(v.cpu().numpy().tobytes())
+    assert digest.hexdigest() == (
+        "37a7dd34111c8c13f025d810361bae02ba8d70fba0849a550adf327b134b2203"
+    )

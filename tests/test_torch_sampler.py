@@ -122,14 +122,16 @@ def test_simulated_error_is_finite_beyond_87_nats():
     assert np.isfinite(sigma) and 0.0 < sigma < 10 * state.log_evidence_error
 
 
-def test_end_to_end_agrees_with_jax_on_cpu(tmp_path):
+def _end_to_end_agrees_with_jax(tmp_path, **flow_config):
+    """A whole run of each package on the CPU: both within 3 sigma of the
+    analytic evidence and of each other."""
     torch.set_float32_matmul_precision("highest")
     kwargs = dict(
         nlive=200,
         seed=1234,
         plot=False,
         checkpointing=False,
-        flow_config=dict(n_blocks=2, n_neurons=4, n_layers=1),
+        flow_config=dict(n_blocks=2, n_neurons=4, n_layers=1, **flow_config),
         training_config=dict(max_epochs=20, patience=10, batch_size=200),
         poolsize=200,
     )
@@ -147,7 +149,19 @@ def test_end_to_end_agrees_with_jax_on_cpu(tmp_path):
     assert len(t_ns) == tfs.ns.iteration + 200
     assert tfs.ns.train_count > 0
     assert np.all(np.isfinite(tfs.posterior_samples["x_0"]))
+    return tfs
 
+
+def test_end_to_end_agrees_with_jax_on_cpu(tmp_path):
+    _end_to_end_agrees_with_jax(tmp_path)
+
+
+def test_nsf_end_to_end_agrees_with_jax_on_cpu(tmp_path):
+    from nessai_tpu_torch.flows.bijectors import RQSCoupling
+
+    tfs = _end_to_end_agrees_with_jax(tmp_path, ftype="nsf")
+    flow = tfs.ns.flow_proposal.flow.flow
+    assert sum(isinstance(b, RQSCoupling) for b in flow.bijector.bijectors) == 2
 
 
 @pytest.mark.parametrize("seed", [2, 3])
