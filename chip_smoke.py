@@ -8,7 +8,8 @@ CUDA toolkit::
 
 Phases, each printing one JSON line: the environment; the nvcc build of
 the kernels from ``nessai_tpu_torch/csrc`` (one nvcc per source, all at
-once); the affine-coupling kernel (K1) against its plain PyTorch version
+once; ptxas's registers and spills of each kernel, and no spills
+allowed); the affine-coupling kernel (K1) against its plain PyTorch version
 (both directions, gradients, times); the rational-quadratic spline
 kernels (K2: forward, inverse and the backward of the forward) against
 theirs; the flagship RealNVP and the neural-spline flow on the GPU
@@ -63,8 +64,9 @@ FLOW_ATOL, FLOW_RTOL = 1e-5, 1e-5
 PULL_LIMIT = 3.0
 
 #: K2 check shapes [n, d_tr, K]: the NSF flagship's training batch, its
-#: validation pass and pool draws (d_tr = 1, 8 bins), wider layers, and
-#: one shape with 4 bins.
+#: validation pass and pool draws (d_tr = 1, 8 bins), wider layers, one
+#: shape with 4 bins and one with 11 (not a power of two: 16-lane groups
+#: with 5 lanes idle).
 K2_SHAPES = [
     (900, 1, 8),
     (100, 1, 8),
@@ -74,6 +76,7 @@ K2_SHAPES = [
     (13, 3, 8),
     (65536, 16, 8),
     (4096, 2, 4),
+    (2048, 3, 11),
 ]
 #: shape of the kernels-line numbers: an NSF flagship training step
 K2_MAIN_SHAPE = (900, 1, 8)
@@ -190,13 +193,24 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
     seconds = time.perf_counter() - t0
+    # ptxas's registers and spills of every kernel
+    kernels = {name: _build.resources(name) for name in libs}
     emit(
         "build",
         seconds=seconds,
         flags=" ".join(_build.NVCC_FLAGS),
         library=os.path.basename(str(libs["affine_coupling"])),
         libraries={k: os.path.basename(str(v)) for k, v in libs.items()},
+        ptxas=kernels,
     )
+    spilled = [
+        k["kernel"]
+        for found in kernels.values()
+        for k in found
+        if k["spill_store_bytes"] or k["spill_load_bytes"]
+    ]
+    if spilled or not all(kernels.values()):
+        raise RuntimeError(f"ptxas reports spills in {spilled} or no kernels: {kernels}")
 
 
 def phase_k1():

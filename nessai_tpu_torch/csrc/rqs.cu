@@ -17,172 +17,229 @@
 //   inverse: theta = the stable root of the quadratic, y = C_k + theta w_k
 //   log-derivative per element; x outside [-B, B] passes through (ld 0).
 //
-// Bound on the card: bytes. A forward call reads 4*m*3K bytes (x and the
-// 3K-1 parameters) and writes 8*m; the backward reads 4*m*(3K+2) and
-// writes 4*m*3K. At some 20K + 60 operations per element (K exps per
-// softmax, the knot scan, the spline) it stays below the
-// operations-per-byte line of the card in float32. At the flagship's
-// shapes (m ~ 1e3) the byte bound is tens of nanoseconds; what sets the
-// time there is each thread's dependent chain of double-precision
-// exponentials and logarithms (about 9 us forward and 16 us backward a
-// call on an H100 SXM at 700 W, against 1.4 us for the affine-coupling
-// kernel at the same m).
+// What bounds it on this card. Bytes: a forward call reads 4*m*3K bytes
+// (x and the 3K-1 parameters) and writes 8*m; the backward reads
+// 4*m*(3K+2) and writes 4*m*3K, tens of nanoseconds at the flagship's
+// shapes (m ~ 1e3). The math is double (below), which the H100 runs at
+// half its float32 rate. At the flagship's shapes neither limit is near:
+// the time is the launch plus the latency of one element's dependent
+// chain (the loads, two softmaxes, the knot scan, the bin search, the
+// spline and its two logarithms). At m ~ 1e6 the time is far above both
+// bounds too, and what sets it is the instructions each element costs.
 //
-// Design (right first, not fast): one thread per element in a
-// grid-stride loop. K is a runtime argument up to kMaxBins; the loops over
-// bins are unrolled to kMaxBins with a guard, so the exponentials of the
-// softmax stay in registers. Inputs and outputs are float32; the math in
-// between is double. In float32 the knots round to ~5e-7 (an ulp of B),
-// and a narrow, strongly curved bin turns that into errors of 1e-3 in the
-// log-derivative over 10^6 elements (the plain version in float32 shows
-// the same against float64). In double each output is the float32
-// rounding of the exact function of its float32 inputs, so the kernel is
-// held tightly against the plain version run in float64. The TPU
-// kernel's [K, m] transpose (bins on sublanes, batch on lanes) and its
-// one-hot select are not carried over:
-// the parameters are read in their own row-major layout (the conditioner's
-// [n, n_tr, 3K-1] output, through its strides), the knots are built by a
-// running scan that keeps the bin it finds, and the two derivatives of
-// that bin are read directly by index. Nothing is allocated here and
-// nothing synchronises; exp/log/log1p are the accurate functions (no
-// fast-math).
+// Design: one lane group per element. G lanes, G the next power of two
+// at or above K (2 <= G <= 16), work on one element; a warp holds 32 / G
+// elements and walks them in a grid-stride loop. Lane k of a group
+//   - reads u[k], v[k] and r[k] of its element's row, so one load of a
+//     warp covers 32 / G rows of G contiguous floats, and the loads do
+//     not wait for x;
+//   - takes one exp for each softmax, after a max over the group in
+//     float32 (log2 G steps of __shfl_xor_sync);
+//   - gets the sum of the exps up to bin k from an inclusive scan over
+//     the group (log2 G steps of __shfl_up_sync), the softmax's sum from
+//     the scan's last lane, so its right knot is one division away; its
+//     left knot comes from lane k - 1, and the last knot is pinned to B;
+//   - takes the softplus of r[k], the derivative at knot k + 1.
+// The bin is a ballot of "x >= left knot" over lanes 1..K-1 counted with
+// __popc: the reference's count of interior knots at or below x (the
+// knots strictly increase: every bin is at least 2B min_w wide). The
+// bin's knots and derivatives come from their lanes by __shfl_sync. In
+// the forward the bin then goes to one lane of the warp, which evaluates
+// the rational quadratic and stores y and the log-derivative. Where the
+// input would not fit on the card at G lanes an element, a warp finds the
+// bins of 32 elements in G rounds, and each lane then takes the two
+// softplus of its element's bin and evaluates its spline: repeated in
+// the G lanes of a group, those made the forward at m ~ 1e6 slower than
+// one thread per element. The backward recomputes the bin, back-
+// propagates through the rational quadratic in every lane of the group,
+// takes the sums of the softmax shares below and up to the bin from the
+// same scan, and lane k writes the gradients of its own u[k], v[k] and
+// r[k]: coalesced rows instead of one thread writing 3K-1 floats. So the
+// dependent chain of an element is one exp per softmax, one division,
+// 2 log2 G shuffle steps and the spline, where one thread per element
+// ran 2K exps, 2K divisions and a K-step scan in a row.
+//
+// Every lane of a warp runs every shuffle and ballot with the full mask:
+// an element outside the tails (or NaN) or past the end of the input is
+// computed on stand-in parameters and selected away, never returned from
+// early; lanes k >= K give -inf to the max, 0 to the scans and false to
+// the ballot. No atomics and a fixed shuffle order, so a run is
+// bit-identical to itself.
+//
+// Precision: float32 loads and stores and the softmax's max (exact: it
+// is one of the float32 inputs); double in between: the softmax exps,
+// the shares, the knot scans, the differences x - C_k and C_{k+1} - C_k,
+// the softplus and sigmoid, the spline and its logarithms. In float32 the knots round to ~5e-7 (an ulp of B), and a
+// narrow, strongly curved bin turns that into errors of 1e-3 in the
+// log-derivative over 10^6 elements; in double each output is the
+// float32 rounding of the exact function of its float32 inputs. exp, log
+// and log1p are the accurate functions (no fast-math).
 
 #include <cstdint>
 #include <math.h>
 
-#ifdef __CUDACC__
 #include <cuda_runtime.h>
-#define RQS_DEVICE __device__ __forceinline__
-#else
-#define RQS_DEVICE inline
-#endif
+
+namespace {
 
 constexpr int kMaxBins = 16;
-
-// the type of the math between the float32 loads and stores
-typedef double real;
-
-// ---- per-element math ----------------------------------------------------
+constexpr unsigned kFullWarp = 0xffffffffu;
+// threads a block: at the flagship's m ~ 1e3 and G = 8, tens of blocks,
+// so the elements spread over tens of SMs
+constexpr int kThreads = 128;
 
 struct SplineParams {
-  real B;       // tail bound: the spline lives on [-B, B]
-  real min_w;   // smallest bin width, as a share of 2B
-  real min_h;   // smallest bin height, as a share of 2B
-  real min_d;   // smallest derivative
-  real shift;   // log(expm1(1 - min_d)): raw 0 gives derivative 1
+  double B;      // tail bound: the spline lives on [-B, B]
+  double min_w;  // smallest bin width, as a share of 2B
+  double min_h;  // smallest bin height, as a share of 2B
+  double min_d;  // smallest derivative
+  double shift;  // log(expm1(1 - min_d)): raw 0 gives derivative 1
   int K;         // bins, 1 <= K <= kMaxBins
 };
 
-// The bin that holds the element, with the softmax terms the backward
-// needs.
+// ---- reductions within a group of G lanes (aligned, G a power of two) ----
+
+template <int G>
+__device__ __forceinline__ float group_max(float a) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    a = fmaxf(a, __shfl_xor_sync(kFullWarp, a, off, G));
+  return a;
+}
+
+// Inclusive prefix sum over the group: lane k gets a_0 + ... + a_k.
+template <int G>
+__device__ __forceinline__ double group_scan(double a, int k) {
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1) {
+    const double t = __shfl_up_sync(kFullWarp, a, off, G);
+    if (k >= off) a += t;
+  }
+  return a;
+}
+
+template <int G>
+__device__ __forceinline__ double from_lane(double a, int src) {
+  return __shfl_sync(kFullWarp, a, src, G);
+}
+
+// The softmax of the group's K raw values (lanes k >= K hold none): lane
+// k's share p_k in *share and the return value p_0 + ... + p_k. The max
+// is taken in float32, where it is exact (one of the raw values); the
+// sum is the scan's last lane, so one scan gives both.
+template <int G>
+__device__ __forceinline__ double group_softmax_upto(float raw, bool bin,
+                                                     int k, double* share) {
+  const float mx = group_max<G>(bin ? raw : -INFINITY);
+  const double e =
+      bin ? exp(static_cast<double>(raw) - static_cast<double>(mx)) : 0.0;
+  const double upto = group_scan<G>(e, k);
+  const double sum = from_lane<G>(upto, G - 1);
+  *share = e / sum;
+  return upto / sum;
+}
+
+// min_d + softplus(v) for v = r + shift, from e = exp(-|v|).
+__device__ __forceinline__ double derivative(double v, double e,
+                                             const SplineParams& p) {
+  return p.min_d + (fmax(v, 0.0) + log1p(e));
+}
+
+// ---- one element, in every lane of its group ------------------------------
+
+// The bin that holds the element, known to every lane of the group.
 struct Bin {
-  int k;        // bin index
-  real cw, w;  // left width knot and bin width
-  real ch, h;  // left height knot and bin height
-  real dk, dk1;  // derivatives at the bin's two knots
-  real sum_w, sum_h;  // softmax denominators
+  int k;          // bin index
+  double cw, w;   // left width knot and bin width
+  double ch, h;   // left height knot and bin height
+  double dk, dk1; // derivatives at the bin's two knots
 };
 
-RQS_DEVICE real softplus(real v) {
-  return fmax(v, 0.0) + log1p(exp(-fabs(v)));
-}
+// What lane k keeps of its own bin for the backward.
+struct LaneShares {
+  double p_w, p_h;        // softmax shares of bin k (0 for k >= K)
+  double upto_w, upto_h;  // their sums over bins 0..k
+  double e_r;             // exp(-|r_k + shift|), for the softplus's gradient
+  double r;               // r_k + shift
+};
 
-RQS_DEVICE real sigmoid(real v) {
-  if (v >= 0.0) return 1.0 / (1.0 + exp(-v));
-  const real e = exp(v);
-  return e / (1.0 + e);
-}
-
-// exp(u_k - max u) for k < K (0 beyond); returns their sum.
-RQS_DEVICE real softmax_terms(const float* u, int K, real (&e)[kMaxBins]) {
-  real mx = -INFINITY;
-#pragma unroll
-  for (int k = 0; k < kMaxBins; ++k)
-    if (k < K) mx = fmax(mx, static_cast<real>(u[k]));
-  real sum = 0.0;
-#pragma unroll
-  for (int k = 0; k < kMaxBins; ++k) {
-    e[k] = k < K ? exp(u[k] - mx) : 0.0;
-    sum += e[k];
+// Knots from the group scan and the bin by a ballot (width knots forward,
+// height knots inverse). u, v and r are the element's rows; they are read
+// wherever the element exists (`valid`), so the loads need not wait for
+// x, and raw 0 stands in past the end of the input. With kDerivatives
+// lane k also takes the softplus of r[k] and the group gathers the bin's
+// two derivatives; without, b.dk and b.dk1 are left for the caller.
+template <int G, bool kDerivatives>
+__device__ __forceinline__ Bin group_bin(double xv, bool valid,
+                                         const float* u, const float* v,
+                                         const float* r, int k, int lane,
+                                         const SplineParams& p, bool inverse,
+                                         LaneShares* own) {
+  const int K = p.K;
+  const bool bin = k < K;
+  const float uk = valid && bin ? u[k] : 0.0f;
+  const float vk = valid && bin ? v[k] : 0.0f;
+  double d_right = 1.0;  // the derivative at knot k + 1 (1 at the last knot)
+  if (kDerivatives) {
+    own->r = static_cast<double>(valid && k < K - 1 ? r[k] : 0.0f) + p.shift;
+    own->e_r = exp(-fabs(own->r));
+    if (k < K - 1) d_right = derivative(own->r, own->e_r, p);
   }
-  return sum;
-}
-
-// Build the width and height knots by a running scan and keep the bin
-// whose left knot (width knots forward, height knots inverse) is the
-// last one at or below xv. The knots strictly increase (every bin is at
-// least 2B * min_w wide), so this is the reference's count of interior
-// knots at or below xv.
-RQS_DEVICE Bin find_bin(real xv, const float* u, const float* v,
-                        const float* r, const SplineParams& p, bool inverse,
-                        real (&ew)[kMaxBins], real (&eh)[kMaxBins]) {
+  own->upto_w = group_softmax_upto<G>(uk, bin, k, &own->p_w);
+  own->upto_h = group_softmax_upto<G>(vk, bin, k, &own->p_h);
+  // C_{k+1} = -B + sum_{j<=k} (min + scale p_j) 2B
+  const double total = 2.0 * p.B;
+  const double right_w =
+      k == K - 1 ? p.B : -p.B + ((k + 1) * p.min_w + (1.0 - p.min_w * K) * own->upto_w) * total;
+  const double right_h =
+      k == K - 1 ? p.B : -p.B + ((k + 1) * p.min_h + (1.0 - p.min_h * K) * own->upto_h) * total;
+  const double below_w = __shfl_up_sync(kFullWarp, right_w, 1, G);
+  const double below_h = __shfl_up_sync(kFullWarp, right_h, 1, G);
+  const double left_w = k == 0 ? -p.B : below_w;
+  const double left_h = k == 0 ? -p.B : below_h;
+  // interior knots C_1..C_{K-1} (the left knots of lanes 1..K-1) at or
+  // below x; NaN votes no
+  const double edge = inverse ? left_h : left_w;
+  const unsigned votes = __ballot_sync(kFullWarp, k >= 1 && bin && xv >= edge);
+  const int first = lane & ~(G - 1);
   Bin b;
-  b.sum_w = softmax_terms(u, p.K, ew);
-  b.sum_h = softmax_terms(v, p.K, eh);
-  const real total = 2.0 * p.B;
-  const real scale_w = 1.0 - p.min_w * p.K;
-  const real scale_h = 1.0 - p.min_h * p.K;
-  real acc_w = 0.0, acc_h = 0.0;
-  real cw = -p.B, ch = -p.B;  // left knots of bin k
-  b.k = 0;
-  b.cw = cw;
-  b.ch = ch;
-  b.w = b.h = 0.0;
-#pragma unroll
-  for (int k = 0; k < kMaxBins; ++k) {
-    if (k < p.K) {
-      acc_w += (p.min_w + scale_w * (ew[k] / b.sum_w)) * total;
-      acc_h += (p.min_h + scale_h * (eh[k] / b.sum_h)) * total;
-      const bool last = k == p.K - 1;
-      const real cw1 = last ? p.B : -p.B + acc_w;
-      const real ch1 = last ? p.B : -p.B + acc_h;
-      if (k == 0 || xv >= (inverse ? ch : cw)) {
-        b.k = k;
-        b.cw = cw;
-        b.ch = ch;
-        b.w = cw1 - cw;
-        b.h = ch1 - ch;
-      }
-      cw = cw1;
-      ch = ch1;
-    }
+  b.k = __popc((votes >> first) & ((1u << G) - 1u));
+  b.cw = from_lane<G>(left_w, b.k);
+  b.w = from_lane<G>(right_w, b.k) - b.cw;
+  b.ch = from_lane<G>(left_h, b.k);
+  b.h = from_lane<G>(right_h, b.k) - b.ch;
+  if (kDerivatives) {
+    const double d_left = from_lane<G>(d_right, b.k > 0 ? b.k - 1 : 0);
+    b.dk = b.k == 0 ? 1.0 : d_left;
+    b.dk1 = from_lane<G>(d_right, b.k);
   }
-  b.dk = b.k == 0 ? 1.0 : p.min_d + softplus(r[b.k - 1] + p.shift);
-  b.dk1 = b.k == p.K - 1 ? 1.0 : p.min_d + softplus(r[b.k] + p.shift);
   return b;
 }
 
-// The transform of one element: *y and *ld.
-RQS_DEVICE void spline_element(real xv, const float* u, const float* v,
-                               const float* r, const SplineParams& p,
-                               bool inverse, float* y, float* ld) {
-  if (!(xv >= -p.B && xv <= p.B)) {  // linear tails (and NaN) pass through
-    *y = xv;
-    *ld = 0.0;
-    return;
-  }
-  real ew[kMaxBins], eh[kMaxBins];
-  const Bin b = find_bin(xv, u, v, r, p, inverse, ew, eh);
-  const real s = b.h / b.w;
-  const real delta = b.dk + b.dk1 - 2.0 * s;
-  real theta;
+// The transform of an element inside the tails: *y and *ld.
+__device__ __forceinline__ void spline_value(double xv, const Bin& b,
+                                             bool inverse, double* y,
+                                             double* ld) {
+  const double s = b.h / b.w;
+  const double delta = b.dk + b.dk1 - 2.0 * s;
+  double theta;
   if (inverse) {
-    const real y_rel = xv - b.ch;
-    const real a = b.h * (s - b.dk) + y_rel * delta;
-    const real bq = b.h * b.dk - y_rel * delta;
-    const real c = -s * y_rel;
-    const real disc = fmax(bq * bq - 4.0 * a * c, 0.0);
+    const double y_rel = xv - b.ch;
+    const double a = b.h * (s - b.dk) + y_rel * delta;
+    const double bq = b.h * b.dk - y_rel * delta;
+    const double c = -s * y_rel;
+    const double disc = fmax(bq * bq - 4.0 * a * c, 0.0);
     theta = (2.0 * c) / (-bq - sqrt(disc));
     theta = fmin(fmax(theta, 0.0), 1.0);
     *y = theta * b.w + b.cw;
   } else {
     theta = fmin(fmax((xv - b.cw) / b.w, 0.0), 1.0);
   }
-  const real omt = 1.0 - theta;
-  const real denom = s + delta * theta * omt;
-  const real num = (s * s) * (b.dk1 * (theta * theta) + 2.0 * s * theta * omt +
-                               b.dk * (omt * omt));
-  const real log_d = log(num) - 2.0 * log(denom);
+  const double omt = 1.0 - theta;
+  const double denom = s + delta * theta * omt;
+  const double num = (s * s) * (b.dk1 * (theta * theta) + 2.0 * s * theta * omt +
+                                b.dk * (omt * omt));
+  const double log_d = log(num) - 2.0 * log(denom);
   if (inverse) {
     *ld = -log_d;
   } else {
@@ -191,143 +248,230 @@ RQS_DEVICE void spline_element(real xv, const float* u, const float* v,
   }
 }
 
-// Gradient of one element of the forward transform, given the cotangents
-// gy of y and gl of the log-derivative: writes *gx and the K, K and K-1
-// parameter gradients (every entry). The last knot is pinned to B, so it
-// passes no gradient back (the knot sum is 2B whatever the widths).
-RQS_DEVICE void spline_element_backward(real xv, const float* u,
-                                        const float* v, const float* r,
-                                        const SplineParams& p, real gy,
-                                        real gl, float* gx, float* gu,
-                                        float* gv, float* gr) {
-  const int K = p.K;
-  if (!(xv >= -p.B && xv <= p.B)) {
-    *gx = gy;
-    for (int k = 0; k < K; ++k) gu[k] = gv[k] = 0.0;
-    for (int k = 0; k < K - 1; ++k) gr[k] = 0.0;
-    return;
-  }
-  real ew[kMaxBins], eh[kMaxBins];
-  const Bin b = find_bin(xv, u, v, r, p, false, ew, eh);
-  const real s = b.h / b.w;
-  const real delta = b.dk + b.dk1 - 2.0 * s;
-  const real raw_theta = (xv - b.cw) / b.w;
+// Gradient of an element's forward transform with respect to x and to its
+// bin's quantities, given the cotangents gy of y and gl of the
+// log-derivative.
+struct BinGrad {
+  double x;         // dx
+  double a_w, b_w;  // width knots C_k and C_{k+1}
+  double a_h, b_h;  // height knots
+  double dk, dk1;   // the bin's two derivatives
+};
+
+__device__ __forceinline__ BinGrad bin_backward(double xv, const Bin& b,
+                                                double gy, double gl, int K) {
+  const double s = b.h / b.w;
+  const double delta = b.dk + b.dk1 - 2.0 * s;
+  const double raw_theta = (xv - b.cw) / b.w;
   const bool in_range = raw_theta >= 0.0 && raw_theta <= 1.0;
-  const real t = fmin(fmax(raw_theta, 0.0), 1.0);
-  const real omt = 1.0 - t;
-  const real t1 = t * omt;
-  const real denom = s + delta * t1;
-  const real nu = s * (t * t) + b.dk * t1;  // y = ch + h * nu / denom
-  const real q = b.dk1 * (t * t) + 2.0 * s * t1 + b.dk * (omt * omt);
-  const real inv_den = 1.0 / denom;
-  const real ratio = nu * inv_den;
+  const double t = fmin(fmax(raw_theta, 0.0), 1.0);
+  const double omt = 1.0 - t;
+  const double t1 = t * omt;
+  const double denom = s + delta * t1;
+  const double nu = s * (t * t) + b.dk * t1;  // y = ch + h * nu / denom
+  const double q = b.dk1 * (t * t) + 2.0 * s * t1 + b.dk * (omt * omt);
+  const double inv_den = 1.0 / denom;
+  const double ratio = nu * inv_den;
   // coefficients of d(nu), d(denom) and d(q) in the cotangent-weighted
   // sum  gy * y + gl * (2 log s + log q - 2 log denom)
-  const real c_nu = gy * b.h * inv_den;
-  const real c_den = -gy * b.h * ratio * inv_den - 2.0 * gl * inv_den;
-  const real c_q = gl / q;
-  const real one_m_2t = 1.0 - 2.0 * t;
-  const real g_t = c_nu * (2.0 * s * t + b.dk * one_m_2t) +
-                    c_den * delta * one_m_2t +
-                    c_q * (2.0 * b.dk1 * t + 2.0 * s * one_m_2t - 2.0 * b.dk * omt);
-  const real g_s = c_nu * (t * t) + c_den * (1.0 - 2.0 * t1) +
-                    c_q * 2.0 * t1 + 2.0 * gl / s;
-  const real g_dk = (c_nu + c_den) * t1 + c_q * (omt * omt);
-  const real g_dk1 = c_den * t1 + c_q * (t * t);
+  const double c_nu = gy * b.h * inv_den;
+  const double c_den = -gy * b.h * ratio * inv_den - 2.0 * gl * inv_den;
+  const double c_q = gl / q;
+  const double one_m_2t = 1.0 - 2.0 * t;
+  const double g_t = c_nu * (2.0 * s * t + b.dk * one_m_2t) +
+                     c_den * delta * one_m_2t +
+                     c_q * (2.0 * b.dk1 * t + 2.0 * s * one_m_2t - 2.0 * b.dk * omt);
+  const double g_s = c_nu * (t * t) + c_den * (1.0 - 2.0 * t1) +
+                     c_q * 2.0 * t1 + 2.0 * gl / s;
+  BinGrad g;
+  g.dk = (c_nu + c_den) * t1 + c_q * (omt * omt);
+  g.dk1 = c_den * t1 + c_q * (t * t);
   // theta = (x - cw) / w (unless clamped), s = h / w
-  real g_x = 0.0, g_cw = 0.0, g_w = -g_s * s / b.w;
+  double g_cw = 0.0, g_w = -g_s * s / b.w;
+  g.x = 0.0;
   if (in_range) {
-    g_x = g_t / b.w;
+    g.x = g_t / b.w;
     g_cw = -g_t / b.w;
     g_w -= g_t * raw_theta / b.w;
   }
-  const real g_h = gy * ratio + g_s / b.w;
-  const real g_ch = gy;
-  *gx = g_x;
+  const double g_h = gy * ratio + g_s / b.w;
+  const double g_ch = gy;
   // knot gradients: w = C_{k+1} - C_k, h = D_{k+1} - D_k; C_0 and C_K are
-  // constants
-  const int k = b.k;
-  const real a_w = k >= 1 ? g_cw - g_w : 0.0;   // dC_k
-  const real b_w = k + 1 <= K - 1 ? g_w : 0.0;  // dC_{k+1}
-  const real a_h = k >= 1 ? g_ch - g_h : 0.0;
-  const real b_h = k + 1 <= K - 1 ? g_h : 0.0;
-  // C_j = -B + sum_{i<j} W_i, W_i = (min + scale p_i) * 2B, p = softmax(u):
-  // dW_i = a [i < k] + b [i <= k];  du_i = c p_i (dW_i - sum_j p_j dW_j)
-  real pw_lt = 0.0, pw_le = 0.0, ph_lt = 0.0, ph_le = 0.0;
-#pragma unroll
-  for (int i = 0; i < kMaxBins; ++i) {
-    if (i < K) {
-      const real pw = ew[i] / b.sum_w, ph = eh[i] / b.sum_h;
-      if (i < k) {
-        pw_lt += pw;
-        ph_lt += ph;
-      }
-      if (i <= k) {
-        pw_le += pw;
-        ph_le += ph;
-      }
-    }
-  }
-  const real c_w = (1.0 - p.min_w * K) * 2.0 * p.B;
-  const real c_h = (1.0 - p.min_h * K) * 2.0 * p.B;
-  const real dot_w = a_w * pw_lt + b_w * pw_le;
-  const real dot_h = a_h * ph_lt + b_h * ph_le;
-#pragma unroll
-  for (int i = 0; i < kMaxBins; ++i) {
-    if (i < K) {
-      const real dw = (i < k ? a_w : 0.0) + (i <= k ? b_w : 0.0);
-      const real dh = (i < k ? a_h : 0.0) + (i <= k ? b_h : 0.0);
-      gu[i] = c_w * (ew[i] / b.sum_w) * (dw - dot_w);
-      gv[i] = c_h * (eh[i] / b.sum_h) * (dh - dot_h);
-    }
-  }
-  for (int j = 0; j < K - 1; ++j) gr[j] = 0.0;
-  if (k >= 1) gr[k - 1] = g_dk * sigmoid(r[k - 1] + p.shift);
-  if (k + 1 <= K - 1) gr[k] = g_dk1 * sigmoid(r[k] + p.shift);
+  // constants (the last knot is pinned, so it passes no gradient back)
+  g.a_w = b.k >= 1 ? g_cw - g_w : 0.0;      // dC_k
+  g.b_w = b.k + 1 <= K - 1 ? g_w : 0.0;     // dC_{k+1}
+  g.a_h = b.k >= 1 ? g_ch - g_h : 0.0;
+  g.b_h = b.k + 1 <= K - 1 ? g_h : 0.0;
+  return g;
+}
+
+// Lane k's raw-width (or raw-height) gradient. C_j = -B + sum_{i<j} W_i,
+// W_i = (min + scale p_i) * 2B, p = softmax(u): dW_i = a [i < bin] +
+// b [i <= bin] and du_k = c p_k (dW_k - sum_i p_i dW_i), the sum from
+// upto = p_0 + ... + p_k of the group's lanes.
+template <int G>
+__device__ __forceinline__ double share_gradient(double p_k, double upto,
+                                                 double a, double b, int bin,
+                                                 int k, double c) {
+  const double le = from_lane<G>(upto, bin);
+  const double below = from_lane<G>(upto, bin > 0 ? bin - 1 : 0);
+  const double lt = bin == 0 ? 0.0 : below;
+  const double dot = a * lt + b * le;
+  const double dw = (k < bin ? a : 0.0) + (k <= bin ? b : 0.0);
+  return c * p_k * (dw - dot);
 }
 
 // ---- kernels -------------------------------------------------------------
 
-#ifdef __CUDACC__
-namespace {
+// The bin of lane `src`'s element, to every lane (its derivatives only
+// where they were gathered).
+template <bool kDerivatives>
+__device__ __forceinline__ Bin bin_from_lane(const Bin& b, int src) {
+  Bin out;
+  out.k = __shfl_sync(kFullWarp, b.k, src);
+  out.cw = __shfl_sync(kFullWarp, b.cw, src);
+  out.w = __shfl_sync(kFullWarp, b.w, src);
+  out.ch = __shfl_sync(kFullWarp, b.ch, src);
+  out.h = __shfl_sync(kFullWarp, b.h, src);
+  if (kDerivatives) {
+    out.dk = __shfl_sync(kFullWarp, b.dk, src);
+    out.dk1 = __shfl_sync(kFullWarp, b.dk1, src);
+  }
+  return out;
+}
 
-__global__ void rqs_forward_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ u, int64_t su,
-                                   const float* __restrict__ v, int64_t sv,
-                                   const float* __restrict__ r, int64_t sr,
-                                   float* __restrict__ y,
-                                   float* __restrict__ ld, int64_t m,
-                                   SplineParams p, int inverse) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < m; i += stride) {
-    spline_element(x[i], u + i * su, v + i * sv, r + i * sr, p, inverse != 0,
-                   y + i, ld + i);
+// A warp takes `rounds` x 32 / G elements a pass: in each round its
+// groups find the bins of 32 / G elements, and lane t keeps the bin of
+// element t of the pass; then each lane evaluates the spline of its own
+// element and stores it. kSpread (rounds = G, where the input fills the
+// card): every lane evaluates one element, and takes only the two
+// softplus its bin needs, so neither is repeated in the G lanes of a
+// group. Otherwise (rounds = 1, the shortest chain) every lane of a group
+// takes the softplus of its own r[k] while the softmaxes run.
+template <int G, bool kSpread>
+__global__ void __launch_bounds__(kThreads)
+    rqs_forward_kernel(const float* __restrict__ x, const float* __restrict__ u,
+                       int64_t su, const float* __restrict__ v, int64_t sv,
+                       const float* __restrict__ r, int64_t sr,
+                       float* __restrict__ y, float* __restrict__ ld,
+                       int64_t m, SplineParams p, int inverse) {
+  constexpr int kPerRound = 32 / G;  // elements a warp holds at once
+  constexpr int kRounds = kSpread ? G : 1;
+  constexpr int kSpan = kPerRound * kRounds;
+  const int lane = threadIdx.x & 31;
+  const int k = lane & (G - 1);
+  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
+  // `first` and `round` are the same in every lane of the warp, so all
+  // lanes run every iteration and every shuffle in it
+  for (int64_t first = warp * kSpan; first < m; first += warps * kSpan) {
+    Bin mine = {};
+#pragma unroll 1
+    for (int round = 0; round < kRounds; ++round) {
+      const int64_t i = first + round * kPerRound + lane / G;
+      const bool valid = i < m;
+      const double xv = valid ? x[i] : 0.0f;
+      const int64_t row = valid ? i : 0;
+      LaneShares own;
+      const Bin b = group_bin<G, !kSpread>(xv, valid, u + row * su, v + row * sv,
+                                           r + row * sr, k, lane, p, inverse != 0, &own);
+      // lane t's element is that of group t % kPerRound in round t / kPerRound
+      const Bin moved = bin_from_lane<!kSpread>(b, (lane % kPerRound) * G);
+      if (lane / kPerRound == round) mine = moved;
+    }
+    const int64_t i = first + lane;
+    if (lane < kSpan && i < m) {
+      const float xf = x[i];
+      const double xv = xf;
+      if (xv >= -p.B && xv <= p.B) {
+        if (kSpread) {
+          const float* ri = r + i * sr;
+          const double v0 = static_cast<double>(mine.k > 0 ? ri[mine.k - 1] : 0.0f) + p.shift;
+          const double v1 = static_cast<double>(mine.k < p.K - 1 ? ri[mine.k] : 0.0f) + p.shift;
+          mine.dk = mine.k == 0 ? 1.0 : derivative(v0, exp(-fabs(v0)), p);
+          mine.dk1 = mine.k == p.K - 1 ? 1.0 : derivative(v1, exp(-fabs(v1)), p);
+        }
+        double yv, ldv;
+        spline_value(xv, mine, inverse != 0, &yv, &ldv);
+        y[i] = static_cast<float>(yv);
+        ld[i] = static_cast<float>(ldv);
+      } else {  // linear tails (and NaN) pass through
+        y[i] = xf;
+        ld[i] = 0.0f;
+      }
+    }
   }
 }
 
-__global__ void rqs_backward_kernel(
+template <int G>
+__global__ void __launch_bounds__(kThreads) rqs_backward_kernel(
     const float* __restrict__ x, const float* __restrict__ u, int64_t su,
     const float* __restrict__ v, int64_t sv, const float* __restrict__ r,
     int64_t sr, const float* __restrict__ gy, const float* __restrict__ gl,
     float* __restrict__ gx, float* __restrict__ gu, float* __restrict__ gv,
     float* __restrict__ gr, int64_t m, SplineParams p) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  constexpr int kPerWarp = 32 / G;
   const int K = p.K;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < m; i += stride) {
-    spline_element_backward(x[i], u + i * su, v + i * sv, r + i * sr, p,
-                            gy[i], gl[i], gx + i, gu + i * K, gv + i * K,
-                            gr + i * (K - 1));
+  const int lane = threadIdx.x & 31;
+  const int k = lane & (G - 1);
+  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
+  const double c_w = (1.0 - p.min_w * K) * 2.0 * p.B;
+  const double c_h = (1.0 - p.min_h * K) * 2.0 * p.B;
+  for (int64_t first = warp * kPerWarp; first < m; first += warps * kPerWarp) {
+    const int64_t i = first + lane / G;
+    const bool valid = i < m;
+    const double xv = valid ? x[i] : 0.0f;
+    const double gyv = valid ? gy[i] : 0.0f;
+    const double glv = valid ? gl[i] : 0.0f;
+    const bool inside = valid && xv >= -p.B && xv <= p.B;  // NaN is outside
+    const int64_t row = valid ? i : 0;
+    LaneShares own;
+    const Bin b = group_bin<G, true>(xv, valid, u + row * su, v + row * sv,
+                                     r + row * sr, k, lane, p, false, &own);
+    const BinGrad g = bin_backward(xv, b, gyv, glv, K);
+    const double g_u = share_gradient<G>(own.p_w, own.upto_w, g.a_w, g.b_w, b.k, k, c_w);
+    const double g_v = share_gradient<G>(own.p_h, own.upto_h, g.a_h, g.b_h, b.k, k, c_h);
+    // d softplus(r) / dr = sigmoid(r), from the same exp(-|r|)
+    const double sig = own.r >= 0.0 ? 1.0 / (1.0 + own.e_r) : own.e_r / (1.0 + own.e_r);
+    const double g_r = k == b.k - 1 ? g.dk * sig : (k == b.k ? g.dk1 * sig : 0.0);
+    if (valid) {
+      // outside the tails: dx = gy, no parameter gradient
+      if (k == 0) gx[i] = inside ? static_cast<float>(g.x) : static_cast<float>(gyv);
+      if (k < K) {
+        gu[i * K + k] = inside ? static_cast<float>(g_u) : 0.0f;
+        gv[i * K + k] = inside ? static_cast<float>(g_v) : 0.0f;
+      }
+      if (k < K - 1) gr[i * (K - 1) + k] = inside ? static_cast<float>(g_r) : 0.0f;
+    }
   }
 }
 
-unsigned int grid_for(int64_t m, int threads) {
-  int64_t blocks = (m + threads - 1) / threads;
-  // enough blocks to fill 132 SMs several times over; the grid-stride
-  // loop covers the rest
-  const int64_t max_blocks = 132 * 16;
-  return static_cast<unsigned int>(blocks < max_blocks ? blocks : max_blocks);
+// log2 of the lanes an element takes: the next power of two at or above
+// K, and at least 2 (a one-lane group is the two-lane one with a lane
+// idle; ptxas spilled its own instance).
+int lane_shift(int K) {
+  int s = 1;
+  while ((1 << s) < K) ++s;
+  return s;
+}
+
+// The threads the card holds at once: 2048 on each SM.
+cudaError_t resident_threads(int64_t* threads) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *threads = static_cast<int64_t>(sms) * 2048;
+  return err;
+}
+
+// Blocks for `lanes` threads, at most as many as the card holds at once;
+// the grid-stride loop covers the rest.
+unsigned int grid_for(int64_t lanes, int64_t resident) {
+  const int64_t want = (lanes + kThreads - 1) / kThreads;
+  const int64_t most = resident / kThreads;
+  return static_cast<unsigned int>(want < most ? want : most);
 }
 
 SplineParams make_params(int K, double B, double min_w, double min_h,
@@ -342,7 +486,24 @@ SplineParams make_params(int K, double B, double min_w, double min_h,
   return p;
 }
 
-constexpr int kThreads = 256;
+typedef void (*ForwardKernel)(const float*, const float*, int64_t,
+                              const float*, int64_t, const float*, int64_t,
+                              float*, float*, int64_t, SplineParams, int);
+typedef void (*BackwardKernel)(const float*, const float*, int64_t,
+                               const float*, int64_t, const float*, int64_t,
+                               const float*, const float*, float*, float*,
+                               float*, float*, int64_t, SplineParams);
+
+// indexed by lane_shift(K) - 1: G = 2, 4, 8, 16; the forward's first
+// index is kSpread
+const ForwardKernel kForward[2][4] = {
+    {rqs_forward_kernel<2, false>, rqs_forward_kernel<4, false>,
+     rqs_forward_kernel<8, false>, rqs_forward_kernel<16, false>},
+    {rqs_forward_kernel<2, true>, rqs_forward_kernel<4, true>,
+     rqs_forward_kernel<8, true>, rqs_forward_kernel<16, true>}};
+const BackwardKernel kBackward[] = {
+    rqs_backward_kernel<2>, rqs_backward_kernel<4>, rqs_backward_kernel<8>,
+    rqs_backward_kernel<16>};
 
 }  // namespace
 
@@ -361,8 +522,16 @@ extern "C" int rqs_forward_launch(const void* x, const void* u, int64_t su,
                                   void* stream) {
   if (K < 1 || K > kMaxBins) return static_cast<int>(cudaErrorInvalidValue);
   if (m <= 0) return 0;
-  rqs_forward_kernel<<<grid_for(m, kThreads), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  const int shift_g = lane_shift(K);
+  int64_t resident = 0;
+  const cudaError_t err = resident_threads(&resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // G rounds a pass (one spline a lane) where G lanes an element would
+  // not fit on the card at once, else one round
+  const int64_t lanes = m << shift_g;
+  const bool spread = lanes > resident;
+  kForward[spread][shift_g - 1]<<<grid_for(spread ? m : lanes, resident), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(u), su,
       static_cast<const float*>(v), sv, static_cast<const float*>(r), sr,
       static_cast<float*>(y), static_cast<float*>(ld), m,
@@ -382,8 +551,12 @@ extern "C" int rqs_backward_launch(const void* x, const void* u, int64_t su,
                                    void* stream) {
   if (K < 1 || K > kMaxBins) return static_cast<int>(cudaErrorInvalidValue);
   if (m <= 0) return 0;
-  rqs_backward_kernel<<<grid_for(m, kThreads), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  const int shift_g = lane_shift(K);
+  int64_t resident = 0;
+  const cudaError_t err = resident_threads(&resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kBackward[shift_g - 1]<<<grid_for(m << shift_g, resident), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(u), su,
       static_cast<const float*>(v), sv, static_cast<const float*>(r), sr,
       static_cast<const float*>(gy), static_cast<const float*>(gl),
@@ -392,4 +565,3 @@ extern "C" int rqs_backward_launch(const void* x, const void* u, int64_t su,
       make_params(K, B, min_w, min_h, min_d, shift));
   return static_cast<int>(cudaGetLastError());
 }
-#endif  // __CUDACC__

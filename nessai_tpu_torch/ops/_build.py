@@ -5,7 +5,9 @@ library with a plain C interface, bound with ``ctypes``. Libraries go to
 ``nessai_tpu_torch/_build/`` (listed in ``.gitignore``) under a name
 keyed by a hash of the source and the flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. Nothing is built when a
-module is imported: :func:`load` runs inside the first launch.
+module is imported: :func:`load` runs inside the first launch. ptxas's
+report of each kernel (registers, spills) is kept beside its library and
+read back by :func:`resources`.
 """
 
 import concurrent.futures
@@ -13,12 +15,23 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "build", "build_all", "load"]
+__all__ = [
+    "CSRC",
+    "BUILD_DIR",
+    "NVCC_FLAGS",
+    "KERNELS",
+    "build",
+    "build_all",
+    "load",
+    "resources",
+    "parse_ptxas",
+]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -33,6 +46,7 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas=-v",
 )
 
 
@@ -58,6 +72,10 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def _report_path(library: Path) -> Path:
+    return library.with_suffix(".ptxas.txt")
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless it is built; returns the path."""
     target = _library_path(name)
@@ -74,6 +92,7 @@ def build(name: str) -> Path:
             f"nvcc failed to build csrc/{name}.cu "
             f"(exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
         )
+    _report_path(target).write_text(proc.stderr)
     os.replace(tmp, target)
     return target
 
@@ -89,3 +108,59 @@ def build_all(names=KERNELS) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``csrc/<name>.cu``."""
     return ctypes.CDLL(str(build(name)))
+
+
+def _kernel_name(mangled: str) -> str:
+    """``rqs_forward_kernel<8, 1>`` from the mangled name of a kernel, in
+    an anonymous namespace or none, with integer or bool template
+    arguments."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    nested = mangled.startswith("_ZN")
+    rest = mangled[3 if nested else 2 :]
+    name = mangled
+    while True:
+        digits = re.match(r"\d+", rest)
+        if digits is None:
+            break
+        end = digits.end() + int(digits.group())
+        token, rest = rest[digits.end() : end], rest[end:]
+        if not token.startswith("_GLOBAL__N"):
+            name = token
+        if not nested:
+            break
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
+    if args is None:
+        return name
+    return f"{name}<{', '.join(re.findall(r'L[a-z](\d+)E', args.group(1)))}>"
+
+
+def parse_ptxas(report: str) -> list:
+    """Each kernel of an ``nvcc -Xptxas=-v`` report: ``{"kernel",
+    "registers", "spill_store_bytes", "spill_load_bytes"}``."""
+    spills = {
+        m.group(1): (int(m.group(2)), int(m.group(3)))
+        for m in re.finditer(
+            r"Function properties for (\w+)\s+\d+ bytes stack frame, "
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+            report,
+        )
+    }
+    kernels = []
+    for m in re.finditer(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", report, re.S):
+        store, load_ = spills.get(m.group(1), (None, None))
+        kernels.append(
+            dict(
+                kernel=_kernel_name(m.group(1)),
+                registers=int(m.group(2)),
+                spill_store_bytes=store,
+                spill_load_bytes=load_,
+            )
+        )
+    return kernels
+
+
+def resources(name: str) -> list:
+    """ptxas's registers and spills of each kernel in ``csrc/<name>.cu``,
+    building it first if needed."""
+    return parse_ptxas(_report_path(build(name)).read_text())

@@ -9,11 +9,16 @@ nvcc for ``sm_90a`` and bound with ctypes (see ``_build.py``):
 ``rqs_backward_launch`` (the gradient of the forward transform, which
 the JAX package takes by autodiff of its jnp reference).
 
-What bounds them on an H100: bytes. The forward moves 4·m·3K bytes in
-and 8·m out for m elements and K bins; the backward 4·m·(3K + 2) in and
-4·m·3K out. At the flagship's shapes (m ~ 10³) that is tens of
-nanoseconds; each thread's chain of double-precision exponentials sets
-the time there (``csrc/rqs.cu``).
+What bounds them on an H100: by bytes, the forward moves 4·m·3K bytes
+in and 8·m out for m elements and K bins, the backward 4·m·(3K + 2) in
+and 4·m·3K out: tens of nanoseconds at the flagship's shapes (m ~ 10³),
+where the launch and one element's dependent chain of double-precision
+math set the time instead. The kernels therefore give each element a
+group of G lanes (G the next power of two at or above K): lane k reads
+and normalises bin k, the softmax sums and the knots are shuffles within
+the group, the bin is a ballot, and lane k writes bin k's gradients
+(``csrc/rqs.cu``). The launch (G, the grid) is chosen in C from K and
+the card's SM count; the C signatures are those of the first port.
 
 :func:`rqs` is the wrapper: a CPU tensor takes the plain version
 (``flows/rqs.py``) with autograd through it, a CUDA tensor launches the

@@ -13,8 +13,9 @@ CUDA context, the kernel build or load and the library handles), a run
 without tracing and a run under the profiler. For each it prints one
 JSON object: the wall time of each run, the training times, the GPU
 time and record count of the traced run, the GPU busy share of the
-untraced wall time, and the kernels that take the most GPU time (the
-neural-spline line also names itself and counts its spline launches).
+untraced wall time, the GPU seconds of each of the port's own kernels,
+and the kernels that take the most GPU time (the neural-spline line also
+names itself and counts its spline launches).
 """
 
 import json
@@ -27,6 +28,7 @@ import torch
 __all__ = [
     "FLAGSHIP",
     "FLAGSHIP_NSF",
+    "OWN_KERNELS",
     "gpu_kernel_events",
     "event_time_ms",
     "device_time_ms",
@@ -122,6 +124,10 @@ def _run_flagship(output, config):
     return fs
 
 
+#: The port's own kernels, by a part of their names in the trace.
+OWN_KERNELS = ("affine_coupling_kernel", "rqs_forward_kernel", "rqs_backward_kernel")
+
+
 def profile_flagship(top: int = 12, config=FLAGSHIP) -> dict:
     """Time and trace a flagship run (``config``) on the GPU."""
     with tempfile.TemporaryDirectory(prefix=".profile_", dir=".") as output:
@@ -143,6 +149,13 @@ def profile_flagship(top: int = 12, config=FLAGSHIP) -> dict:
         count, total = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (count + 1, total + e.device_time_total / 1e6)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    own = {
+        kernel: dict(
+            count=sum(c for name, (c, _) in by_name.items() if kernel in name),
+            seconds=sum(t for name, (_, t) in by_name.items() if kernel in name),
+        )
+        for kernel in OWN_KERNELS
+    }
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True,
@@ -162,6 +175,7 @@ def profile_flagship(top: int = 12, config=FLAGSHIP) -> dict:
         gpu_busy_share_of_untraced_wall=None if busy_s is None else busy_s / untraced,
         logZ=fs.logZ,
         logZ_traced=fs_traced.logZ,
+        own_kernel_gpu_s=own,
         top=[
             dict(name=name[:90], count=count, seconds=seconds)
             for name, (count, seconds) in ranked

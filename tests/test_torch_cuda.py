@@ -104,6 +104,89 @@ def test_rqs_backward_kernel_matches_autograd_of_plain(cuda, n, d, K):
         torch.testing.assert_close(g_k.double(), g_p, atol=1e-6, rtol=1e-6)
 
 
+def _spline_grads(f, dtype, inputs, w_y, w_ld):
+    args = [a.detach().to(dtype).requires_grad_(True) for a in inputs]
+    y, ld = f(*args)
+    return torch.autograd.grad((y, ld), args, (w_y.to(dtype), w_ld.to(dtype)))
+
+
+def _assert_matches_f64_plain(inputs, w_y, w_ld, equal_nan=False):
+    """Forward, inverse and the backward of the forward against the plain
+    version in float64 (atol 1e-6 + rtol 1e-6)."""
+    from nessai_tpu_torch.ops.rqs import rqs, rqs_plain
+
+    for inverse in (False, True):
+        with torch.no_grad():
+            out = rqs(*inputs, inverse)
+            ref = rqs_plain(*_f64(*inputs), inverse)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a.double(), b, atol=1e-6, rtol=1e-6, equal_nan=equal_nan)
+    grads = _spline_grads(rqs, torch.float32, inputs, w_y, w_ld)
+    ref = _spline_grads(rqs_plain, torch.float64, inputs, w_y, w_ld)
+    for g_k, g_p in zip(grads, ref):
+        torch.testing.assert_close(g_k.double(), g_p, atol=1e-6, rtol=1e-6, equal_nan=equal_nan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 31, 257])
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 11, 16])
+def test_rqs_kernel_every_lane_group(cuda, K, m):
+    """Lane groups of 1 to 16 lanes (K not a power of two leaves lanes
+    idle), with partial warps and groups at the end of the input."""
+    inputs = _spline_inputs(cuda, m, 1, K, seed=100 * K + m)
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    w_y, w_ld = (torch.randn(m, 1, device=cuda, generator=gen) for _ in range(2))
+    _assert_matches_f64_plain(inputs, w_y, w_ld)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 8, 11])
+def test_rqs_kernel_knots_tails_and_nan(cuda, K):
+    """x on the interior knots (rounded to float32), at +-B, just beyond
+    the tails, far outside and NaN; then every element of each warp but
+    one outside the tails. With the log-derivative's cotangent 0 the
+    gradients are continuous across a knot, so a tie broken the other way
+    (knots summed in another order) changes no gradient."""
+    from nessai_tpu_torch.flows.rqs import DEFAULT_MIN_BIN_WIDTH, _knots, _normalise_bins
+
+    n = 96
+    _, w, h, dd = _spline_inputs(cuda, n, 1, K, seed=K)
+    knots = _knots(_normalise_bins(w.double(), K, 10.0, DEFAULT_MIN_BIN_WIDTH), -5.0, 5.0)
+    inner = knots[:, 0, 1:-1].float()
+    special = torch.tensor([-5.0, 5.0, -5.0000005, 5.0000005, 9.0, -7.0, float("nan"), 0.0], device=cuda)
+    x = special[torch.arange(n, device=cuda) % 8].reshape(n, 1)
+    if K > 1:
+        x[::2, 0] = inner[torch.arange(0, n, 2, device=cuda), torch.arange(n // 2, device=cuda) % (K - 1)]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w_y = torch.randn(n, 1, device=cuda, generator=gen)
+    zero = torch.zeros(n, 1, device=cuda)
+    _assert_matches_f64_plain((x, w, h, dd), w_y, zero, equal_nan=True)
+    # one element inside per warp (32 // G elements a warp)
+    per_warp = 32 // (1 << (K - 1).bit_length())
+    lone = torch.full((n, 1), 9.0, device=cuda)
+    lone[:: per_warp] = 0.3
+    _assert_matches_f64_plain((lone, w, h, dd), w_y, torch.randn(n, 1, device=cuda, generator=gen))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,K", [(4096, 4, 8), (2048, 3, 11)])
+def test_rqs_kernel_is_bitwise_deterministic(cuda, n, d, K):
+    """No atomics and a fixed shuffle order: two launches on the same
+    inputs give the same bits."""
+    from nessai_tpu_torch.ops.rqs import _launch, _launch_backward
+
+    x, w, h, dd = _spline_inputs(cuda, n, d, K, seed=5)
+    gy, gl = (torch.randn(n, d, device=cuda) for _ in range(2))
+    for run in (
+        lambda: _launch(x, w, h, dd, False, 5.0),
+        lambda: _launch(x, w, h, dd, True, 5.0),
+        lambda: _launch_backward(x, w, h, dd, gy, gl, 5.0),
+    ):
+        first, second = run(), run()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_rqs_kernel_round_trip_and_counters(cuda):
     from nessai_tpu_torch.ops.rqs import rqs

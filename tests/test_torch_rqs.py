@@ -221,3 +221,30 @@ def test_tails_none_on_cuda_raises(pretend_cuda):
     coupling = RQSCoupling([1, 0], n_neurons=4, tails=None)
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
         coupling(torch.rand(5, 2))
+
+
+def test_ptxas_report_parses_registers_and_spills():
+    """The build keeps ptxas's report beside each library; ``chip_smoke.py``
+    reads registers and spills of every kernel from it (and fails on a
+    spill)."""
+    from nessai_tpu_torch.ops._build import _kernel_name, parse_ptxas
+
+    report = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118rqs_forward_kernelILi8EEEvPKfS2_lS2_lS2_lPfS3_lNS_12SplineParamsEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118rqs_forward_kernelILi8EEEvPKfS2_lS2_lS2_lPfS3_lNS_12SplineParamsEi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers, 436 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a6b0d7fc_18_affine_coupling_cu_67f2401822affine_coupling_kernelEPKfS1_S1_PfS2_lifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__a6b0d7fc_18_affine_coupling_cu_67f2401822affine_coupling_kernelEPKfS1_S1_PfS2_lifi
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers, 404 bytes cmem[0]
+"""
+    assert parse_ptxas(report) == [
+        dict(kernel="rqs_forward_kernel<8>", registers=40, spill_store_bytes=0, spill_load_bytes=0),
+        dict(kernel="affine_coupling_kernel", registers=255, spill_store_bytes=12, spill_load_bytes=16),
+    ]
+    assert parse_ptxas("") == []
+    assert _kernel_name("_Z6kernelPf") == "kernel"
+    assert _kernel_name("_ZN12_GLOBAL__N_118rqs_forward_kernelILi16ELb1EEEvPKf") == (
+        "rqs_forward_kernel<16, 1>"
+    )
