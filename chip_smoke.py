@@ -10,7 +10,10 @@ Phases, each printing one JSON line: the environment; the nvcc build of
 the kernels from ``nessai_tpu_torch/csrc`` (one nvcc per source, all at
 once; ptxas's registers and spills of each kernel, and no spills
 allowed); the affine-coupling kernel (K1) against its plain PyTorch version
-(both directions, gradients, times); the rational-quadratic spline
+(both directions, gradients, times), first as the bare transform, then
+as the coupling layer with its backward kernel (also bitwise against the
+unfused path of gathers, copies and the bare kernel, and timed against
+it); the rational-quadratic spline
 kernels (K2: forward, inverse and the backward of the forward) against
 theirs; the flagship RealNVP and the neural-spline flow on the GPU
 against the same weights on the CPU; the flagship nested-sampling run
@@ -56,8 +59,21 @@ K1_SHAPES = [
     (1000, 8),
     (65536, 16),
 ]
-#: shape of the kernels-line numbers: a flagship training step
-K1_MAIN_SHAPE = (900, 1)
+#: K1 layer check shapes (n, D, mask; 1 marks an identity column): the
+#: flagship's couplings (D = 2, both masks) at its training batch and
+#: validation pass, a mask in no order with three transformed columns,
+#: and alternating masks at widths that take 16-byte loads
+K1_LAYER_SHAPES = [
+    (900, 2, (1, 0)),
+    (900, 2, (0, 1)),
+    (100, 2, (1, 0)),
+    (13, 5, (1, 0, 0, 1, 0)),
+    (4096, 8, (1, 0) * 4),
+    (65536, 32, (1, 0) * 16),
+]
+#: shape of the kernels-line numbers of both K1 kernels: a flagship
+#: training step's coupling
+K1_LAYER_MAIN_SHAPE = (900, 2, (1, 0))
 Y_ATOL, Y_RTOL, LD_ATOL = 1e-6, 1e-5, 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
 FLOW_ATOL, FLOW_RTOL = 1e-5, 1e-5
@@ -135,6 +151,23 @@ def k1_bound_ms(n, d):
     n_bytes = 4 * n * (4 * d + 1)
     # per element: divide, tanh, multiply, exp, multiply, add, row-sum add
     n_ops = 7 * n * d
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def k1_layer_bound_ms(n, D, n_tr, backward=False, inverse=False):
+    """Least time for the coupling layer. Forward: x, raw_s, t read and y,
+    ld written, 4 n (2 D + 2 n_tr + 1) bytes; 7 operations per transformed
+    element. Backward: g_y, g_ld, x (transformed columns), raw_s and, for
+    the inverse, t read; g_x, g_raw, g_t written; 11 operations per
+    transformed element, 17 for the inverse (which recomputes y)."""
+    if backward:
+        n_bytes = 4 * n * (2 * D + 1 + n_tr * (5 if inverse else 4))
+        n_ops = (17 if inverse else 11) * n * n_tr
+    else:
+        n_bytes = 4 * n * (2 * D + 2 * n_tr + 1)
+        n_ops = 7 * n * n_tr
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / FP32_OPS_PER_S * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
@@ -220,7 +253,6 @@ def phase_k1():
     gen = torch.Generator(device="cuda").manual_seed(20261016)
     rows = []
     max_err = 0.0
-    main = None
     for n, d in K1_SHAPES:
         x = torch.randn(n, d, device="cuda", generator=gen)
         raw_s = 2.0 * torch.randn(n, d, device="cuda", generator=gen)
@@ -267,8 +299,6 @@ def phase_k1():
                 "bound_ms": bound,
                 "bound_by": bound_by,
             }
-            if (n, d) == K1_MAIN_SHAPE and not inverse:
-                main = row[tag]
         with torch.no_grad():
             z, ld_f = coupling.affine_coupling(x, raw_s, t, False)
             x_back, ld_i = coupling.affine_coupling(z, raw_s, t, True)
@@ -285,6 +315,172 @@ def phase_k1():
             f"200 calls, or {EVENT_FALLBACK} (timer, plain_timer); call_ms, "
             "plain_call_ms: CUDA-event time per call, median of 30 samples "
             "of 50 back-to-back calls"
+        ),
+        shapes=rows,
+    )
+    return max_err
+
+
+class _UnfusedCoupling(torch.autograd.Function):
+    """The bare K1 as an unfused coupling layer uses it: the kernel
+    forward, and a backward in closed form as torch ops on the saved
+    output (``affine_coupling_backward_plain``)."""
+
+    @staticmethod
+    def forward(ctx, x, raw_s, t, inverse):
+        from nessai_tpu_torch.ops import coupling
+
+        y, ld = coupling._launch(x, raw_s, t, inverse, 5.0)
+        ctx.inverse = inverse
+        ctx.save_for_backward(x, raw_s, t, y)
+        return y, ld
+
+    @staticmethod
+    def backward(ctx, g, g_ld):
+        from nessai_tpu_torch.ops import coupling
+
+        x, raw_s, t, y = ctx.saved_tensors
+        grads = coupling.affine_coupling_backward_plain(x, raw_s, t, y, g, g_ld, ctx.inverse, 5.0)
+        return (*grads, None)
+
+
+def _unfused_layer(x, out, columns, inverse):
+    """The coupling layer without the fused kernel: the two column
+    gathers, copies of the halves of ``out``, the bare K1, the
+    concatenation and the scatter."""
+    identity_idx, transform_idx, scatter_idx = columns
+    n_tr = transform_idx.numel()
+    x_id = x[:, identity_idx]
+    y_tr, ld = _UnfusedCoupling.apply(
+        x[:, transform_idx], out[:, :n_tr].contiguous(), out[:, n_tr:].contiguous(), inverse
+    )
+    return torch.cat([x_id, y_tr], dim=1)[:, scatter_idx], ld
+
+
+def _columns(mask):
+    mask = np.asarray(mask)
+    identity_idx = np.flatnonzero(mask > 0)
+    transform_idx = np.flatnonzero(mask <= 0)
+    scatter_idx = np.argsort(np.concatenate([identity_idx, transform_idx]))
+    return [torch.as_tensor(a, device="cuda") for a in (identity_idx, transform_idx, scatter_idx)]
+
+
+def _grads(f, x, out, cot):
+    xg, og = x.clone().requires_grad_(True), out.clone().requires_grad_(True)
+    y, ld = f(xg, og)
+    return torch.autograd.grad((y, ld), (xg, og), cot)
+
+
+def _bitwise(a, b):
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def phase_k1_layer():
+    """The coupling-layer kernels (forward/inverse and backward) against
+    their plain versions, and bitwise against the unfused path (gathers,
+    copies and the bare K1 forward; the closed form as torch ops backward)
+    that the fused kernels replace."""
+    from nessai_tpu_torch.ops import coupling
+    from nessai_tpu_torch.utils.profiling import device_time_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(20261018)
+    rows = []
+    max_err = {"affine_coupling": 0.0, "affine_coupling_backward": 0.0}
+    main = {}
+    for n, D, mask in K1_LAYER_SHAPES:
+        columns = _columns(mask)
+        tidx = columns[1].to(torch.int32)
+        n_tr = tidx.numel()
+        x = torch.randn(n, D, device="cuda", generator=gen)
+        out = torch.randn(n, 2 * n_tr, device="cuda", generator=gen)
+        out[:, :n_tr] *= 2.0
+        cot = (torch.randn(n, D, device="cuda", generator=gen), torch.randn(n, device="cuda", generator=gen))
+        row = {"n": n, "D": D, "mask": list(mask)}
+        for inverse in (False, True):
+            tag = "inverse" if inverse else "forward"
+            with torch.no_grad():
+                y, ld = coupling.affine_coupling_layer(x, out, tidx, inverse)
+                y_ref, ld_ref = coupling.affine_coupling_layer_plain(x, out, tidx, inverse)
+                y_unf, ld_unf = _unfused_layer(x, out, columns, inverse)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y, y_ref, atol=Y_ATOL, rtol=Y_RTOL)
+            torch.testing.assert_close(ld, ld_ref, atol=LD_ATOL, rtol=0.0)
+            if not _bitwise((y, ld), (y_unf, ld_unf)):
+                raise RuntimeError(f"k1 layer at {(n, D, mask)} {tag}: not bitwise equal to the unfused path")
+            err = max(_max_err(y, y_ref), _max_err(ld, ld_ref))
+            max_err["affine_coupling"] = max(max_err["affine_coupling"], err)
+            # backward: autograd through the fused op (the backward kernel)
+            # against autograd of the plain version, and bitwise against
+            # the unfused op sequence
+            g_k = _grads(lambda a, b: coupling.affine_coupling_layer(a, b, tidx, inverse), x, out, cot)
+            g_p = _grads(lambda a, b: coupling.affine_coupling_layer_plain(a, b, tidx, inverse), x, out, cot)
+            g_u = _grads(lambda a, b: _unfused_layer(a, b, columns, inverse), x, out, cot)
+            torch.cuda.synchronize()
+            for a, b in zip(g_k, g_p):
+                torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+            grad_err = max(_max_err(a, b) for a, b in zip(g_k, g_p))
+            max_err["affine_coupling_backward"] = max(max_err["affine_coupling_backward"], grad_err)
+            # times: the fused kernels, the plain versions and the unfused path
+            xg, og = x.clone().requires_grad_(True), out.clone().requires_grad_(True)
+            graph = _unfused_layer(xg, og, columns, inverse)
+            timed_calls = {
+                "forward_fused": functools.partial(coupling._launch_layer, x, out, tidx, inverse, 5.0),
+                "forward_plain": functools.partial(coupling.affine_coupling_layer_plain, x, out, tidx, inverse),
+                "forward_unfused": functools.partial(_unfused_layer, x, out, columns, inverse),
+                "backward_fused": functools.partial(
+                    coupling._launch_layer_backward, x, out, tidx, *cot, inverse, 5.0
+                ),
+                "backward_plain": functools.partial(
+                    coupling.affine_coupling_layer_backward_plain, x, out, tidx, *cot, inverse
+                ),
+                "backward_unfused": functools.partial(
+                    torch.autograd.grad, graph, (xg, og), cot, retain_graph=True
+                ),
+            }
+            with torch.no_grad():
+                times = {name: device_time_ms(call) for name, call in timed_calls.items()}
+            del graph, timed_calls
+            fwd_bound, fwd_by = k1_layer_bound_ms(n, D, n_tr)
+            bwd_bound, bwd_by = k1_layer_bound_ms(n, D, n_tr, backward=True, inverse=inverse)
+            row[tag] = {
+                "max_abs_err": err,
+                "backward_max_abs_err": grad_err,
+                "backward_bitwise_equal_to_unfused_ops": _bitwise(g_k, g_u),
+                "backward_max_abs_diff_from_unfused_ops": max(_max_err(a, b) for a, b in zip(g_k, g_u)),
+                **{f"{k}_ms": v[0] for k, v in times.items()},
+                **{f"{k}_records_per_call": v[1] for k, v in times.items()},
+                "timers": sorted({v[2] for v in times.values()}),
+                "bound_ms": fwd_bound,
+                "bound_by": fwd_by,
+                "backward_bound_ms": bwd_bound,
+                "backward_bound_by": bwd_by,
+            }
+            if (n, D, mask) == K1_LAYER_MAIN_SHAPE and not inverse:
+                r = row[tag]
+                main["affine_coupling"] = dict(
+                    ms=r["forward_fused_ms"], plain_ms=r["forward_plain_ms"],
+                    bound_ms=fwd_bound, bound_by=fwd_by, timer=times["forward_fused"][2],
+                    plain_timer=times["forward_plain"][2],
+                )
+                main["affine_coupling_backward"] = dict(
+                    ms=r["backward_fused_ms"], plain_ms=r["backward_plain_ms"],
+                    bound_ms=bwd_bound, bound_by=bwd_by, timer=times["backward_fused"][2],
+                    plain_timer=times["backward_plain"][2],
+                )
+        rows.append(row)
+    emit(
+        "k1_layer_vs_plain",
+        tolerance={"y_atol": Y_ATOL, "y_rtol": Y_RTOL, "ld_atol": LD_ATOL,
+                   "grad_atol": GRAD_ATOL, "grad_rtol": GRAD_RTOL,
+                   "forward_vs_unfused_path": "bitwise"},
+        timing=(
+            "*_ms, *_records_per_call: GPU time and GPU records per call from "
+            f"torch.profiler over 200 calls, or {EVENT_FALLBACK} (timers); fused: "
+            "the layer kernels; plain: affine_coupling_layer_plain and "
+            "affine_coupling_layer_backward_plain; unfused: the path the fused "
+            "kernels replace (gathers, "
+            "copies and the bare K1 forward; autograd of it with the closed form "
+            "as torch ops backward)"
         ),
         shapes=rows,
     )
@@ -583,11 +779,19 @@ def phase_flagship():
     # bench.py:51-63: nlive 1000, seed 1234, RealNVP 4 x [permutation,
     # resnet affine coupling, actnorm], 100 epochs, patience 20
     result, nested, fs = _flagship_run(
-        FLAGSHIP, {"k1_launches": (coupling.affine_coupling, "launches")}
+        FLAGSHIP,
+        {
+            "k1_launches": (coupling.affine_coupling, "launches"),
+            "k1_backward_launches": (coupling.affine_coupling, "backward_launches"),
+        },
     )
     emit("flagship", **result)
-    if result["k1_launches"] == 0:
-        raise RuntimeError("the flagship run launched the affine-coupling kernel 0 times")
+    if result["k1_launches"] == 0 or result["k1_backward_launches"] == 0:
+        raise RuntimeError(
+            "the flagship run launched the affine-coupling kernels "
+            f"{result['k1_launches']} (forward/inverse) and "
+            f"{result['k1_backward_launches']} (backward) times"
+        )
     _check_run(result, nested, fs)
     return result
 
@@ -604,6 +808,7 @@ def phase_flagship_nsf():
             "rqs_launches": (rqs, "launches"),
             "rqs_backward_launches": (rqs, "backward_launches"),
             "k1_launches": (coupling.affine_coupling, "launches"),
+            "k1_backward_launches": (coupling.affine_coupling, "backward_launches"),
         },
     )
     emit("flagship_nsf", **result)
@@ -636,7 +841,8 @@ def main():
         seconds = {}
         smi = timed(seconds, "environment", phase_environment)
         timed(seconds, "build", phase_build)
-        max_err, main_k1 = timed(seconds, "k1_vs_plain", phase_k1)
+        max_err = timed(seconds, "k1_vs_plain", phase_k1)
+        max_err_layer, main_layer = timed(seconds, "k1_layer_vs_plain", phase_k1_layer)
         max_err_k2, main_k2 = timed(seconds, "k2_vs_plain", phase_k2)
         timed(seconds, "flow_realnvp", phase_flow, FLAGSHIP, "realnvp", scale=0.05)
         # the reference in float64: the plain spline in float32 strays
@@ -650,25 +856,36 @@ def main():
     except Exception:
         traceback.print_exc()
         return 1
-    kernels = [
-        {
-            "name": "affine_coupling",
-            "route": "cuda",
-            "source": "nessai_tpu_torch/csrc/affine_coupling.cu",
-            "replaces": "nessai_tpu/ops/coupling_pallas.py:56",
-            "launches": flagship["k1_launches"],
-            "max_abs_err": max_err,
-            "ms": main_k1["ms"],
-            "plain_ms": main_k1["plain_ms"],
-            "bound_ms": main_k1["bound_ms"],
-            "bound_by": main_k1["bound_by"],
-            "library_ms": None,
-            "timer": main_k1["timer"],
-            "plain_timer": main_k1["plain_timer"],
-            "shape": list(K1_MAIN_SHAPE),
-            "card": smi,
-        }
-    ]
+    kernels = []
+    for name, replaces, launches in (
+        ("affine_coupling", "nessai_tpu/ops/coupling_pallas.py:56", flagship["k1_launches"]),
+        # the JAX package's backward: jax.vjp of the jnp reference
+        ("affine_coupling_backward", "nessai_tpu/ops/coupling_pallas.py:112",
+         flagship["k1_backward_launches"]),
+    ):
+        row = main_layer[name]
+        kernels.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": "nessai_tpu_torch/csrc/affine_coupling.cu",
+                "replaces": replaces,
+                "launches": launches,
+                "max_abs_err": max(max_err_layer[name], max_err if name == "affine_coupling" else 0.0),
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                # no single PyTorch call computes a soft-clamped affine
+                # coupling with its row log-determinant
+                "library_ms": None,
+                "timer": row["timer"],
+                "plain_timer": row["plain_timer"],
+                "shape": [K1_LAYER_MAIN_SHAPE[0], K1_LAYER_MAIN_SHAPE[1]],
+                "mask": list(K1_LAYER_MAIN_SHAPE[2]),
+                "card": smi,
+            }
+        )
     for name, replaces, launches in (
         ("rqs", "nessai_tpu/ops/rqs_pallas.py:180", flagship_nsf["rqs_launches"]),
         # the JAX package's backward: jax.vjp of the jnp reference

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.coupling import affine_coupling
+from ..ops.coupling import affine_coupling_layer
 from .nets import MLP, ResNet
 from .rqs import rational_quadratic_spline
 
@@ -112,9 +112,12 @@ class AffineCoupling(_Coupling):
     """Affine (or additive) coupling layer (RealNVP, arXiv:1605.08803).
 
     The identity half conditions a net giving ``(raw log-scale, shift)``
-    for the transform half. The soft-clamp, the affine map and the row
-    log-determinant are one call of the fused kernel
-    (:func:`~nessai_tpu_torch.ops.coupling.affine_coupling`).
+    for the transform half. The split of the columns, the soft-clamp, the
+    affine map, the scatter back and the row log-determinant are one call
+    of the fused layer kernel
+    (:func:`~nessai_tpu_torch.ops.coupling.affine_coupling_layer`), one
+    launch forward and one backward on the GPU. The volume-preserving
+    (additive) coupling keeps the split of :class:`_Coupling`.
     """
 
     def __init__(
@@ -133,14 +136,22 @@ class AffineCoupling(_Coupling):
         )
         self.volume_preserving = volume_preserving
         self.scale_limit = float(scale_limit)
+        # the transformed columns as the kernel reads them; derived from
+        # transform_idx, so left out of the state dict
+        self.register_buffer(
+            "transform_idx32", self.transform_idx.to(torch.int32), persistent=False
+        )
+
+    def _transform(self, x, inverse: bool):
+        if self.volume_preserving:
+            return super()._transform(x, inverse)
+        out = self.net(x[:, self.identity_idx])
+        return affine_coupling_layer(x, out, self.transform_idx32, inverse, self.scale_limit)
 
     def _transform_half(self, x_tr, out, inverse: bool):
-        if self.volume_preserving:
-            y_tr = x_tr - out if inverse else x_tr + out
-            return y_tr, torch.zeros(x_tr.shape[0], dtype=x_tr.dtype, device=x_tr.device)
-        return affine_coupling(
-            x_tr, out[:, : self.n_tr], out[:, self.n_tr :], inverse, self.scale_limit
-        )
+        # the volume-preserving coupling only
+        y_tr = x_tr - out if inverse else x_tr + out
+        return y_tr, torch.zeros(x_tr.shape[0], dtype=x_tr.dtype, device=x_tr.device)
 
 
 class RQSCoupling(_Coupling):

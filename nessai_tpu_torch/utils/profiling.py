@@ -14,8 +14,10 @@ without tracing and a run under the profiler. For each it prints one
 JSON object: the wall time of each run, the training times, the GPU
 time and record count of the traced run, the GPU busy share of the
 untraced wall time, the GPU seconds of each of the port's own kernels,
-and the kernels that take the most GPU time (the neural-spline line also
-names itself and counts its spline launches).
+and the kernels that take the most GPU time, the traced run's training
+epochs and GPU records per epoch, and the launches per run of the
+flagship's own kernels (K1 forward and backward, or K2 forward and
+backward).
 """
 
 import json
@@ -125,7 +127,12 @@ def _run_flagship(output, config):
 
 
 #: The port's own kernels, by a part of their names in the trace.
-OWN_KERNELS = ("affine_coupling_kernel", "rqs_forward_kernel", "rqs_backward_kernel")
+OWN_KERNELS = (
+    "affine_coupling_kernel",
+    "affine_coupling_backward_kernel",
+    "rqs_forward_kernel",
+    "rqs_backward_kernel",
+)
 
 
 def profile_flagship(top: int = 12, config=FLAGSHIP) -> dict:
@@ -162,6 +169,8 @@ def profile_flagship(top: int = 12, config=FLAGSHIP) -> dict:
         text=True,
         timeout=60,
     ).stdout.strip()
+    # the traced run's epochs: its GPU records per epoch of training
+    epochs = len(fs_traced.ns.flow_proposal.flow.history["loss"])
     return dict(
         card=card,
         first_run_wall_s=first,
@@ -171,6 +180,8 @@ def profile_flagship(top: int = 12, config=FLAGSHIP) -> dict:
         traced_wall_s=traced,
         traced_training_time_s=fs_traced.ns.training_time.total_seconds(),
         gpu_records=len(events),
+        training_epochs=epochs,
+        gpu_records_per_epoch=len(events) / epochs if epochs else None,
         gpu_busy_s=busy_s,
         gpu_busy_share_of_untraced_wall=None if busy_s is None else busy_s / untraced,
         logZ=fs.logZ,
@@ -188,9 +199,17 @@ if __name__ == "__main__":
         raise SystemExit("profiling the flagship needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(json.dumps(profile_flagship()), flush=True)
+    from ..ops.coupling import affine_coupling
     from ..ops.rqs import rqs
 
+    affine_coupling.launches = affine_coupling.backward_launches = 0
+    realnvp = profile_flagship()
+    # three runs: first, untraced, traced
+    launches = dict(
+        k1_launches_per_run=affine_coupling.launches / 3,
+        k1_backward_launches_per_run=affine_coupling.backward_launches / 3,
+    )
+    print(json.dumps(dict(flagship="realnvp", **realnvp, **launches)), flush=True)
     rqs.launches = rqs.backward_launches = 0
     nsf = profile_flagship(config=FLAGSHIP_NSF)
     # three runs: first, untraced, traced

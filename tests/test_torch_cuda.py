@@ -48,6 +48,164 @@ def test_affine_coupling_kernel_rejects_bad_input(cuda):
         coupling.affine_coupling(x, x.cpu(), x)
 
 
+#: coupling masks (1 marks an identity column): the flagship's two, a
+#: mask in no order, every column transformed, and alternating masks at
+#: widths that take 16-byte loads
+LAYER_MASKS = [(1, 0), (0, 1), (0, 1, 1), (1, 0, 0, 1, 0), (0, 0, 0, 0), (1, 0) * 4, (1, 0) * 16]
+
+
+def _layer_inputs(cuda, n, mask, seed):
+    import numpy as np
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    tidx = torch.as_tensor(np.flatnonzero(np.asarray(mask) <= 0), dtype=torch.int32, device=cuda)
+    n_tr = tidx.numel()
+    x = torch.randn(n, len(mask), device=cuda, generator=gen)
+    out = torch.randn(n, 2 * n_tr, device=cuda, generator=gen)
+    out[:, :n_tr] *= 2.0
+    cot = (torch.randn(n, len(mask), device=cuda, generator=gen), torch.randn(n, device=cuda, generator=gen))
+    return x, out, tidx, cot
+
+
+def _unfused_layer(x, out, tidx, inverse):
+    """The layer as gathers, the bare kernel and a scatter: the unfused
+    path that the layer kernel replaces (forward only)."""
+    from nessai_tpu_torch.ops import coupling
+
+    tr = tidx.long()
+    n_tr = tr.numel()
+    y_tr, ld = coupling._launch(
+        x[:, tr].contiguous(), out[:, :n_tr].contiguous(), out[:, n_tr:].contiguous(), inverse, 5.0
+    )
+    y = x.clone()
+    y[:, tr] = y_tr
+    return y, ld
+
+
+def _layer_grads(f, x, out, cot):
+    xg, og = x.clone().requires_grad_(True), out.clone().requires_grad_(True)
+    y, ld = f(xg, og)
+    return torch.autograd.grad((y, ld), (xg, og), cot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("mask", LAYER_MASKS)
+@pytest.mark.parametrize("n", [0, 1, 31, 257])
+def test_affine_coupling_layer_kernels_match_plain(cuda, n, mask, inverse):
+    """Forward against the plain version (and bitwise against the unfused
+    path), backward against autograd of the plain version; one launch of
+    each kernel per call (none for n = 0)."""
+    from nessai_tpu_torch.ops import coupling
+
+    x, out, tidx, cot = _layer_inputs(cuda, n, mask, seed=n + len(mask))
+    before = coupling.affine_coupling.launches, coupling.affine_coupling.backward_launches
+    with torch.no_grad():
+        y, ld = coupling.affine_coupling_layer(x, out, tidx, inverse)
+        y_ref, ld_ref = coupling.affine_coupling_layer_plain(x, out, tidx, inverse)
+        y_unf, ld_unf = _unfused_layer(x, out, tidx, inverse)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and ld.shape == (n,)
+    torch.testing.assert_close(y, y_ref, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(ld, ld_ref, atol=1e-5, rtol=0)
+    assert torch.equal(y, y_unf) and torch.equal(ld, ld_unf)
+    launched = 1 if n else 0
+    assert coupling.affine_coupling.launches == before[0] + 2 * launched
+    g_k = _layer_grads(lambda a, b: coupling.affine_coupling_layer(a, b, tidx, inverse), x, out, cot)
+    g_p = _layer_grads(lambda a, b: coupling.affine_coupling_layer_plain(a, b, tidx, inverse), x, out, cot)
+    torch.cuda.synchronize()
+    assert coupling.affine_coupling.backward_launches == before[1] + launched
+    for a, b in zip(g_k, g_p):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+def test_affine_coupling_layer_kernels_strided_and_special_inputs(cuda, inverse):
+    """x with a row stride (read as it is) and with a column stride
+    (copied), conditioner outputs with NaN and +-inf, and cotangents with
+    a zero row stride."""
+    from nessai_tpu_torch.ops import coupling
+
+    mask = (1, 0, 0, 1, 0)
+    x, out, tidx, cot = _layer_inputs(cuda, 257, mask, seed=4)
+    wide = torch.randn(257, 9, device=cuda)
+    wide[:, 2:7] = x
+    cols = torch.randn(257, 10, device=cuda)
+    cols[:, ::2] = x
+    out[::7, 0] = float("nan")
+    out[1::7, 1] = float("inf")
+    out[2::7, 2] = -float("inf")
+    for xs in (wide[:, 2:7], cols[:, ::2]):
+        with torch.no_grad():
+            y, ld = coupling.affine_coupling_layer(xs, out, tidx, inverse)
+            y_ref, ld_ref = coupling.affine_coupling_layer_plain(x, out, tidx, inverse)
+        torch.testing.assert_close(y, y_ref, atol=1e-6, rtol=1e-5, equal_nan=True)
+        torch.testing.assert_close(ld, ld_ref, atol=1e-5, rtol=0, equal_nan=True)
+    gy = torch.randn(1, 5, device=cuda).expand(257, 5)
+    gl = torch.randn(1, device=cuda).expand(257)
+    g_x, g_out = coupling._launch_layer_backward(wide[:, 2:7], out, tidx, gy, gl, inverse, 5.0)
+    ref = coupling.affine_coupling_layer_backward_plain(x, out, tidx, gy, gl, inverse)
+    for a, b in zip((g_x, g_out), ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,mask", [(65536, (1, 0) * 16), (4099, (1, 0, 0, 1, 0)), (900, (0, 1))])
+def test_affine_coupling_layer_kernels_are_bitwise_deterministic(cuda, n, mask):
+    """No atomics and a fixed shuffle order: two launches on the same
+    inputs give the same bits."""
+    from nessai_tpu_torch.ops import coupling
+
+    x, out, tidx, (gy, gl) = _layer_inputs(cuda, n, mask, seed=9)
+    for inverse in (False, True):
+        for run in (
+            lambda: coupling._launch_layer(x, out, tidx, inverse, 5.0),
+            lambda: coupling._launch_layer_backward(x, out, tidx, gy, gl, inverse, 5.0),
+            lambda: coupling._launch_layer_backward(x, out, tidx, None, gl, inverse, 5.0, False),
+        ):
+            first, second = run(), run()
+            for a, b in zip(first, second):
+                assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_affine_coupling_layer_none_cotangents(cuda):
+    """A cotangent that is None costs no zeros and gives the plain
+    version's gradient of the other output."""
+    from nessai_tpu_torch.ops import coupling
+
+    x, out, tidx, (gy, gl) = _layer_inputs(cuda, 300, (1, 0, 0, 1, 0), seed=2)
+    for g_y, g_ld in ((gy, None), (None, gl)):
+        got = coupling._launch_layer_backward(x, out, tidx, g_y, g_ld, False, 5.0)
+        ref = coupling.affine_coupling_layer_backward_plain(x, out, tidx, g_y, g_ld)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_affine_coupling_flow_counts_one_launch_each_way(cuda):
+    """A RealNVP coupling on the GPU: one forward and one backward launch
+    per coupling per training step."""
+    from nessai_tpu_torch.flows import bijectors
+    from nessai_tpu_torch.ops import coupling
+
+    layer = bijectors.AffineCoupling([1, 0], n_neurons=8).to(cuda)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.add_(0.1 * torch.randn_like(p))
+    x = torch.randn(900, 2, device=cuda)
+    coupling.affine_coupling.launches = coupling.affine_coupling.backward_launches = 0
+    z, ld = layer(x)
+    (z.square().sum() + ld.sum()).backward()
+    with torch.no_grad():
+        back, _ = layer.inverse(z)
+    torch.cuda.synchronize()
+    assert coupling.affine_coupling.launches == 2
+    assert coupling.affine_coupling.backward_launches == 1
+    torch.testing.assert_close(back, x, atol=1e-5, rtol=1e-5)
+
+
 def _spline_inputs(cuda, n, d, K, seed):
     """x ~ U(-6, 6) (the tails are covered) and raw parameters ~ N(0, 1),
     the parameters as slices of one conditioner-shaped output."""

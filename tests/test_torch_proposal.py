@@ -174,13 +174,13 @@ def test_populate_draws_through_the_coupling_wrapper(tmp_path, monkeypatch):
     from nessai_tpu_torch.flows import bijectors
 
     calls = []
-    real = bijectors.affine_coupling
+    real = bijectors.affine_coupling_layer
 
-    def spy(x, raw_s, t, inverse=False, clamp=5.0):
+    def spy(x, out, transform_idx, inverse=False, clamp=5.0):
         calls.append((tuple(x.shape), inverse))
-        return real(x, raw_s, t, inverse, clamp)
+        return real(x, out, transform_idx, inverse, clamp)
 
-    monkeypatch.setattr(bijectors, "affine_coupling", spy)
+    monkeypatch.setattr(bijectors, "affine_coupling_layer", spy)
     _, tprop = _proposals(tmp_path)
     tprop.populate(None, n_samples=200)
     assert calls and all(inverse for _, inverse in calls)
