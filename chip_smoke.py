@@ -16,9 +16,13 @@ unfused path of gathers, copies and the bare kernel, and timed against
 it); the rational-quadratic spline
 kernels (K2: forward, inverse and the backward of the forward) against
 theirs; the flagship RealNVP and the neural-spline flow on the GPU
-against the same weights on the CPU; the flagship nested-sampling run
-(``bench.py``'s configuration) through ``FlowSampler(..., device="cuda")``
-and the same run with the neural spline flow; a ``kernels`` summary. The
+against the same weights on the CPU; the importance nested sampler's
+per-level flows (``log_prob_all`` and single-level passes at 16,384
+rows) on the GPU against the CPU; the flagship nested-sampling run
+(``bench.py``'s configuration) through ``FlowSampler(..., device="cuda")``,
+the same run with the neural spline flow, and the importance nested
+sampler's flagship (``FlowSampler(..., importance_nested_sampler=True,
+device="cuda")``); a ``kernels`` summary. The
 last line is ``{"ok": true, "device": {...}}``. Any failing phase ends
 the script with a non-zero exit code and without that line. Without a
 GPU the script exits with code 2 at once.
@@ -62,7 +66,9 @@ K1_SHAPES = [
 #: K1 layer check shapes (n, D, mask; 1 marks an identity column): the
 #: flagship's couplings (D = 2, both masks) at its training batch and
 #: validation pass, a mask in no order with three transformed columns,
-#: and alternating masks at widths that take 16-byte loads
+#: alternating masks at widths that take 16-byte loads, and the
+#: importance nested sampler's pass over every stored sample (16,384
+#: rows; last, so that the rows before it keep their inputs)
 K1_LAYER_SHAPES = [
     (900, 2, (1, 0)),
     (900, 2, (0, 1)),
@@ -70,6 +76,7 @@ K1_LAYER_SHAPES = [
     (13, 5, (1, 0, 0, 1, 0)),
     (4096, 8, (1, 0) * 4),
     (65536, 32, (1, 0) * 16),
+    (16384, 2, (1, 0)),
 ]
 #: shape of the kernels-line numbers of both K1 kernels: a flagship
 #: training step's coupling
@@ -78,6 +85,8 @@ Y_ATOL, Y_RTOL, LD_ATOL = 1e-6, 1e-5, 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
 FLOW_ATOL, FLOW_RTOL = 1e-5, 1e-5
 PULL_LIMIT = 3.0
+#: the importance nested sampler's flow check: levels and rows
+INS_LEVELS, INS_ROWS = 4, 16384
 
 #: K2 check shapes [n, d_tr, K]: the NSF flagship's training batch, its
 #: validation pass and pool draws (d_tr = 1, 8 bins), wider layers, one
@@ -402,6 +411,9 @@ def phase_k1_layer():
                 y, ld = coupling.affine_coupling_layer(x, out, tidx, inverse)
                 y_ref, ld_ref = coupling.affine_coupling_layer_plain(x, out, tidx, inverse)
                 y_unf, ld_unf = _unfused_layer(x, out, columns, inverse)
+                # the exact function, for the record: how far the kernel
+                # and the float32 plain version each are from it
+                y64, _ = coupling.affine_coupling_layer_plain(x.double(), out.double(), tidx, inverse)
             torch.cuda.synchronize()
             torch.testing.assert_close(y, y_ref, atol=Y_ATOL, rtol=Y_RTOL)
             torch.testing.assert_close(ld, ld_ref, atol=LD_ATOL, rtol=0.0)
@@ -444,6 +456,8 @@ def phase_k1_layer():
             bwd_bound, bwd_by = k1_layer_bound_ms(n, D, n_tr, backward=True, inverse=inverse)
             row[tag] = {
                 "max_abs_err": err,
+                "y_max_abs_err_vs_float64": _max_err(y, y64),
+                "plain_y_max_abs_err_vs_float64": _max_err(y_ref, y64),
                 "backward_max_abs_err": grad_err,
                 "backward_bitwise_equal_to_unfused_ops": _bitwise(g_k, g_u),
                 "backward_max_abs_diff_from_unfused_ops": max(_max_err(a, b) for a, b in zip(g_k, g_u)),
@@ -711,11 +725,86 @@ def phase_flow(config, name, scale, seed=7, reference_dtype=torch.float32):
     )
 
 
-def _flagship_run(config, counters):
-    """One nested-sampling run of ``config`` on the GPU, with every
-    launch counter in ``counters`` (wrapper, attribute) set to 0 just
-    before it and read just after. Returns the run's summary, the counts
-    and the sampler."""
+def _ins_flow_model(device, seed=11):
+    """An ``ImportanceFlowModel`` of the INS flagship's flow with
+    ``INS_LEVELS`` levels on ``device``, each level's weights those of a
+    new flow perturbed by 0.05 N(0, 1) (so that no coupling is the
+    identity), drawn from ``seed``."""
+    from nessai_tpu_torch.flowmodel import ImportanceFlowModel
+
+    fm = ImportanceFlowModel(dict(n_inputs=2), output=tempfile.gettempdir(),
+                             rng=np.random.default_rng(seed), device=device)
+    fm.initialise()
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(INS_LEVELS):
+        fm.add_new_flow(reset=True)
+        with torch.no_grad():
+            for p in fm.flow.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=gen).to(p.device))
+        fm.add_level(fm.flow)
+    return fm
+
+
+def phase_ins_flow():
+    """The importance nested sampler's levels on the GPU against the same
+    weights on the CPU: ``log_prob_all`` over every level and the
+    single-level pass of ``update_log_q`` at ``INS_ROWS`` rows, with GPU
+    time and K1 launches per call."""
+    from nessai_tpu_torch.flows.convert import levels_from_jax, params_to_jax
+    from nessai_tpu_torch.ops import coupling
+    from nessai_tpu_torch.utils.profiling import device_time_ms
+
+    gpu = _ins_flow_model("cuda")
+    cpu = _ins_flow_model("cpu")
+    levels_from_jax(cpu, [params_to_jax(level) for level in gpu.models])
+    # logit-space rows as the levels see them, within a radius of 3
+    x = np.random.default_rng(12).normal(0, 1, (2 * INS_ROWS, 2))
+    x = x[np.linalg.norm(x, axis=1) <= 3.0][:INS_ROWS]
+    x_gpu = torch.as_tensor(x, dtype=torch.float32, device="cuda")
+    rows = {}
+    calls = {
+        "log_prob_all": (lambda fm, a: fm.log_prob_all(a),
+                         lambda: torch.stack([f.log_prob(x_gpu) for f in gpu.models], dim=1)),
+        "log_prob_ith": (lambda fm, a: fm.log_prob_ith(a, INS_LEVELS - 1),
+                         lambda: gpu.models[-1].log_prob(x_gpu)),
+    }
+    for name, (call, device_call) in calls.items():
+        coupling.affine_coupling.launches = 0
+        ours = call(gpu, x)
+        launches = coupling.affine_coupling.launches
+        theirs = call(cpu, x)
+        np.testing.assert_allclose(ours, theirs, atol=FLOW_ATOL, rtol=FLOW_RTOL)
+        with torch.no_grad():
+            ms, records, timer = device_time_ms(device_call, calls=50)
+            start = time.perf_counter()
+            for _ in range(20):
+                call(gpu, x)
+            host_ms = (time.perf_counter() - start) / 20 * 1e3
+        rows[name] = dict(
+            shape=list(ours.shape),
+            max_abs_err=float(np.abs(ours - theirs).max()),
+            max_share_of_tolerance=float((np.abs(ours - theirs) / (FLOW_ATOL + FLOW_RTOL * np.abs(theirs))).max()),
+            k1_launches_per_call=launches,
+            gpu_us=ms * 1e3,
+            gpu_records_per_call=records,
+            timer=timer,
+            host_us_with_copy=host_ms * 1e3,
+        )
+    expected = {"log_prob_all": 4 * INS_LEVELS, "log_prob_ith": 4}
+    emit("ins_flow_gpu_vs_cpu", levels=INS_LEVELS, n=len(x), atol=FLOW_ATOL, rtol=FLOW_RTOL,
+         timing=("gpu_us: GPU time per call of the device work (torch.profiler, 50 calls); "
+                 "host_us_with_copy: host wall per call of the numpy entry point, mean of 20"),
+         **rows)
+    for name, n in expected.items():
+        if rows[name]["k1_launches_per_call"] != n:
+            raise RuntimeError(f"{name} launched K1 {rows[name]['k1_launches_per_call']} times, not {n}")
+
+
+def _drive(config, counters):
+    """One run of ``config`` through ``FlowSampler(..., device="cuda")``,
+    with every launch counter in ``counters`` (wrapper, attribute) set to
+    0 just before it and read just after. Returns the sampler, the model,
+    the run's output, its wall seconds and the counts."""
     from nessai_tpu_torch.flowsampler import FlowSampler
     from nessai_tpu_torch.utils.testing import IntegrationTestModel
 
@@ -727,10 +816,19 @@ def _flagship_run(config, counters):
             setattr(wrapper, attr, 0)
         start = time.perf_counter()
         fs = FlowSampler(model, output=output, device="cuda", **config)
-        logZ, nested = fs.run(plot=False, save=False)
+        _, samples = fs.run(plot=False, save=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         launches = {key: int(getattr(w, a)) for key, (w, a) in counters.items()}
+    return fs, model, samples, wall, launches
+
+
+def _flagship_run(config, counters):
+    """One standard nested-sampling run of ``config`` on the GPU (see
+    :func:`_drive`). Returns the run's summary, the counts and the
+    sampler."""
+    fs, model, nested, wall, launches = _drive(config, counters)
+    logZ = fs.logZ
     ns = fs.ns
     analytic = float(model.analytic_log_evidence)
     err = float(fs.logZ_error)
@@ -773,7 +871,7 @@ def _check_run(result, nested, fs):
 
 
 def phase_flagship():
-    from nessai_tpu_torch.ops import coupling
+    from nessai_tpu_torch.ops import coupling, rqs
     from nessai_tpu_torch.utils.profiling import FLAGSHIP
 
     # bench.py:51-63: nlive 1000, seed 1234, RealNVP 4 x [permutation,
@@ -783,6 +881,8 @@ def phase_flagship():
         {
             "k1_launches": (coupling.affine_coupling, "launches"),
             "k1_backward_launches": (coupling.affine_coupling, "backward_launches"),
+            "rqs_launches": (rqs, "launches"),
+            "rqs_backward_launches": (rqs, "backward_launches"),
         },
     )
     emit("flagship", **result)
@@ -822,6 +922,64 @@ def phase_flagship_nsf():
     return result
 
 
+def phase_flagship_ins():
+    """The importance nested sampler's flagship (``FLAGSHIP_INS``) in
+    full on the GPU."""
+    from nessai_tpu_torch.ops import coupling, rqs
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_INS, phase_times
+
+    fs, model, samples, wall, launches = _drive(
+        FLAGSHIP_INS,
+        {
+            "k1_launches": (coupling.affine_coupling, "launches"),
+            "k1_backward_launches": (coupling.affine_coupling, "backward_launches"),
+            "rqs_launches": (rqs, "launches"),
+            "rqs_backward_launches": (rqs, "backward_launches"),
+        },
+    )
+    ns = fs.ns
+    analytic = float(model.analytic_log_evidence)
+    err = float(fs.logZ_error)
+    pull = (fs.logZ - analytic) / err
+    evals = int(model.likelihood_evaluations)
+    result = dict(
+        logZ=fs.logZ,
+        logZ_err=err,
+        analytic=analytic,
+        pull=pull,
+        within_2sigma=bool(abs(pull) < 2.0),
+        iterations=int(ns.iteration),
+        samples=int(len(samples)),
+        training_samples=int(len(ns.training_samples.samples)),
+        final_ess=float(ns.state.effective_n_posterior_samples),
+        likelihood_evaluations=evals,
+        wall_s=wall,
+        sampling_time_s=ns.sampling_time.total_seconds(),
+        **phase_times(fs),
+        add_and_update_time_s=ns.add_and_update_samples_time.total_seconds(),
+        likelihood_evaluations_per_s=evals / wall,
+        **launches,
+        max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
+        posterior_samples=int(fs.posterior_samples.size),
+    )
+    emit("flagship_ins", **result)
+    if launches["k1_launches"] == 0 or launches["k1_backward_launches"] == 0:
+        raise RuntimeError(
+            "the INS flagship launched the affine-coupling kernels "
+            f"{launches['k1_launches']} (forward/inverse) and "
+            f"{launches['k1_backward_launches']} (backward) times"
+        )
+    if not math.isfinite(pull) or abs(pull) >= PULL_LIMIT:
+        raise RuntimeError(f"INS logZ pull {pull} is not within {PULL_LIMIT} sigma")
+    # the initial prior draws and nlive more at every level
+    if result["levels"] != ns.iteration or len(samples) != (ns.iteration + 1) * ns.nlive:
+        raise RuntimeError("INS levels or samples do not match the iterations")
+    post = fs.posterior_samples
+    if not post.size or not all(np.isfinite(post[n]).all() for n in model.names):
+        raise RuntimeError("INS posterior samples are empty or not finite")
+    return result
+
+
 def timed(seconds, name, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, with its wall time in ``seconds[name]``."""
     start = time.perf_counter()
@@ -850,18 +1008,20 @@ def main():
         # in double (PERF.md, Findings)
         timed(seconds, "flow_nsf", phase_flow, FLAGSHIP_NSF, "nsf",
               scale=NSF_FLOW_PERTURBATION, reference_dtype=torch.float64)
+        timed(seconds, "ins_flow", phase_ins_flow)
         flagship = timed(seconds, "flagship", phase_flagship)
         flagship_nsf = timed(seconds, "flagship_nsf", phase_flagship_nsf)
+        flagship_ins = timed(seconds, "flagship_ins", phase_flagship_ins)
         emit("seconds", **seconds, total=sum(seconds.values()))
     except Exception:
         traceback.print_exc()
         return 1
     kernels = []
-    for name, replaces, launches in (
-        ("affine_coupling", "nessai_tpu/ops/coupling_pallas.py:56", flagship["k1_launches"]),
+    runs = {"flagship": flagship, "flagship_nsf": flagship_nsf, "flagship_ins": flagship_ins}
+    for name, replaces, key in (
+        ("affine_coupling", "nessai_tpu/ops/coupling_pallas.py:56", "k1_launches"),
         # the JAX package's backward: jax.vjp of the jnp reference
-        ("affine_coupling_backward", "nessai_tpu/ops/coupling_pallas.py:112",
-         flagship["k1_backward_launches"]),
+        ("affine_coupling_backward", "nessai_tpu/ops/coupling_pallas.py:112", "k1_backward_launches"),
     ):
         row = main_layer[name]
         kernels.append(
@@ -870,7 +1030,8 @@ def main():
                 "route": "cuda",
                 "source": "nessai_tpu_torch/csrc/affine_coupling.cu",
                 "replaces": replaces,
-                "launches": launches,
+                "launches": flagship[key],
+                "launches_by_run": {run: r[key] for run, r in runs.items()},
                 "max_abs_err": max(max_err_layer[name], max_err if name == "affine_coupling" else 0.0),
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],
@@ -886,10 +1047,10 @@ def main():
                 "card": smi,
             }
         )
-    for name, replaces, launches in (
-        ("rqs", "nessai_tpu/ops/rqs_pallas.py:180", flagship_nsf["rqs_launches"]),
+    for name, replaces, key in (
+        ("rqs", "nessai_tpu/ops/rqs_pallas.py:180", "rqs_launches"),
         # the JAX package's backward: jax.vjp of the jnp reference
-        ("rqs_backward", "nessai_tpu/ops/rqs_pallas.py:228", flagship_nsf["rqs_backward_launches"]),
+        ("rqs_backward", "nessai_tpu/ops/rqs_pallas.py:228", "rqs_backward_launches"),
     ):
         row = main_k2[name]
         kernels.append(
@@ -898,7 +1059,8 @@ def main():
                 "route": "cuda",
                 "source": "nessai_tpu_torch/csrc/rqs.cu",
                 "replaces": replaces,
-                "launches": launches,
+                "launches": flagship_nsf[key],
+                "launches_by_run": {run: r[key] for run, r in runs.items()},
                 "max_abs_err": max_err_k2[name],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],

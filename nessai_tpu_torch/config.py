@@ -24,14 +24,23 @@ class LivepointsConfig:
     core_parameters: List[str] = field(
         default_factory=lambda: ["logP", "logL", "it"]
     )
+    #: Extra fields (the importance nested sampler adds logW, logQ and
+    #: logU at run time, ``livepoint.add_extra_parameters_to_live_points``).
+    extra_parameters: List[str] = field(default_factory=list)
+    extra_parameters_dtype: List[str] = field(default_factory=list)
+    extra_parameters_defaults: tuple = ()
 
     @property
     def non_sampling_parameters(self) -> List[str]:
-        return list(self.core_parameters)
+        return list(self.core_parameters) + list(self.extra_parameters)
 
     @property
     def non_sampling_dtype(self) -> List[str]:
-        return [self.default_float_dtype, self.logl_dtype, self.it_dtype]
+        return [
+            self.default_float_dtype,
+            self.logl_dtype,
+            self.it_dtype,
+        ] + list(self.extra_parameters_dtype)
 
     @property
     def non_sampling_defaults(self) -> tuple:
@@ -39,7 +48,13 @@ class LivepointsConfig:
             self.default_float_value,
             self.default_float_value,
             self.it_default,
-        )
+        ) + tuple(self.extra_parameters_defaults)
+
+    def reset(self) -> None:
+        """Remove every extra field."""
+        self.extra_parameters = []
+        self.extra_parameters_dtype = []
+        self.extra_parameters_defaults = ()
 
 
 @dataclass

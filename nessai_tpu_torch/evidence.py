@@ -1,5 +1,6 @@
-"""Evidence integration for the standard nested sampler. Counterpart of
-``_NSIntegralState`` in ``nessai_tpu/evidence.py``.
+"""Evidence integration for both samplers. Counterpart of
+``_NSIntegralState``, ``_INSIntegralState`` and
+``log_evidence_from_ins_samples`` in ``nessai_tpu/evidence.py``.
 
 One repair against the JAX package: :meth:`simulate_log_evidence` keeps
 its scratch in float64. The JAX package exponentiates the cumulative
@@ -14,9 +15,17 @@ from typing import List, Optional
 import numpy as np
 from scipy.special import logsumexp
 
+from .utils.stats import effective_sample_size
+
 logger = logging.getLogger(__name__)
 
-__all__ = ["logsubexp", "log_integrate_log_trap", "_NSIntegralState"]
+__all__ = [
+    "logsubexp",
+    "log_integrate_log_trap",
+    "_NSIntegralState",
+    "_INSIntegralState",
+    "log_evidence_from_ins_samples",
+]
 
 
 def logsubexp(x, y):
@@ -164,3 +173,148 @@ class _NSIntegralState:
         log_Z = log_integrate_log_trap(log_L, log_vols)
         log_w = logsubexp(log_vols[:-1], log_vols[1:])
         return log_L[1:-1] + log_w[:-1] - log_Z
+
+
+class _INSIntegralState:
+    """Evidence state of the importance nested sampler: a Monte-Carlo
+    mean over every sample, ``Z = mean(exp(logL + logW))``, with
+    ``logW = logU - logQ`` the meta-proposal weights. The weights are
+    held in ``longdouble``, as in the JAX package."""
+
+    def __init__(self):
+        self._weights_nested = None
+        self._weights_live = None
+        self._previous_logZ = -np.inf
+
+    def update_evidence(self, nested_samples, live_points=None) -> None:
+        """Recompute from the full sample sets."""
+        self._previous_logZ = self.log_evidence if self.n else -np.inf
+        log_z_nested = nested_samples["logL"] + nested_samples["logW"]
+        self._weights_nested = np.asarray(log_z_nested, dtype=np.longdouble)
+        if live_points is not None:
+            log_z_live = live_points["logL"] + live_points["logW"]
+            self._weights_live = np.asarray(log_z_live, dtype=np.longdouble)
+        else:
+            self._weights_live = None
+
+    @property
+    def _all_weights(self):
+        if self._weights_nested is None:
+            return None
+        if self._weights_live is not None:
+            return np.concatenate([self._weights_nested, self._weights_live])
+        return self._weights_nested
+
+    @property
+    def n(self) -> int:
+        w = self._all_weights
+        return len(w) if w is not None else 0
+
+    @property
+    def log_posterior_weights(self) -> np.ndarray:
+        """Log-posterior weight of every sample (live points included
+        when set)."""
+        w = self._all_weights
+        if w is None:
+            return np.empty(0)
+        return np.asarray(w, dtype=float) - self.log_evidence
+
+    @property
+    def log_evidence(self) -> float:
+        w = self._all_weights
+        if w is None or not len(w):
+            return -np.inf
+        return float(logsumexp(w.astype(float)) - np.log(len(w)))
+
+    logZ = log_evidence
+
+    @property
+    def evidence(self) -> float:
+        return float(np.exp(self.log_evidence))
+
+    @property
+    def log_evidence_nested_samples(self) -> float:
+        """Evidence of the nested samples, normalised by their count."""
+        w = self._weights_nested
+        if w is None or not len(w):
+            return -np.inf
+        return float(logsumexp(w.astype(float)) - np.log(len(w)))
+
+    @property
+    def log_evidence_live_points(self) -> float:
+        """Evidence of the live points; raises if they are not set."""
+        w = self._weights_live
+        if w is None:
+            raise RuntimeError("Live points are not set")
+        if not len(w):
+            return -np.inf
+        return float(logsumexp(w.astype(float)) - np.log(len(w)))
+
+    @property
+    def log_evidence_error(self) -> float:
+        return self.compute_uncertainty()
+
+    @property
+    def evidence_error(self) -> float:
+        """Linear-space standard error."""
+        return self.compute_uncertainty(log_evidence=False)
+
+    @property
+    def fractional_error(self) -> float:
+        return float(self.evidence_error / self.evidence)
+
+    @property
+    def difference_log_evidence(self) -> float:
+        """|logZ - previous logZ| across evidence updates."""
+        return float(np.abs(self.logZ - self._previous_logZ))
+
+    def compute_uncertainty(self, log_evidence: bool = True) -> float:
+        """Standard error of the Monte-Carlo evidence (relative, which is
+        the error of log Z, if ``log_evidence``, else linear), summed in
+        ``longdouble``."""
+        w = self._all_weights
+        if w is None or len(w) < 2:
+            return np.inf
+        n = len(w)
+        Z_hat = np.exp(logsumexp(w) - np.log(n), dtype=np.longdouble)
+        u = np.exp(w, dtype=np.longdouble)
+        se = np.sqrt(np.sum((u - Z_hat) ** 2) / (n * (n - 1)))
+        if log_evidence:
+            return float(se / Z_hat)
+        return float(se)
+
+    def compute_log_evidence_ratio(self, ns_only: bool = False) -> float:
+        """log(Z_live / Z_nested) with ``ns_only``, else log(Z_live /
+        Z_total)."""
+        if ns_only:
+            return (
+                self.log_evidence_live_points
+                - self.log_evidence_nested_samples
+            )
+        return self.log_evidence_live_points - self.log_evidence
+
+    @property
+    def log_evidence_ratio(self) -> float:
+        """log(Z_live / Z_total): the default stopping quantity."""
+        return float(self.compute_log_evidence_ratio(ns_only=False))
+
+    @property
+    def log_evidence_ratio_nested_samples(self) -> float:
+        return float(self.compute_log_evidence_ratio(ns_only=True))
+
+    @property
+    def effective_n_posterior_samples(self) -> float:
+        """Kish effective sample size of the posterior weights."""
+        w = self._all_weights
+        if w is None or not len(w):
+            return 0.0
+        return effective_sample_size(w.astype(float))
+
+    ess = effective_n_posterior_samples
+
+
+def log_evidence_from_ins_samples(samples) -> float:
+    """Evidence from a set of importance nested samples."""
+    return float(
+        logsumexp(samples["logL"] + samples["logW"]) - np.log(len(samples))
+    )

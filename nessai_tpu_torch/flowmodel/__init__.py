@@ -1,6 +1,7 @@
 """Flow training and inference. Counterpart of ``nessai_tpu/flowmodel``."""
 
 from .base import FlowModel
+from .importance import ImportanceFlowModel
 from .config import (
     FlowConfig,
     TrainingConfig,
@@ -10,6 +11,7 @@ from .config import (
 
 __all__ = [
     "FlowModel",
+    "ImportanceFlowModel",
     "FlowConfig",
     "TrainingConfig",
     "update_flow_config",

@@ -202,7 +202,7 @@ class RQSCoupling(_Coupling):
         elif on_card(x_tr):
             raise NotImplementedError(
                 "RQSCoupling: tails=None has no GPU kernel yet; it comes with the "
-                "importance nested sampler (ROADMAP §1 item 3)"
+                "unit-hypercube flows of the importance nested sampler (ROADMAP §1 item 3g)"
             )
         else:
             y_tr, log_det = rational_quadratic_spline(

@@ -7,7 +7,8 @@ and returned as numpy arrays. A dense layer is ``{"w": [n_in, n_out],
 "b": [n_out]}`` there and ``nn.Linear`` (weight ``[n_out, n_in]``) here,
 so weights are transposed. Permutations become buffers. A coupling
 (affine or spline) is ``{"net": ...}``; a chain without ActNorm simply
-has no such entries.
+has no such entries. :func:`levels_from_jax` carries the per-level
+parameters of the JAX package's ``ImportanceFlowModel`` into the port's.
 """
 
 import numpy as np
@@ -16,7 +17,7 @@ import torch
 from .bijectors import ActNorm, AffineCoupling, Permutation, RQSCoupling
 from .nets import MLP, ResNet
 
-__all__ = ["params_from_jax", "params_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "levels_from_jax"]
 
 
 def _dense_from(layer, p):
@@ -103,3 +104,14 @@ def params_to_jax(flow) -> dict:
         else:
             raise TypeError(f"Unknown bijector: {type(b).__name__}")
     return {"bijector": out, "base": {}}
+
+
+def levels_from_jax(flow_model, params_list) -> None:
+    """Replace the levels of ``flow_model`` (an initialised
+    :class:`~nessai_tpu_torch.flowmodel.ImportanceFlowModel`) with the
+    JAX package's per-level parameter pytrees (numpy), in order; the
+    flow in training takes the last level's weights."""
+    flow_model.models = []
+    for params in params_list:
+        params_from_jax(flow_model.flow, params)
+        flow_model.add_level(flow_model.flow)

@@ -1,17 +1,18 @@
 """Flow construction. Counterpart of ``nessai_tpu/flows/utils.py``
-(``get_n_neurons``, the builder registry, ``configure_model``) for the
-RealNVP and neural-spline families."""
+(``get_n_neurons``, the builder registry, ``configure_model``,
+``reset_weights``) for the RealNVP and neural-spline families."""
 
 import copy
 
 import torch
 
 from .base import Flow
+from .bijectors import Permutation
 from .distributions import StandardNormal
 from .nsf import build_nsf_bijector
 from .realnvp import build_realnvp_bijector
 
-__all__ = ["get_n_neurons", "get_flow_builder", "configure_model"]
+__all__ = ["get_n_neurons", "get_flow_builder", "configure_model", "reset_weights"]
 
 #: ``ftype`` names and their builders (``nessai_tpu/flows/utils.py:42-52``);
 #: the glasflow-prefixed names map to the same builders.
@@ -92,3 +93,16 @@ def configure_model(config: dict) -> Flow:
         **extra,
     )
     return Flow(bijector, StandardNormal(dim), dim)
+
+
+@torch.no_grad()
+def reset_weights(flow: Flow, config: dict, generator: torch.Generator) -> None:
+    """Give ``flow`` (built from ``config``) fresh weights in place, as a
+    new flow from ``config`` starts, with its seed drawn from
+    ``generator``; the permutations keep their order
+    (``nessai_tpu/flows/utils.py:reset_weights``)."""
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+    fresh = configure_model(dict(config, seed=seed))
+    for b, new in zip(flow.bijector.bijectors, fresh.bijector.bijectors, strict=True):
+        if not isinstance(b, Permutation):
+            b.load_state_dict(new.state_dict())

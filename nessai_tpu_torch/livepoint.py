@@ -2,11 +2,17 @@
 ``[n, dims]`` arrays for the device. Counterpart of
 ``nessai_tpu/livepoint.py``."""
 
+import logging
+
 import numpy as np
 
 from . import config
 
+logger = logging.getLogger(__name__)
+
 __all__ = [
+    "add_extra_parameters_to_live_points",
+    "reset_extra_live_points_parameters",
     "get_dtype",
     "empty_structured_array",
     "numpy_array_to_live_points",
@@ -15,9 +21,38 @@ __all__ = [
 ]
 
 
+def add_extra_parameters_to_live_points(parameters, default_values=None):
+    """Register extra non-sampling float fields (the importance nested
+    sampler's logW, logQ and logU) with their default values."""
+    if default_values is None:
+        default_values = len(parameters) * [np.nan]
+    for p, dv in zip(parameters, tuple(default_values)):
+        if p not in config.livepoints.extra_parameters:
+            config.livepoints.extra_parameters.append(p)
+            config.livepoints.extra_parameters_dtype.append(
+                config.livepoints.default_float_dtype
+            )
+            config.livepoints.extra_parameters_defaults = (
+                config.livepoints.extra_parameters_defaults + (dv,)
+            )
+        else:
+            logger.warning(
+                "Extra parameter `%s` has already been added. Skipping. "
+                "Call `reset_extra_live_points_parameters` to reset the "
+                "values and add this parameter.",
+                p,
+            )
+
+
+def reset_extra_live_points_parameters():
+    """Remove every extra field registered with
+    :func:`add_extra_parameters_to_live_points`."""
+    config.livepoints.reset()
+
+
 def get_dtype(names, array_dtype=None) -> np.dtype:
     """Structured dtype with the sampling parameters followed by the
-    non-sampling fields (logP, logL, it)."""
+    non-sampling fields (logP, logL, it and any extra fields)."""
     if array_dtype is None:
         array_dtype = config.livepoints.default_float_dtype
     fields = [(n, array_dtype) for n in names]

@@ -1,7 +1,9 @@
 """User model definition. Counterpart of ``nessai_tpu/model.py``.
 
 A ``Model`` has ``names`` and ``bounds`` and implements ``log_prior`` and
-``log_likelihood`` over structured arrays. The optional
+``log_likelihood`` over structured arrays. The importance nested sampler
+also needs the maps ``to_unit_hypercube`` and ``from_unit_hypercube``
+(given by :class:`UniformPriorMixin` for a uniform prior box). The optional
 ``torch_log_likelihood(x)`` hook takes a ``[n, dims]`` float32 tensor on
 the model's device (columns ordered like ``names``) and returns ``[n]``
 log-likelihoods; when present, batched evaluation and the flow
@@ -27,7 +29,7 @@ from .utils.errors import RNGNotSetError, RNGSetError
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Model", "ModelError", "OneDimensionalModelError"]
+__all__ = ["Model", "ModelError", "OneDimensionalModelError", "UniformPriorMixin"]
 
 
 class ModelError(RuntimeError):
@@ -66,6 +68,7 @@ class Model(ABC):
     _dims = None
     _vectorised_likelihood = None
     _vectorised_prior = None
+    _vectorised_prior_unit_hypercube = None
 
     likelihood_evaluations: int = 0
     likelihood_evaluation_time = datetime.timedelta()
@@ -174,6 +177,21 @@ class Model(ABC):
             axis=0,
         )
 
+    def in_unit_hypercube(self, x) -> np.ndarray:
+        """Elementwise check that points lie in the unit hypercube."""
+        return ~np.any(
+            [(x[n] < 0.0) | (x[n] > 1.0) for n in self.names], axis=0
+        )
+
+    def to_unit_hypercube(self, x):
+        """Map live points to the unit hypercube (required by the
+        importance nested sampler)."""
+        raise NotImplementedError
+
+    def from_unit_hypercube(self, x):
+        """Inverse of :meth:`to_unit_hypercube`."""
+        raise NotImplementedError
+
     def unstructured_view(self, x) -> np.ndarray:
         return _unstructured_view(x, names=self.names)
 
@@ -225,16 +243,31 @@ class Model(ABC):
             )
         return self._vectorised_prior
 
+    @property
+    def vectorised_prior_unit_hypercube(self) -> bool:
+        """Whether ``log_prior_unit_hypercube`` accepts batches."""
+        if self._vectorised_prior_unit_hypercube is None:
+            self._vectorised_prior_unit_hypercube = (
+                self.allow_vectorised
+                and _check_vectorised_function(
+                    self.log_prior_unit_hypercube, self.sample_unit_hypercube(4)
+                )
+            )
+        return self._vectorised_prior_unit_hypercube
+
     def evaluate_log_likelihood(self, x):
         """Single-point evaluation with counter update."""
         self.likelihood_evaluations += 1
         return self.log_likelihood(x)
 
-    def batch_evaluate_log_likelihood(self, x) -> np.ndarray:
-        """Log-likelihoods of a batch of live points, with the counter
-        and wall-time updated. With a ``torch_log_likelihood`` hook the
-        batch is evaluated on the model's device in float32 and returned
-        as float64."""
+    def batch_evaluate_log_likelihood(self, x, unit_hypercube: bool = False) -> np.ndarray:
+        """Log-likelihoods of a batch of live points (given in the unit
+        hypercube with ``unit_hypercube``), with the counter and
+        wall-time updated. With a ``torch_log_likelihood`` hook the batch
+        is evaluated on the model's device in float32 and returned as
+        float64."""
+        if unit_hypercube:
+            x = self.from_unit_hypercube(x)
         st = datetime.datetime.now()
         if self.has_torch_likelihood:
             arr = torch.as_tensor(
@@ -253,8 +286,29 @@ class Model(ABC):
         self.likelihood_evaluations += len(x)
         return out
 
-    def batch_evaluate_log_prior(self, x) -> np.ndarray:
+    def batch_evaluate_log_prior(self, x, unit_hypercube: bool = False) -> np.ndarray:
+        if unit_hypercube:
+            x = self.from_unit_hypercube(x)
         return _batch_evaluate(self.log_prior, x, self.vectorised_prior)
+
+    def log_prior_unit_hypercube(self, x) -> np.ndarray:
+        """Log-prior density in the unit hypercube: zero inside it (the
+        inverse-CDF map of the prior), -inf outside. Override together
+        with ``from_unit_hypercube`` where the map does not make the
+        prior uniform."""
+        out = np.zeros(len(np.atleast_1d(x)))
+        out[~self.in_unit_hypercube(x)] = -np.inf
+        return out
+
+    def batch_evaluate_log_prior_unit_hypercube(self, x) -> np.ndarray:
+        return _batch_evaluate(
+            self.log_prior_unit_hypercube, x, self.vectorised_prior_unit_hypercube
+        )
+
+    def sample_unit_hypercube(self, n: int = 1) -> np.ndarray:
+        """Uniform draws in the unit hypercube as live points."""
+        arr = self._require_rng().uniform(size=(n, self.dims))
+        return numpy_array_to_live_points(arr, self.names)
 
     def verify_model(self) -> None:
         """Sanity-check the model definition."""
@@ -312,3 +366,30 @@ class Model(ABC):
                     "Repeated likelihood calls return different values; "
                     "set allow_multi_valued_likelihood=True to permit this."
                 )
+
+
+class UniformPriorMixin:
+    """``log_prior`` and the unit-hypercube maps of a prior that is
+    uniform inside ``bounds``. Use as ``class MyModel(UniformPriorMixin,
+    Model)``."""
+
+    def log_prior(self, x):
+        with np.errstate(divide="ignore"):
+            log_p = np.log(self.in_bounds(x), dtype="float64")
+        for n in self.names:
+            log_p -= np.log(self.bounds[n][1] - self.bounds[n][0])
+        return log_p
+
+    def to_unit_hypercube(self, x):
+        x_out = x.copy()
+        for n in self.names:
+            lo, hi = self.bounds[n]
+            x_out[n] = (x[n] - lo) / (hi - lo)
+        return x_out
+
+    def from_unit_hypercube(self, x):
+        x_out = x.copy()
+        for n in self.names:
+            lo, hi = self.bounds[n]
+            x_out[n] = x[n] * (hi - lo) + lo
+        return x_out

@@ -2,8 +2,10 @@
 ``nessai_tpu/posterior.py``."""
 
 import numpy as np
+from scipy.special import logsumexp
 
 from .evidence import log_integrate_log_trap, logsubexp
+from .utils.stats import effective_sample_size
 
 __all__ = ["compute_weights", "draw_posterior_samples"]
 
@@ -32,10 +34,30 @@ def compute_weights(samples, nlive):
     return float(log_z), log_likelihoods[1:-1] + log_w[:-1] - log_z
 
 
-def draw_posterior_samples(nested_samples, nlive, rng=None):
-    """Draw posterior samples from nested samples by rejection sampling."""
+def draw_posterior_samples(
+    nested_samples, nlive=None, n=None, log_w=None, method="rejection_sampling", rng=None
+):
+    """Draw posterior samples from nested samples.
+
+    The log-weights are ``log_w`` where given (the importance nested
+    sampler's), else the nested-sampling weights for ``nlive``.
+    ``"rejection_sampling"`` keeps each sample with probability
+    ``w / max(w)``; ``"importance_sampling"`` (or its alias
+    ``"multinomial_resampling"``) draws ``n`` samples with replacement
+    in proportion to ``w`` (``n`` defaults to the effective sample
+    size)."""
     if rng is None:
         rng = np.random.default_rng()
-    _, log_w = compute_weights(nested_samples["logL"], nlive)
-    log_u = np.log(rng.random(len(log_w)))
-    return nested_samples[np.flatnonzero(log_w - np.max(log_w) > log_u)]
+    if log_w is None:
+        _, log_w = compute_weights(nested_samples["logL"], nlive)
+    if method == "rejection_sampling":
+        log_u = np.log(rng.random(len(log_w)))
+        indices = np.flatnonzero(log_w - np.max(log_w) > log_u)
+    elif method in ("importance_sampling", "multinomial_resampling"):
+        if n is None:
+            n = int(effective_sample_size(log_w))
+        p = np.exp(log_w - logsumexp(log_w))
+        indices = rng.choice(len(log_w), size=n, replace=True, p=p)
+    else:
+        raise ValueError(f"Unknown method: {method}")
+    return nested_samples[indices]

@@ -3,6 +3,13 @@
 from .analytic import AnalyticProposal
 from .base import Proposal
 from .flowproposal import FlowProposal
+from .importance import ImportanceFlowProposal
 from .rejection import RejectionProposal
 
-__all__ = ["AnalyticProposal", "Proposal", "FlowProposal", "RejectionProposal"]
+__all__ = [
+    "AnalyticProposal",
+    "Proposal",
+    "FlowProposal",
+    "ImportanceFlowProposal",
+    "RejectionProposal",
+]

@@ -1,0 +1,287 @@
+"""Meta-proposal of the importance nested sampler. Counterpart of
+``nessai_tpu/proposal/importance.py``.
+
+The meta-proposal is the prior (the uniform unit hypercube) and one flow
+per level, each with a weight: ``log_Q = logsumexp(log_q, b=weights)``.
+Samples live in the unit hypercube; the flows see them through a logit
+map (``reparameterisation="logit"``) or as they are (``None``). The maps
+and the meta-proposal run on the host in float64; the flows run on the
+device (:class:`~nessai_tpu_torch.flowmodel.ImportanceFlowModel`).
+"""
+
+import logging
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+from scipy.special import logsumexp
+
+from .. import config as global_config
+from ..flowmodel.importance import ImportanceFlowModel
+from ..livepoint import empty_structured_array, live_points_to_array, numpy_array_to_live_points
+from ..utils.rescaling import logit, sigmoid
+from .base import Proposal
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["ImportanceFlowProposal"]
+
+
+class ImportanceFlowProposal(Proposal):
+    """Meta-proposal: the prior and one flow per level, with weights.
+
+    ``reset_flow`` is a bool (fresh weights for every level, or a copy of
+    the previous level) or an int N (fresh weights every N levels).
+    ``device`` (default CUDA) is where the flows train and run.
+    """
+
+    def __init__(
+        self,
+        model,
+        output: str = "./",
+        flow_config: Optional[dict] = None,
+        training_config: Optional[dict] = None,
+        reparameterisation: Optional[str] = "logit",
+        weighted_kl: bool = False,
+        reset_flow=True,
+        rng=None,
+        device=None,
+    ):
+        if weighted_kl:
+            raise NotImplementedError(
+                "weighted_kl=True needs weighted flow training, which is not in "
+                "the PyTorch port yet (ROADMAP §1 item 3a)"
+            )
+        if reparameterisation not in ("logit", None, "none"):
+            raise ValueError(f"Unknown reparameterisation: {reparameterisation}")
+        super().__init__(model, rng=rng)
+        self.output = output
+        self.level_count = -1
+        self.reset_flow = int(reset_flow)
+        self.reparameterisation = reparameterisation
+        self.flow = ImportanceFlowModel(
+            flow_config=dict(flow_config or {}, n_inputs=model.dims),
+            training_config=training_config,
+            output=output,
+            rng=self.rng,
+            device=device,
+        )
+        #: proposal weights keyed by level (-1 = prior)
+        self._weights = {-1: 1.0}
+
+    # ------------------------------------------------------------------
+    @property
+    def _reset_flow(self) -> bool:
+        """Whether this level starts from fresh weights."""
+        return bool(self.reset_flow) and not self.level_count % self.reset_flow
+
+    @property
+    def n_proposals(self) -> int:
+        """Number of proposals in the meta-proposal (prior + flows)."""
+        return len(self._weights)
+
+    @property
+    def weights(self) -> dict:
+        return self._weights
+
+    @property
+    def weights_array(self) -> np.ndarray:
+        return np.fromiter(self._weights.values(), dtype=float)
+
+    def update_proposal_weights(self, weights: dict) -> None:
+        """Update the proposal weights; they must sum to one after the
+        update."""
+        self._weights.update(weights)
+        w_sum = np.sum(np.fromiter(self._weights.values(), float))
+        if not np.isclose(w_sum, 1.0):
+            raise RuntimeError(f"Weights must sum to 1! Actual value: {w_sum}")
+
+    def initialise(self) -> None:
+        os.makedirs(self.output, exist_ok=True)
+        for field in ("logQ", "logW", "logU"):
+            if field not in global_config.livepoints.non_sampling_parameters:
+                raise RuntimeError(f"{field} field missing in non-sampling parameters.")
+        self.flow.initialise()
+        self.verify_rescaling()
+        super().initialise()
+
+    def verify_rescaling(self, n: int = 1000, rtol: float = 1e-08, atol: float = 1e-08) -> None:
+        """Check that :meth:`rescale` and :meth:`inverse_rescale` invert
+        each other, Jacobians included."""
+        from ..utils.testing import assert_structured_arrays_equal
+
+        x_in = self.model.sample_unit_hypercube(n)
+        x_prime, log_j = self.rescale(x_in)
+        x_re, log_j_inv = self.inverse_rescale(x_prime)
+        try:
+            assert_structured_arrays_equal(x_re, x_in, atol=atol, rtol=rtol)
+        except AssertionError as e:
+            raise RuntimeError(f"Rescaling is not invertible. Error: {e}")
+        if not np.allclose(log_j, -log_j_inv, rtol=rtol, atol=atol):
+            raise RuntimeError("Forward and inverse Jacobian determinants are not equal")
+
+    # ------------------------------------------------------------------
+    # Unit hypercube <-> prime (logit) space
+    # ------------------------------------------------------------------
+    def to_prime(self, x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """``[n, d]`` hypercube -> prime space, with log|dx'/dx|."""
+        if self.reparameterisation == "logit":
+            x_prime, log_j = logit(x, eps=global_config.general.eps)
+            return x_prime, log_j.sum(axis=-1)
+        return x.copy(), np.zeros(len(x))
+
+    def from_prime(self, x_prime: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Prime space -> hypercube, with log|dx/dx'|."""
+        if self.reparameterisation == "logit":
+            x, log_j = sigmoid(x_prime)
+            return x, log_j.sum(axis=-1)
+        return x_prime.copy(), np.zeros(len(x_prime))
+
+    def rescale(self, x) -> Tuple[np.ndarray, np.ndarray]:
+        """Structured hypercube samples -> prime array and log_j."""
+        return self.to_prime(live_points_to_array(x, self.model.names))
+
+    def inverse_rescale(self, x_prime: np.ndarray):
+        arr, log_j = self.from_prime(x_prime)
+        return numpy_array_to_live_points(arr, self.model.names), log_j
+
+    # ------------------------------------------------------------------
+    def train(self, samples: np.ndarray) -> None:
+        """Train the next level's flow on ``samples`` (unweighted)."""
+        self.level_count += 1
+        self._weights[self.level_count] = np.nan
+        x_prime, _ = self.rescale(samples)
+        self.flow.add_new_flow(reset=self._reset_flow)
+        logger.debug("Training level %d with %d samples", self.level_count, len(x_prime))
+        self.flow.train(x_prime)
+        self.training_count += 1
+
+    # ------------------------------------------------------------------
+    def compute_log_Q(
+        self, x_prime: np.ndarray, log_j: Optional[np.ndarray] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Meta-proposal density in the hypercube of prime samples.
+
+        Returns ``(log_Q, log_q [n, n_proposals])``: column 0 is the prior
+        (0), the others ``flow.log_prob(x') + log|dx'/dx|``.
+        """
+        if np.isnan(x_prime).any():
+            logger.warning("NaNs in samples when computing log_Q")
+        if any(np.isnan(w) for w in self.weights.values()):
+            raise RuntimeError("Some weights are not set!")
+        if self.n_proposals > 1 and log_j is None:
+            raise RuntimeError("Must specify log_j! Meta-proposal includes flows")
+        log_q_all = np.zeros((len(x_prime), self.n_proposals))
+        if self.flow.n_models >= 1:
+            log_q_all[:, 1:] = self.flow.log_prob_all(x_prime) + log_j[:, None]
+        if np.isnan(log_q_all).any():
+            raise ValueError("log_q contains NaNs")
+        log_Q = logsumexp(log_q_all, b=self.weights_array[None, :], axis=1)
+        return log_Q, log_q_all
+
+    def compute_meta_proposal_from_log_q(self, log_q: np.ndarray) -> np.ndarray:
+        return logsumexp(log_q, b=self.weights_array[None, :], axis=1)
+
+    def compute_meta_proposal_samples(self, samples) -> Tuple[np.ndarray, np.ndarray]:
+        """Meta-proposal density of structured hypercube samples."""
+        if self.level_count not in self.weights or np.isnan(self.weights[self.level_count]):
+            raise RuntimeError(f"Weight(s) missing or not set. Current weights: {self.weights}.")
+        x_prime, log_j = self.rescale(samples)
+        return self.compute_log_Q(x_prime, log_j=log_j)
+
+    # ------------------------------------------------------------------
+    def draw(self, n: int, flow_number: Optional[int] = None):
+        """Draw ``n`` hypercube samples from a level's flow (the newest by
+        default), keep those inside the open hypercube with a finite
+        meta-proposal density, and return them with their ``log_q``
+        rows ``[n, n_proposals]``."""
+        if flow_number is None:
+            flow_number = self.flow.n_models - 1
+        samples = empty_structured_array(0, names=self.model.names)
+        log_q = np.empty((0, self.n_proposals))
+        n_accepted = 0
+        n_draws = 0
+        while n_accepted < n:
+            prime, _ = self.flow.sample_and_log_prob_ith(flow_number, N=n)
+            n_draws += n
+            x_arr, _ = self.from_prime(prime)
+            finite = (
+                np.isfinite(prime).all(axis=1)
+                & np.isfinite(x_arr).all(axis=1)
+                & (x_arr > 0.0).all(axis=1)
+                & (x_arr < 1.0).all(axis=1)
+            )
+            prime = prime[finite]
+            if not len(prime):
+                if n_draws > 100 * n:
+                    raise RuntimeError("Failed to draw finite samples")
+                continue
+            # log|dx'/dx| = -log|dx/dx'|
+            _, log_j_from = self.from_prime(prime)
+            log_Q_batch, log_q_batch = self.compute_log_Q(prime, log_j=-log_j_from)
+            ok = np.isfinite(log_Q_batch)
+            x_batch, _ = self.from_prime(prime[ok])
+            new = numpy_array_to_live_points(x_batch, self.model.names)
+            new["logQ"] = log_Q_batch[ok]
+            new["logU"] = self.model.batch_evaluate_log_prior_unit_hypercube(new)
+            new["logW"] = new["logU"] - new["logQ"]
+            samples = np.concatenate([samples, new])
+            log_q = np.concatenate([log_q, log_q_batch[ok]])
+            n_accepted += len(new)
+            if n_draws > 100 * n:
+                logger.warning("Drawing is very inefficient")
+                break
+        return samples[:n], log_q[:n]
+
+    def update_log_q(self, samples: np.ndarray, log_q: np.ndarray) -> np.ndarray:
+        """Append the newest level's ``log_q`` column for ``samples``."""
+        if log_q.shape[1] == self.n_proposals:
+            raise ValueError("log_q array already contains current proposal")
+        x_prime, log_j = self.rescale(samples)
+        new_col = self.flow.log_prob_ith(x_prime, self.level_count) + log_j
+        return np.concatenate([log_q, new_col[:, None]], axis=1)
+
+    def draw_from_prior(self, n: int):
+        """Prior draws (through the model) with their ``log_q`` matrix."""
+        samples = self.model.sample_unit_hypercube(n)
+        samples["logU"] = self.model.batch_evaluate_log_prior_unit_hypercube(samples)
+        x_prime, log_j = self.rescale(samples)
+        log_Q, log_q = self.compute_log_Q(x_prime, log_j=log_j)
+        samples["logQ"] = log_Q
+        samples["logW"] = samples["logU"] - log_Q
+        return samples, log_q
+
+    def draw_from_flows(self, n: int, weights: Optional[np.ndarray] = None, counts=None):
+        """Draw ``n`` samples from the whole mixture: a multinomial count
+        per proposal (``counts`` where given), prior draws for the prior
+        and level draws for the flows."""
+        if weights is None:
+            weights = self.weights_array
+        weights = np.asarray(weights, dtype=float)
+        weights = weights / weights.sum()
+        if counts is None:
+            counts = self.rng.multinomial(n, weights)
+        all_prime = []
+        for i, c in enumerate(counts):
+            if c == 0:
+                continue
+            if i == 0:
+                u = self.rng.uniform(size=(int(c), self.model.dims))
+                prime, _ = self.to_prime(u)
+            else:
+                prime, _ = self.flow.sample_and_log_prob_ith(i - 1, N=int(c))
+            all_prime.append(prime)
+        prime = np.concatenate(all_prime, axis=0)
+        x_arr, _ = self.from_prime(prime)
+        finite = (
+            np.isfinite(x_arr).all(axis=1) & (x_arr > 0).all(axis=1) & (x_arr < 1).all(axis=1)
+        )
+        prime = prime[finite]
+        x_arr = x_arr[finite]
+        _, log_j = self.to_prime(x_arr)
+        log_Q, log_q = self.compute_log_Q(prime, log_j)
+        samples = numpy_array_to_live_points(x_arr, self.model.names)
+        samples["logQ"] = log_Q
+        samples["logU"] = 0.0
+        samples["logW"] = -log_Q
+        return samples, log_q

@@ -1,0 +1,740 @@
+"""Importance nested sampler (i-nessai, arXiv:2302.08526). Counterpart of
+``nessai_tpu/samplers/importancesampler.py``.
+
+The sampler keeps every sample, sorted by log-likelihood, in
+:class:`OrderedSamples` with its ``[n, levels + 1]`` matrix of proposal
+log-densities. Each level raises the likelihood threshold (entropy or
+quantile rule on the live points' weights), trains a new flow on the
+samples above it, draws ``nlive`` new samples from that flow and
+re-weights every stored sample under the grown meta-proposal. The
+evidence is the Monte-Carlo mean of ``exp(logL + logW)``. The loop and
+its bookkeeping run on the host in float64; the flows train and run on
+the proposal's device.
+"""
+
+import datetime
+import logging
+import os
+from typing import Literal, Optional
+
+import numpy as np
+from scipy.special import logsumexp
+
+from ..evidence import _INSIntegralState, log_evidence_from_ins_samples
+from ..livepoint import add_extra_parameters_to_live_points
+from ..posterior import draw_posterior_samples as _draw_posterior_samples
+from ..proposal.importance import ImportanceFlowProposal
+from ..stopping_criteria import CriterionGroup, StoppingCriterionRegistry
+from ..utils.information import differential_entropy
+from ..utils.stats import effective_sample_size, weighted_quantile
+from ..utils.structures import get_subset_arrays
+from .base import BaseNestedSampler
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["OrderedSamples", "ImportanceNestedSampler"]
+
+
+class OrderedSamples:
+    """logL-sorted sample store with its live/nested split and the
+    ``[n, n_proposals]`` log_q matrix."""
+
+    def __init__(self, strict_threshold: bool = False):
+        self.samples = None
+        self.log_q = None
+        #: True where a sample has been moved to the nested set
+        self.is_nested = None
+        self.strict_threshold = strict_threshold
+        self.log_likelihood_threshold = -np.inf
+        self.state = _INSIntegralState()
+        self._live_points_cleared = False
+
+    @property
+    def live_points(self):
+        if self.samples is None or self._live_points_cleared:
+            return None
+        return self.samples[~self.is_nested]
+
+    @live_points.setter
+    def live_points(self, value):
+        """Only ``None`` is accepted: moves every sample to the nested
+        set."""
+        if value is not None:
+            raise ValueError("Can only set live points to None!")
+        if self.is_nested is not None:
+            self.is_nested[:] = True
+        self._live_points_cleared = True
+
+    @property
+    def nested_samples(self):
+        if self.samples is None:
+            return None
+        return self.samples[self.is_nested]
+
+    @property
+    def live_points_indices(self):
+        if self.samples is None or self._live_points_cleared:
+            return None
+        return np.where(~self.is_nested)[0]
+
+    @property
+    def nested_samples_indices(self):
+        if self.samples is None:
+            return np.empty(0, dtype=int)
+        return np.where(self.is_nested)[0]
+
+    def sort_samples(self, samples, *args):
+        """Sort samples (and any extra aligned arrays) by ``logL``."""
+        idx = np.argsort(samples, order="logL")
+        if args:
+            return get_subset_arrays(idx, samples, *args)
+        return samples[idx]
+
+    def add_initial_samples(self, samples, log_q) -> None:
+        self.samples, self.log_q = self.sort_samples(samples, log_q)
+        self.is_nested = np.zeros(len(samples), dtype=bool)
+        self._live_points_cleared = False
+
+    def add_samples(self, samples, log_q) -> None:
+        """Merge new samples keeping the global logL order. With
+        ``strict_threshold`` every sample is split again on the current
+        threshold; otherwise all new samples are live."""
+        new_nested = np.zeros(len(samples), dtype=bool)
+        all_samples = np.concatenate([self.samples, samples])
+        all_log_q = np.concatenate([self.log_q, log_q], axis=0)
+        all_nested = np.concatenate([self.is_nested, new_nested])
+        order = np.argsort(all_samples, order="logL")
+        self.samples = all_samples[order]
+        self.log_q = all_log_q[order]
+        if self.strict_threshold:
+            self.is_nested = self.samples["logL"] < self.log_likelihood_threshold
+        else:
+            self.is_nested = all_nested[order]
+        self._live_points_cleared = False
+
+    def update_log_likelihood_threshold(self, threshold: float) -> None:
+        self.log_likelihood_threshold = float(threshold)
+
+    def add_to_nested_samples(self, indices) -> None:
+        """Move the given sample indices from the live to the nested set."""
+        self.is_nested[np.asarray(indices, dtype=int)] = True
+
+    def remove_samples(self) -> int:
+        """Move the live points below the threshold into the nested set;
+        returns how many moved."""
+        to_nest = (~self.is_nested) & (self.samples["logL"] < self.log_likelihood_threshold)
+        n_removed = int(to_nest.sum())
+        self.is_nested |= to_nest
+        return n_removed
+
+    def update_evidence(self) -> None:
+        self.state.update_evidence(self.nested_samples, live_points=self.live_points)
+
+    def finalise(self) -> None:
+        self.live_points = None
+        self.state.update_evidence(self.samples, live_points=None)
+
+    def compute_importance(self, importance_ratio: float = 0.5) -> dict:
+        """Relative importance of each proposal level: ``total``,
+        ``posterior`` and ``evidence`` arrays over the proposals (the
+        first is the prior)."""
+        n_proposals = self.log_q.shape[1]
+        log_imp_post = np.full(n_proposals, -np.inf)
+        log_imp_z = np.full(n_proposals, -np.inf)
+        log_w = self.samples["logL"] + self.samples["logW"]
+        its = self.samples["it"]
+        for i, it in enumerate(range(-1, n_proposals - 1)):
+            sidx = its == it
+            zidx = its >= it
+            n_s = int(sidx.sum())
+            n_z = int(zidx.sum())
+            if n_s:
+                log_imp_post[i] = logsumexp(log_w[sidx]) - np.log(n_s)
+            if n_z:
+                log_imp_z[i] = logsumexp(log_w[zidx]) - np.log(n_z)
+        imp_z = np.exp(log_imp_z - logsumexp(log_imp_z))
+        imp_post = np.exp(log_imp_post - logsumexp(log_imp_post))
+        imp = (1 - importance_ratio) * imp_z + importance_ratio * imp_post
+        return {"total": imp, "posterior": imp_post, "evidence": imp_z}
+
+    def compute_evidence_ratio(self, threshold: Optional[float] = None) -> float:
+        """Log-ratio of the evidence above ``threshold`` to the total."""
+        if threshold is None:
+            threshold = self.log_likelihood_threshold
+        above = self.samples["logL"] >= threshold
+        return log_evidence_from_ins_samples(self.samples[above]) - self.state.log_evidence
+
+
+class ImportanceNestedSampler(BaseNestedSampler):
+    """The importance nested sampler.
+
+    ``device`` (default CUDA) is where the flows train and run; the
+    sampling loop runs on the host in float64. The options that raise
+    ``NotImplementedError`` name the ROADMAP item that queues them.
+    """
+
+    #: compat names of criteria whose canonical name is not a state attribute
+    _CRITERION_ATTRS = {
+        "ratio": "log_evidence_ratio",
+        "ratio_ns": "log_evidence_ratio_nested_samples",
+        "Z_err": "evidence_error",
+        "dlogZ": "difference_log_evidence",
+    }
+
+    def __init__(
+        self,
+        model,
+        nlive: int = 5000,
+        n_initial: Optional[int] = None,
+        output: Optional[str] = None,
+        seed: Optional[int] = None,
+        rng: Optional[np.random.Generator] = None,
+        checkpointing: bool = False,
+        plot: bool = False,
+        min_iteration: Optional[int] = None,
+        max_iteration: Optional[int] = None,
+        min_samples: int = 500,
+        min_remove: int = 1,
+        max_samples: Optional[int] = None,
+        stopping_criterion="ratio",
+        tolerance=0.0,
+        n_update: Optional[int] = None,
+        replace_all: bool = False,
+        threshold_method: Literal["entropy", "quantile"] = "entropy",
+        threshold_kwargs: Optional[dict] = None,
+        n_pool: Optional[int] = None,
+        pool=None,
+        check_criteria: Literal["any", "all"] = "any",
+        weighted_kl: bool = False,
+        draw_constant: bool = True,
+        train_final_flow: bool = False,
+        bootstrap: bool = False,
+        strict_threshold: bool = False,
+        draw_iid_live: bool = True,
+        flow_config: Optional[dict] = None,
+        training_config: Optional[dict] = None,
+        reset_flow=True,
+        reparameterisation: Optional[str] = "logit",
+        device=None,
+    ):
+        for name, value, item in (
+            ("checkpointing", checkpointing, "3e"),
+            ("plot", plot, "3f"),
+            ("replace_all", replace_all, "3a"),
+            ("train_final_flow", train_final_flow, "3d"),
+            ("bootstrap", bootstrap, "3c"),
+            ("n_pool", n_pool, "8"),
+            ("pool", pool, "8"),
+        ):
+            if value:
+                raise NotImplementedError(
+                    f"{name}={value!r} is not in the PyTorch port's importance nested "
+                    f"sampler yet (ROADMAP §1 item {item})"
+                )
+        self.add_fields()
+        super().__init__(model, nlive, output=output, seed=seed, rng=rng, device=device)
+        self.n_initial = n_initial or nlive
+        self.min_iteration = -1 if min_iteration is None else int(min_iteration)
+        self.max_iteration = np.inf if max_iteration is None else int(max_iteration)
+        self.min_samples = min_samples
+        self.min_remove = min_remove
+        self.max_samples = max_samples
+        self.n_update = n_update
+        self.draw_constant = draw_constant
+        self.strict_threshold = strict_threshold
+        self.draw_iid_live = draw_iid_live
+        self.threshold_method = threshold_method
+        self.threshold_kwargs = dict(threshold_kwargs or {})
+        self.configure_stopping_criterion(stopping_criterion, tolerance, check_criteria)
+        self.proposal = ImportanceFlowProposal(
+            self.model,
+            output=os.path.join(self.output, "levels", ""),
+            flow_config=flow_config,
+            training_config=training_config,
+            reparameterisation=reparameterisation,
+            weighted_kl=weighted_kl,
+            reset_flow=reset_flow,
+            rng=self.rng,
+            device=self.device,
+        )
+        self.training_samples = OrderedSamples(strict_threshold=strict_threshold)
+        self.iid_samples = OrderedSamples(strict_threshold=strict_threshold) if draw_iid_live else None
+
+        self.initialised = False
+        self.log_likelihood_threshold = -np.inf
+        self.logX = 0.0
+        self.logL = -np.inf
+        self.gradient = np.nan
+        self.criterion = {}
+        self.importance = dict(total=None, posterior=None, evidence=None)
+        self.sample_counts = {}
+        self.live_points_ess = np.nan
+        self._current_proposal_entropy = np.nan
+        if self.min_samples > self.nlive:
+            raise ValueError("`min_samples` must be less than `nlive`")
+        if self.min_remove > self.nlive:
+            raise ValueError("`min_remove` must be less than `nlive`")
+        self.training_time = datetime.timedelta()
+        self.draw_samples_time = datetime.timedelta()
+        self.add_and_update_samples_time = datetime.timedelta()
+        #: time in ``ImportanceFlowProposal.update_log_q`` (the new level's
+        #: log-density over every stored sample)
+        self.update_log_q_time = datetime.timedelta()
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def add_fields() -> None:
+        """Register the live-point fields logW, logQ and logU."""
+        add_extra_parameters_to_live_points(["logW", "logQ", "logU"], [np.nan, np.nan, np.nan])
+
+    def configure_stopping_criterion(self, stopping_criterion, tolerance, check_criteria) -> None:
+        if isinstance(stopping_criterion, str):
+            stopping_criterion = [stopping_criterion]
+        if not isinstance(tolerance, (list, tuple)):
+            tolerance = [tolerance]
+        criteria = [
+            StoppingCriterionRegistry.get(name, tolerance=tol)
+            for name, tol in zip(stopping_criterion, tolerance)
+        ]
+        self.combined_criterion = CriterionGroup(
+            criteria, mode="and" if check_criteria == "all" else "or"
+        )
+
+    # ------------------------------------------------------------------
+    @property
+    def _ordered_samples(self) -> OrderedSamples:
+        """The main sample set: the i.i.d. samples with ``draw_iid_live``,
+        else the training samples."""
+        if self.draw_iid_live:
+            return self.iid_samples
+        return self.training_samples
+
+    @property
+    def live_points_unit(self):
+        return self._ordered_samples.live_points
+
+    @property
+    def nested_samples_unit(self):
+        return self._ordered_samples.nested_samples
+
+    @property
+    def samples_unit(self):
+        return self._ordered_samples.samples
+
+    @property
+    def state(self) -> _INSIntegralState:
+        return self._ordered_samples.state
+
+    @property
+    def log_evidence(self) -> float:
+        return self.state.log_evidence
+
+    @property
+    def log_evidence_error(self) -> float:
+        return self.state.log_evidence_error
+
+    @property
+    def posterior_effective_sample_size(self) -> float:
+        return self.state.effective_n_posterior_samples
+
+    @property
+    def log_posterior_weights(self) -> np.ndarray:
+        return self.state.log_posterior_weights
+
+    @property
+    def reached_tolerance(self) -> bool:
+        return self.combined_criterion.is_met(self.criterion)
+
+    @property
+    def stopping_criteria(self):
+        return self.combined_criterion.names
+
+    # ------------------------------------------------------------------
+    def populate_live_points(self) -> None:
+        """Initial prior draws in the unit hypercube (twice ``n_initial``
+        with ``draw_iid_live``: half for training, half i.i.d.)."""
+        target = 2 * self.n_initial if self.draw_iid_live else self.n_initial
+        points = self.model.sample_unit_hypercube(target)
+        points["logP"] = self.model.batch_evaluate_log_prior(points, unit_hypercube=True)
+        finite = np.isfinite(points["logP"])
+        while not finite.all():
+            n_bad = int((~finite).sum())
+            extra = self.model.sample_unit_hypercube(n_bad)
+            extra["logP"] = self.model.batch_evaluate_log_prior(extra, unit_hypercube=True)
+            points[np.flatnonzero(~finite)[: len(extra)]] = extra
+            finite = np.isfinite(points["logP"])
+        points["logL"] = self.model.batch_evaluate_log_likelihood(points, unit_hypercube=True)
+        if np.any(points["logL"] == np.inf):
+            raise RuntimeError("Live points contain +inf log-likelihoods")
+        points["it"] = -1
+        points["logQ"] = 0.0
+        points["logU"] = self.model.batch_evaluate_log_prior_unit_hypercube(points)
+        points["logW"] = points["logU"] - points["logQ"]
+        log_q = np.zeros((target, 1))
+        if self.draw_iid_live:
+            self.training_samples.add_initial_samples(points[: self.n_initial], log_q[: self.n_initial])
+            self.iid_samples.add_initial_samples(points[self.n_initial :], log_q[self.n_initial :])
+        else:
+            self.training_samples.add_initial_samples(points, log_q)
+        self.sample_counts[-1] = self.n_initial
+
+    def initialise(self) -> None:
+        if self.initialised:
+            return
+        if self.training_samples.samples is None:
+            self.populate_live_points()
+        self.initialise_history()
+        self.proposal.initialise()
+        self.initialised = True
+
+    # ------------------------------------------------------------------
+    # Threshold determination
+    # ------------------------------------------------------------------
+    def determine_threshold_quantile(self, samples, q: float = 0.8, include_likelihood: bool = False) -> int:
+        """Number of live points to discard: the weighted ``q`` quantile
+        of their log-likelihoods."""
+        a = samples["logL"]
+        if include_likelihood:
+            log_weights = samples["logW"] + samples["logL"]
+        else:
+            log_weights = samples["logW"].copy()
+        cutoff = weighted_quantile(a, q, log_weights=log_weights, values_sorted=True)
+        if not np.isfinite(cutoff):
+            raise RuntimeError("Could not determine valid quantile")
+        return int(np.argmax(a >= cutoff))
+
+    def determine_threshold_entropy(
+        self,
+        samples,
+        q: float = 0.5,
+        include_likelihood: bool = False,
+        use_log_weights: bool = True,
+    ) -> int:
+        """Number of live points to discard: where the cumulative
+        (log-)weight reaches the fraction ``q`` of its total."""
+        if include_likelihood:
+            log_weights = samples["logW"] + samples["logL"]
+        else:
+            log_weights = samples["logW"]
+        p = log_weights if use_log_weights else np.exp(log_weights)
+        cdf = np.cumsum(p)
+        if cdf[-1] == 0:
+            cdf = np.arange(len(p), dtype=float)
+        cdf = cdf / cdf[-1]
+        return int(np.argmax(cdf >= q))
+
+    def determine_log_likelihood_threshold(self, samples, method="entropy", **kwargs) -> float:
+        if method == "quantile":
+            n = self.determine_threshold_quantile(samples, **kwargs)
+        elif method == "entropy":
+            n = self.determine_threshold_entropy(samples, **kwargs)
+        else:
+            raise ValueError(method)
+        if n == 0:
+            if self.min_remove < 1:
+                return -np.inf
+            n = 1
+        if (samples.size - n) < self.min_samples:
+            logger.warning(
+                "Cannot remove %s from %s, min_samples=%s", n, samples.size, self.min_samples
+            )
+            n = max(0, samples.size - self.min_samples)
+        elif n < self.min_remove:
+            logger.warning("Cannot remove less than %s samples", self.min_remove)
+            n = self.min_remove
+        if (
+            self.draw_constant
+            and self.max_samples
+            and ((samples.size - n) + self.nlive) > self.max_samples
+        ):
+            n = samples.size - self.max_samples + self.nlive
+            logger.warning("Next level would have more than max samples, removing %s samples", n)
+        return float(samples[n]["logL"])
+
+    def update_log_likelihood_threshold(self, threshold: float) -> None:
+        self.log_likelihood_threshold = threshold
+        self.training_samples.update_log_likelihood_threshold(threshold)
+        if self.iid_samples:
+            self.iid_samples.update_log_likelihood_threshold(threshold)
+
+    # ------------------------------------------------------------------
+    # Level construction
+    # ------------------------------------------------------------------
+    def add_new_proposal(self) -> None:
+        """Train the next level's flow on the training samples above the
+        threshold (at least ``min_samples`` of them)."""
+        st = datetime.datetime.now()
+        n_train = min(
+            int(np.argmax(self.training_samples.samples["logL"] >= self.log_likelihood_threshold)),
+            self.training_samples.samples.size - self.min_samples,
+        )
+        training = self.training_samples.samples[n_train:]
+        logger.info("Training next proposal with %d samples", len(training))
+        self.proposal.train(training)
+        self.training_time += datetime.datetime.now() - st
+
+    def add_new_proposal_weight(self, iteration: int, n_new: int) -> None:
+        if self.sample_counts.get(iteration):
+            raise RuntimeError(f"Samples already drawn from proposal {iteration}")
+        n_total = len(self.samples_unit) + n_new
+        self.sample_counts[iteration] = n_new
+        self.proposal.update_proposal_weights(
+            {k: v / n_total for k, v in self.sample_counts.items()}
+        )
+
+    def draw_n_samples(self, n: int):
+        st = datetime.datetime.now()
+        new_points, log_q = self.proposal.draw(n)
+        new_points["logL"] = self.model.batch_evaluate_log_likelihood(new_points, unit_hypercube=True)
+        if np.any(new_points["logL"] == -np.inf):
+            logger.warning("New points contain zero-likelihood samples")
+        self.draw_samples_time += datetime.datetime.now() - st
+        return new_points, log_q
+
+    def _refresh_ordered_samples(self, ordered: OrderedSamples) -> None:
+        """Add the new level's column to ``log_q`` and recompute logQ and
+        logW of every stored sample."""
+        st = datetime.datetime.now()
+        ordered.log_q = self.proposal.update_log_q(ordered.samples, ordered.log_q)
+        self.update_log_q_time += datetime.datetime.now() - st
+        ordered.samples["logQ"] = self.proposal.compute_meta_proposal_from_log_q(ordered.log_q)
+        ordered.samples["logW"] = ordered.samples["logU"] - ordered.samples["logQ"]
+
+    def add_and_update_points(self, n: int) -> None:
+        """Draw ``n`` new samples (and ``n`` i.i.d. ones), and update the
+        stored log_q, logQ and logW."""
+        st = datetime.datetime.now()
+        new_samples, log_q = self.draw_n_samples(n)
+        new_samples["it"] = self.iteration
+        self._current_proposal_entropy = differential_entropy(-log_q[:, -1])
+        self.history["leakage_new_points"].append(self.compute_leakage(new_samples))
+        self.history["n_added"].append(len(new_samples))
+        self._refresh_ordered_samples(self.training_samples)
+        self.training_samples.add_samples(new_samples, log_q)
+        if self.draw_iid_live:
+            iid_samples, iid_log_q = self.draw_n_samples(n)
+            iid_samples["it"] = self.iteration
+            self._refresh_ordered_samples(self.iid_samples)
+            self.iid_samples.add_samples(iid_samples, iid_log_q)
+        self.live_points_ess = effective_sample_size(self.live_points_unit["logW"])
+        self.add_and_update_samples_time += datetime.datetime.now() - st
+
+    def remove_samples(self) -> int:
+        n_removed = self.training_samples.remove_samples()
+        if self.draw_iid_live:
+            n_removed = self.iid_samples.remove_samples()
+        self.history["n_removed"].append(n_removed)
+        return n_removed
+
+    def update_evidence(self) -> None:
+        self.training_samples.update_evidence()
+        if self.draw_iid_live:
+            self.iid_samples.update_evidence()
+
+    def compute_stopping_criterion(self) -> dict:
+        return {
+            name: getattr(self.state, self._CRITERION_ATTRS.get(name, name), None)
+            for name in self.combined_criterion.names
+        }
+
+    def _compute_gradient(self) -> None:
+        """The dlogL/dlogX diagnostic."""
+        logX_pre, logL_pre = self.logX, self.logL
+        lp = self.live_points_unit
+        self.logX = logsumexp(lp["logW"]) - np.log(max(len(self.samples_unit), 1))
+        self.logL = logsumexp(lp["logL"] + lp["logW"]) - logsumexp(lp["logW"])
+        dX = self.logX - logX_pre
+        self.gradient = (self.logL - logL_pre) / dX if dX else np.nan
+
+    def compute_leakage(self, samples, weights: bool = True) -> float:
+        """Share of the importance weight (or, with ``weights=False``, of
+        the count) of ``samples`` below the current threshold."""
+        below = samples["logL"] < self.log_likelihood_threshold
+        if not weights:
+            return float(np.mean(below))
+        if not below.any():
+            return 0.0
+        return float(np.exp(logsumexp(samples["logW"][below]) - logsumexp(samples["logW"])))
+
+    def samples_entropy(self) -> float:
+        return differential_entropy(self.samples_unit["logQ"])
+
+    def kl_divergence(self, samples=None) -> float:
+        """KL divergence of the posterior weights from the uniform
+        weights of the samples."""
+        if samples is None:
+            samples = self.samples_unit
+        log_p = samples["logL"] + samples["logW"]
+        log_p = log_p - logsumexp(log_p)
+        log_q = -np.log(len(samples)) * np.ones(len(samples))
+        return float(np.sum(np.exp(log_p) * (log_p - log_q)))
+
+    def compute_importance(self, importance_ratio: float = 0.5):
+        return self._ordered_samples.compute_importance(importance_ratio)
+
+    # ------------------------------------------------------------------
+    # History / logging
+    # ------------------------------------------------------------------
+    def initialise_history(self) -> None:
+        super().initialise_history()
+        self.history.update(
+            dict(
+                logZ=[],
+                min_log_likelihood=[],
+                max_log_likelihood=[],
+                logL_threshold=[],
+                logX=[],
+                gradients=[],
+                n_live=[],
+                n_added=[],
+                n_removed=[],
+                live_points_ess=[],
+                leakage_live_points=[],
+                leakage_new_points=[],
+                samples_entropy=[],
+                proposal_entropy=[],
+                stopping_criteria={k: [] for k in self.stopping_criteria},
+            )
+        )
+
+    def update_history(self) -> None:
+        super().update_history()
+        lp = self.live_points_unit
+        self.history["logZ"].append(self.state.log_evidence)
+        self.history["min_log_likelihood"].append(float(np.min(lp["logL"])))
+        self.history["max_log_likelihood"].append(float(np.max(lp["logL"])))
+        self.history["logL_threshold"].append(self.log_likelihood_threshold)
+        self.history["logX"].append(self.logX)
+        self.history["gradients"].append(self.gradient)
+        self.history["n_live"].append(len(lp))
+        self.history["live_points_ess"].append(self.live_points_ess)
+        self.history["leakage_live_points"].append(self.compute_leakage(lp))
+        self.history["samples_entropy"].append(self.samples_entropy())
+        self.history["proposal_entropy"].append(self._current_proposal_entropy)
+        for k, v in self.criterion.items():
+            self.history["stopping_criteria"][k].append(v)
+
+    def log_state(self) -> None:
+        lp = self.live_points_unit
+        logger.info(
+            "Update %d - log Z: %.3f +/- %.3f ESS: %.1f logL min: %.3f median: %.3f max: %.3f",
+            self.iteration,
+            self.state.log_evidence,
+            self.state.log_evidence_error,
+            self.state.effective_n_posterior_samples,
+            lp["logL"].min(),
+            float(np.nanmedian(lp["logL"])),
+            lp["logL"].max(),
+        )
+
+    # ------------------------------------------------------------------
+    # Main loop
+    # ------------------------------------------------------------------
+    def nested_sampling_loop(self):
+        """Add levels until the stopping criterion is met (or
+        ``max_iteration``), then finalise. Returns ``(logZ, samples)``
+        with the samples in the unit hypercube."""
+        if self.finalised:
+            logger.warning("Sampler has already finished sampling")
+            return self.log_evidence, self.samples_unit
+        self.initialise()
+        self.sampling_start_time = datetime.datetime.now()
+        while True:
+            if self.reached_tolerance and self.iteration >= self.min_iteration:
+                break
+            self._compute_gradient()
+            if self.n_update is None:
+                threshold = self.determine_log_likelihood_threshold(
+                    self.live_points_unit, method=self.threshold_method, **self.threshold_kwargs
+                )
+            else:
+                threshold = float(self.live_points_unit[self.n_update]["logL"])
+            self.update_log_likelihood_threshold(threshold)
+            n_removed = self.remove_samples()
+            self.add_new_proposal()
+            n_add = self.nlive if self.draw_constant else n_removed
+            self.add_new_proposal_weight(self.iteration, n_add)
+            self.add_and_update_points(n_add)
+            self.update_evidence()
+            self.importance = self.compute_importance()
+            self.criterion = self.compute_stopping_criterion()
+            self.log_state()
+            self.update_history()
+            self.iteration += 1
+            if self.iteration >= self.max_iteration:
+                logger.warning("Reached max iteration")
+                break
+        logger.info("Finished INS loop after %d iterations with %s", self.iteration, self.criterion)
+        self.finalise()
+        self.sampling_time += datetime.datetime.now() - self.sampling_start_time
+        self.sampling_start_time = datetime.datetime.now()
+        return self.log_evidence, self.samples_unit
+
+    def finalise(self) -> None:
+        """Move every sample to the nested set and compute the final
+        evidence."""
+        if self.finalised:
+            return
+        self.training_samples.finalise()
+        if self.draw_iid_live:
+            self.iid_samples.finalise()
+        logger.info("Final KL divergence: %.3f", self.kl_divergence())
+        logger.info(
+            "Final log Z: %.3f +/- %.3f (ESS %.1f; %d proposal levels)",
+            self.state.log_evidence,
+            self.state.log_evidence_error,
+            self.state.effective_n_posterior_samples,
+            self.proposal.n_proposals,
+        )
+        # heavy-tailed weights (a meta-proposal that under-fits the
+        # posterior) bias logZ low and the error with it; a collapsed
+        # final ESS is the symptom
+        ess = float(self.state.effective_n_posterior_samples)
+        n_total = len(self.samples_unit)
+        if n_total and (ess < 100 or ess < 0.01 * n_total):
+            logger.warning(
+                "Final effective sample size is very low (ESS %.1f from %d samples): "
+                "the meta-proposal likely under-fits the posterior, so the evidence "
+                "may be biased low and its error underestimated. Increase the flow "
+                "capacity (flow_config: n_blocks/n_neurons/n_layers) and re-run.",
+                ess,
+                n_total,
+            )
+        self.finalised = True
+
+    # ------------------------------------------------------------------
+    def update_sample_counts(self) -> None:
+        """Recompute the per-proposal sample counts from the stored
+        samples."""
+        counts = np.bincount(
+            np.asarray(self.samples_unit["it"], dtype=int) + 1,
+            minlength=self.proposal.n_proposals,
+        )
+        self.sample_counts = {it - 1: int(c) for it, c in enumerate(counts)}
+
+    def update_proposal_weights(self) -> None:
+        n_total = len(self.samples_unit)
+        self.proposal.update_proposal_weights(
+            {k: v / n_total for k, v in self.sample_counts.items()}
+        )
+
+    def draw_more_nested_samples(self, n: int):
+        """Draw ``n`` more samples from the whole meta-proposal into the
+        nested set of the training samples."""
+        samples, log_q = self.proposal.draw_from_flows(n)
+        samples["logL"] = self.model.batch_evaluate_log_likelihood(samples, unit_hypercube=True)
+        samples["it"] = -2
+        self.training_samples.add_samples(samples, log_q)
+        self.training_samples.is_nested[:] = True
+        self.update_evidence()
+        return samples
+
+    def draw_posterior_samples(self, sampling_method: str = "importance_sampling", n: Optional[int] = None):
+        """Posterior samples in the model space, drawn from the main
+        sample set with its importance weights."""
+        samples = self._ordered_samples.samples
+        log_w = samples["logL"] + samples["logW"]
+        post = _draw_posterior_samples(
+            samples, log_w=log_w - logsumexp(log_w), method=sampling_method, n=n, rng=self.rng
+        )
+        return self.model.from_unit_hypercube(post)

@@ -17,7 +17,9 @@ untraced wall time, the GPU seconds of each of the port's own kernels,
 and the kernels that take the most GPU time, the traced run's training
 epochs and GPU records per epoch, and the launches per run of the
 flagship's own kernels (K1 forward and backward, or K2 forward and
-backward).
+backward). For the importance nested sampler it also prints the levels
+and the time in training, in draws, in the ``update_log_q`` passes and
+in ``log_prob_all``.
 """
 
 import json
@@ -30,6 +32,7 @@ import torch
 __all__ = [
     "FLAGSHIP",
     "FLAGSHIP_NSF",
+    "FLAGSHIP_INS",
     "OWN_KERNELS",
     "gpu_kernel_events",
     "event_time_ms",
@@ -57,6 +60,23 @@ FLAGSHIP = dict(
 FLAGSHIP_NSF = dict(
     FLAGSHIP,
     flow_config=dict(ftype="nsf", n_blocks=4, n_neurons="auto", n_layers=2),
+)
+
+
+#: The importance nested sampler's flagship, as
+#: ``benchmarks/ins_calibration.py`` runs it: ``IntegrationTestModel(2)``,
+#: nlive = 1000, and everything else at the defaults (entropy threshold,
+#: ratio criterion at 0, min_samples 500, i.i.d. live points, a fresh
+#: RealNVP of 4 × [Permutation, AffineCoupling (resnet, 2 layers of
+#: 4 neurons), ActNorm] per level on logit-space samples, 500 epochs at
+#: most with patience 20, batches of 1000).
+FLAGSHIP_INS = dict(
+    importance_nested_sampler=True,
+    nlive=1000,
+    seed=1234,
+    resume=False,
+    plot=False,
+    checkpointing=False,
 )
 
 
@@ -116,6 +136,27 @@ def device_time_ms(fn, calls: int = 200, warmup: int = 5):
     return ms, len(events) / calls, "torch.profiler"
 
 
+def phase_times(fs) -> dict:
+    """Wall seconds of a finished run's phases and its training epochs
+    (and, for the importance nested sampler, its levels)."""
+    ns = fs.ns
+    if fs.importance_nested_sampler:
+        flow = ns.proposal.flow
+        return dict(
+            levels=flow.n_models,
+            training_time_s=ns.training_time.total_seconds(),
+            draw_time_s=ns.draw_samples_time.total_seconds(),
+            update_log_q_time_s=ns.update_log_q_time.total_seconds(),
+            log_prob_all_time_s=flow.log_prob_all_time.total_seconds(),
+            training_epochs=len(flow.history["loss"]),
+        )
+    return dict(
+        training_time_s=ns.training_time.total_seconds(),
+        population_time_s=ns.flow_proposal.population_time.total_seconds(),
+        training_epochs=len(ns.flow_proposal.flow.history["loss"]),
+    )
+
+
 def _run_flagship(output, config):
     from ..flowsampler import FlowSampler
     from .testing import IntegrationTestModel
@@ -169,16 +210,16 @@ def profile_flagship(top: int = 12, config=FLAGSHIP) -> dict:
         text=True,
         timeout=60,
     ).stdout.strip()
+    traced_times = phase_times(fs_traced)
     # the traced run's epochs: its GPU records per epoch of training
-    epochs = len(fs_traced.ns.flow_proposal.flow.history["loss"])
+    epochs = traced_times["training_epochs"]
     return dict(
         card=card,
         first_run_wall_s=first,
         untraced_wall_s=untraced,
-        untraced_training_time_s=fs.ns.training_time.total_seconds(),
-        untraced_population_time_s=fs.ns.flow_proposal.population_time.total_seconds(),
+        **{f"untraced_{k}": v for k, v in phase_times(fs).items()},
         traced_wall_s=traced,
-        traced_training_time_s=fs_traced.ns.training_time.total_seconds(),
+        traced_training_time_s=traced_times["training_time_s"],
         gpu_records=len(events),
         training_epochs=epochs,
         gpu_records_per_epoch=len(events) / epochs if epochs else None,
@@ -214,4 +255,12 @@ if __name__ == "__main__":
     nsf = profile_flagship(config=FLAGSHIP_NSF)
     # three runs: first, untraced, traced
     launches = dict(rqs_launches_per_run=rqs.launches / 3, rqs_backward_launches_per_run=rqs.backward_launches / 3)
-    print(json.dumps(dict(flagship="nsf", **nsf, **launches)))
+    print(json.dumps(dict(flagship="nsf", **nsf, **launches)), flush=True)
+    affine_coupling.launches = affine_coupling.backward_launches = 0
+    ins = profile_flagship(config=FLAGSHIP_INS)
+    # three runs: first, untraced, traced
+    launches = dict(
+        k1_launches_per_run=affine_coupling.launches / 3,
+        k1_backward_launches_per_run=affine_coupling.backward_launches / 3,
+    )
+    print(json.dumps(dict(flagship="ins", **ins, **launches)))

@@ -7,11 +7,12 @@ import torch
 
 from ..model import Model
 
-__all__ = ["IntegrationTestModel"]
+__all__ = ["IntegrationTestModel", "assert_structured_arrays_equal"]
 
 
 class IntegrationTestModel(Model):
-    """n-dim unit Gaussian with a uniform prior on [-10, 10]^n.
+    """n-dim unit Gaussian with a uniform prior on [-10, 10]^n and
+    analytic unit-hypercube maps.
 
     Analytic log-evidence: ``-n * log(20)``.
     """
@@ -33,6 +34,20 @@ class IntegrationTestModel(Model):
             2 * np.pi
         )
 
+    def to_unit_hypercube(self, x):
+        x_out = x.copy()
+        for n in self.names:
+            lo, hi = self.bounds[n]
+            x_out[n] = (x[n] - lo) / (hi - lo)
+        return x_out
+
+    def from_unit_hypercube(self, x):
+        x_out = x.copy()
+        for n in self.names:
+            lo, hi = self.bounds[n]
+            x_out[n] = x[n] * (hi - lo) + lo
+        return x_out
+
     def torch_log_likelihood(self, x: torch.Tensor) -> torch.Tensor:
         return -0.5 * torch.sum(x**2, dim=-1) - 0.5 * x.shape[-1] * math.log(
             2 * math.pi
@@ -41,3 +56,25 @@ class IntegrationTestModel(Model):
     @property
     def analytic_log_evidence(self) -> float:
         return -len(self.names) * np.log(20.0)
+
+
+def assert_structured_arrays_equal(x, y, atol=0.0, rtol=0.0) -> None:
+    """Assert two structured arrays are (approximately) equal field-wise."""
+    if x.dtype != y.dtype:
+        raise AssertionError(f"dtypes differ: {x.dtype} vs {y.dtype}")
+    if x.shape != y.shape:
+        raise AssertionError(f"shapes differ: {x.shape} vs {y.shape}")
+    for n in x.dtype.names:
+        xf, yf = x[n], y[n]
+        if atol == 0.0 and rtol == 0.0:
+            equal = (xf == yf) | (
+                np.isnan(xf.astype(float)) & np.isnan(yf.astype(float))
+                if np.issubdtype(xf.dtype, np.floating)
+                else np.zeros(xf.shape, dtype=bool)
+            )
+            if not np.all(equal):
+                raise AssertionError(f"field {n} differs: {xf} vs {yf}")
+        else:
+            np.testing.assert_allclose(
+                xf, yf, atol=atol, rtol=rtol, err_msg=f"field {n}"
+            )

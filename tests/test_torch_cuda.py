@@ -397,3 +397,97 @@ def test_device_time_ms_with_and_without_gpu_tracing(cuda, tracing, monkeypatch)
         assert timer == "torch.profiler" and records >= 1.0
     else:
         assert timer == "cuda_events" and records is None
+
+
+# ----------------------------------------------------------------------
+# The importance nested sampler on the card
+# ----------------------------------------------------------------------
+def _ins_levels(device, n_levels=3, seed=5):
+    """An ImportanceFlowModel of the INS flagship's flow with
+    ``n_levels`` levels of perturbed weights, on ``device``."""
+    import numpy as np
+
+    from nessai_tpu_torch.flowmodel import ImportanceFlowModel
+
+    fm = ImportanceFlowModel(dict(n_inputs=2), output=None, rng=np.random.default_rng(seed), device=device)
+    fm.initialise()
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(n_levels):
+        with torch.no_grad():
+            for p in fm.flow.parameters():
+                p.add_(0.1 * torch.randn(p.shape, generator=gen).to(p.device))
+        fm.add_level(fm.flow)
+    return fm
+
+
+@pytest.mark.cuda
+def test_ins_log_prob_all_gpu_matches_cpu(cuda, tmp_path, monkeypatch):
+    import numpy as np
+
+    from nessai_tpu_torch.flows.convert import params_to_jax, levels_from_jax
+    from nessai_tpu_torch.ops import coupling
+
+    monkeypatch.chdir(tmp_path)
+    gpu = _ins_levels(cuda)
+    cpu = _ins_levels("cpu")
+    levels_from_jax(cpu, [params_to_jax(level) for level in gpu.models])
+    x = 2.0 * np.random.default_rng(1).standard_normal((4096, 2))
+    coupling.affine_coupling.launches = 0
+    ours = gpu.log_prob_all(x)
+    assert coupling.affine_coupling.launches == 4 * 3
+    np.testing.assert_allclose(ours, cpu.log_prob_all(x), atol=1e-5, rtol=1e-5)
+    for i in range(3):
+        np.testing.assert_array_equal(gpu.log_prob_ith(x, i), ours[:, i])
+
+
+def _capped_ins(tmp_path, device):
+    from nessai_tpu_torch.flowsampler import FlowSampler
+    from nessai_tpu_torch.utils.testing import IntegrationTestModel
+
+    fs = FlowSampler(
+        IntegrationTestModel(2),
+        output=str(tmp_path),
+        importance_nested_sampler=True,
+        nlive=200,
+        min_samples=100,
+        seed=42,
+        max_iteration=2,
+        training_config=dict(max_epochs=20, patience=10, batch_size=500),
+        device=device,
+    )
+    fs.run()
+    return fs
+
+
+@pytest.mark.cuda
+def test_ins_capped_run_launches_k1(cuda, tmp_path):
+    import numpy as np
+
+    from nessai_tpu_torch.ops import coupling
+
+    coupling.affine_coupling.launches = coupling.affine_coupling.backward_launches = 0
+    fs = _capped_ins(tmp_path, "cuda")
+    assert fs.ns.iteration == 2 and fs.ns.proposal.flow.n_models == 2
+    assert np.isfinite(fs.logZ)
+    assert coupling.affine_coupling.launches > 0
+    assert coupling.affine_coupling.backward_launches > 0
+
+
+@pytest.mark.cuda
+def test_ins_capped_run_never_takes_the_plain_k1(cuda, tmp_path, monkeypatch):
+    import numpy as np
+
+    from nessai_tpu_torch.ops import coupling
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain K1 ran on the card")
+
+    for name in (
+        "affine_coupling_plain",
+        "affine_coupling_backward_plain",
+        "affine_coupling_layer_plain",
+        "affine_coupling_layer_backward_plain",
+    ):
+        monkeypatch.setattr(coupling, name, refuse)
+    fs = _capped_ins(tmp_path, "cuda")
+    assert np.isfinite(fs.logZ)

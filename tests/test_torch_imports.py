@@ -60,6 +60,30 @@ def test_import_every_module_without_jax():
     assert int(out.stdout.split()[1]) > 30
 
 
+@pytest.mark.parametrize(
+    "module",
+    [
+        "stopping_criteria",
+        "flowmodel.importance",
+        "proposal.importance",
+        "samplers.importancesampler",
+        "utils.rescaling",
+        "utils.stats",
+        "utils.information",
+        "utils.structures",
+    ],
+)
+def test_import_walk_reaches_the_importance_sampler(module):
+    """The walk of ``test_import_every_module_without_jax`` imports the
+    importance nested sampler's modules too."""
+    import pkgutil
+
+    import nessai_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(nessai_tpu_torch.__path__, "nessai_tpu_torch.")}
+    assert f"nessai_tpu_torch.{module}" in names
+
+
 def _model():
     from nessai_tpu_torch.utils.testing import IntegrationTestModel
 
