@@ -20,9 +20,12 @@ against the same weights on the CPU; the importance nested sampler's
 per-level flows (``log_prob_all`` and single-level passes at 16,384
 rows) on the GPU against the CPU; the flagship nested-sampling run
 (``bench.py``'s configuration) through ``FlowSampler(..., device="cuda")``,
-the same run with the neural spline flow, and the importance nested
+the same run with the neural spline flow, the importance nested
 sampler's flagship (``FlowSampler(..., importance_nested_sampler=True,
-device="cuda")``); a ``kernels`` summary. The
+device="cuda")``), its Gaussian-mixture configuration with the final
+redraw (``flagship_ins_mixture``) and capped runs of its flagship with
+the weighted flow training and the bootstrap, and with replace_all and
+the final flow (``ins_options``); a ``kernels`` summary. The
 last line is ``{"ok": true, "device": {...}}``. Any failing phase ends
 the script with a non-zero exit code and without that line. Without a
 GPU the script exits with code 2 at once.
@@ -32,6 +35,7 @@ Imports nothing of JAX or of the JAX package.
 
 import functools
 import json
+import logging
 import math
 import os
 import statistics
@@ -68,7 +72,8 @@ K1_SHAPES = [
 #: validation pass, a mask in no order with three transformed columns,
 #: alternating masks at widths that take 16-byte loads, and the
 #: importance nested sampler's pass over every stored sample (16,384
-#: rows; last, so that the rows before it keep their inputs)
+#: rows) and its final redraw's ``log_prob_all`` batches (20,000 rows);
+#: new rows go last, so that the rows before them keep their inputs
 K1_LAYER_SHAPES = [
     (900, 2, (1, 0)),
     (900, 2, (0, 1)),
@@ -77,6 +82,7 @@ K1_LAYER_SHAPES = [
     (4096, 8, (1, 0) * 4),
     (65536, 32, (1, 0) * 16),
     (16384, 2, (1, 0)),
+    (20000, 2, (1, 0)),
 ]
 #: shape of the kernels-line numbers of both K1 kernels: a flagship
 #: training step's coupling
@@ -800,23 +806,27 @@ def phase_ins_flow():
             raise RuntimeError(f"{name} launched K1 {rows[name]['k1_launches_per_call']} times, not {n}")
 
 
-def _drive(config, counters):
-    """One run of ``config`` through ``FlowSampler(..., device="cuda")``,
-    with every launch counter in ``counters`` (wrapper, attribute) set to
-    0 just before it and read just after. Returns the sampler, the model,
-    the run's output, its wall seconds and the counts."""
+def _drive(config, counters, model=None, run_kwargs=None, before_run=None):
+    """One run of ``config`` on ``model`` (``IntegrationTestModel(2)`` by
+    default) through ``FlowSampler(..., device="cuda")`` and
+    ``fs.run(**run_kwargs)``, with every launch counter in ``counters``
+    (wrapper, attribute) set to 0 just before it and read just after;
+    ``before_run(fs)`` is called between the two. Returns the sampler,
+    the model, the run's output, its wall seconds and the counts."""
     from nessai_tpu_torch.flowsampler import FlowSampler
     from nessai_tpu_torch.utils.testing import IntegrationTestModel
 
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as output:
-        model = IntegrationTestModel(2)
+        model = IntegrationTestModel(2) if model is None else model
         torch.cuda.reset_peak_memory_stats()
         for wrapper, attr in counters.values():
             setattr(wrapper, attr, 0)
         start = time.perf_counter()
         fs = FlowSampler(model, output=output, device="cuda", **config)
-        _, samples = fs.run(plot=False, save=False)
+        if before_run is not None:
+            before_run(fs)
+        _, samples = fs.run(plot=False, save=False, **(run_kwargs or {}))
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         launches = {key: int(getattr(w, a)) for key, (w, a) in counters.items()}
@@ -922,21 +932,25 @@ def phase_flagship_nsf():
     return result
 
 
+def _k1_counters():
+    """The launch counters of every kernel, K1 first: (wrapper, attribute)
+    by the name of the count."""
+    from nessai_tpu_torch.ops import coupling, rqs
+
+    return {
+        "k1_launches": (coupling.affine_coupling, "launches"),
+        "k1_backward_launches": (coupling.affine_coupling, "backward_launches"),
+        "rqs_launches": (rqs, "launches"),
+        "rqs_backward_launches": (rqs, "backward_launches"),
+    }
+
+
 def phase_flagship_ins():
     """The importance nested sampler's flagship (``FLAGSHIP_INS``) in
     full on the GPU."""
-    from nessai_tpu_torch.ops import coupling, rqs
     from nessai_tpu_torch.utils.profiling import FLAGSHIP_INS, phase_times
 
-    fs, model, samples, wall, launches = _drive(
-        FLAGSHIP_INS,
-        {
-            "k1_launches": (coupling.affine_coupling, "launches"),
-            "k1_backward_launches": (coupling.affine_coupling, "backward_launches"),
-            "rqs_launches": (rqs, "launches"),
-            "rqs_backward_launches": (rqs, "backward_launches"),
-        },
-    )
+    fs, model, samples, wall, launches = _drive(FLAGSHIP_INS, _k1_counters())
     ns = fs.ns
     analytic = float(model.analytic_log_evidence)
     err = float(fs.logZ_error)
@@ -980,6 +994,176 @@ def phase_flagship_ins():
     return result
 
 
+def _in_bounds(samples, model):
+    return bool(
+        len(samples)
+        and all(
+            np.isfinite(samples[n]).all()
+            and ((samples[n] >= model.bounds[n][0]) & (samples[n] <= model.bounds[n][1])).all()
+            for n in model.names
+        )
+    )
+
+
+class _Messages(logging.Handler):
+    """Keeps the messages of the records it sees."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def phase_flagship_ins_mixture():
+    """The Gaussian-mixture configuration of the importance nested sampler
+    (``FLAGSHIP_INS_MIXTURE``: nlive 2000, ratio and ESS criteria, then
+    the final redraw to a posterior ESS of 2000) in full on the GPU."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_INS_MIXTURE, FLAGSHIP_INS_MIXTURE_RUN, phase_times
+    from nessai_tpu_torch.utils.stats import effective_sample_size
+    from nessai_tpu_torch.utils.testing import GaussianMixture
+
+    n_post = FLAGSHIP_INS_MIXTURE_RUN["n_posterior_samples"]
+    sampler_log = logging.getLogger("nessai_tpu_torch.samplers.importancesampler")
+    messages = _Messages()
+    sampler_log.addHandler(messages)
+    try:
+        fs, model, samples, wall, launches = _drive(
+            FLAGSHIP_INS_MIXTURE, _k1_counters(), model=GaussianMixture(2), run_kwargs=FLAGSHIP_INS_MIXTURE_RUN
+        )
+    finally:
+        sampler_log.removeHandler(messages)
+    ns = fs.ns
+    analytic = float(model.analytic_log_evidence)
+    stopped_at_ratio = any("maximum number of redraw samples" in m for m in messages.messages)
+    redraw_ess = float(effective_sample_size(ns.final_log_w))
+    times = phase_times(fs)
+    result = dict(
+        levels=times.pop("levels"),
+        samples=int(len(samples)),
+        sampler_logZ=fs.initial_logZ,
+        sampler_logZ_err=fs.initial_logZ_error,
+        sampler_pull=(fs.initial_logZ - analytic) / fs.initial_logZ_error,
+        sampler_ess=float(ns.state.effective_n_posterior_samples),
+        logZ=fs.logZ,
+        logZ_err=fs.logZ_error,
+        analytic=analytic,
+        pull=(fs.logZ - analytic) / fs.logZ_error,
+        redraw_samples=int(len(ns.final_samples_unit)),
+        redraw_ess=redraw_ess,
+        redraw_stopped_at_max_samples_ratio=stopped_at_ratio,
+        wall_s=wall,
+        sampling_time_s=ns.sampling_time.total_seconds(),
+        **times,
+        likelihood_time_s=model.likelihood_evaluation_time.total_seconds(),
+        likelihood_evaluations=int(model.likelihood_evaluations),
+        **launches,
+        max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
+        posterior_samples=int(fs.posterior_samples.size),
+    )
+    emit("flagship_ins_mixture", **result)
+    if launches["k1_launches"] == 0 or launches["k1_backward_launches"] == 0:
+        raise RuntimeError(
+            "the mixture run launched the affine-coupling kernels "
+            f"{launches['k1_launches']} (forward/inverse) and "
+            f"{launches['k1_backward_launches']} (backward) times"
+        )
+    for name in ("sampler_pull", "pull"):
+        if not math.isfinite(result[name]) or abs(result[name]) >= PULL_LIMIT:
+            raise RuntimeError(f"mixture {name} {result[name]} is not within {PULL_LIMIT} sigma")
+    if not _in_bounds(samples, model):
+        raise RuntimeError("the mixture run's nested samples are not inside the prior bounds")
+    if not _in_bounds(fs.posterior_samples, model):
+        raise RuntimeError("the mixture run's posterior samples are empty, not finite or out of bounds")
+    if redraw_ess < n_post:
+        if not stopped_at_ratio:
+            raise RuntimeError(f"the redraw's ESS {redraw_ess} is below {n_post} without the max_samples_ratio stop")
+        print(f"the redraw stopped at max_samples_ratio with an ESS of {redraw_ess} < {n_post}", flush=True)
+    return result
+
+
+#: the capped option runs of ``ins_options``: name and sampler options
+INS_OPTION_RUNS = (
+    ("ins_weighted_kl_bootstrap", dict(weighted_kl=True, bootstrap=True)),
+    ("ins_replace_all_final_flow", dict(replace_all=True, train_final_flow=True)),
+)
+INS_OPTION_LEVELS = 3
+
+
+def phase_ins_options():
+    """Capped runs of ``FLAGSHIP_INS`` (``INS_OPTION_LEVELS`` levels) with
+    the options of the weighted flow training, the bootstrap, replace_all
+    and the final flow."""
+    from scipy.special import logsumexp
+
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_INS
+
+    results = {}
+    for name, options in INS_OPTION_RUNS:
+        calls = []
+
+        def record_training(fs):
+            flow = fs.ns.proposal.flow
+            train = flow.train
+
+            def recording(samples, weights=None, **kwargs):
+                calls.append(None if weights is None else np.array(weights))
+                return train(samples, weights=weights, **kwargs)
+
+            flow.train = recording
+
+        config = dict(FLAGSHIP_INS, max_iteration=INS_OPTION_LEVELS, **options)
+        fs, model, samples, wall, launches = _drive(config, _k1_counters(), before_run=record_training)
+        ns = fs.ns
+        weights = ns.proposal.weights_array
+        unset = np.isnan(weights)
+        result = dict(
+            options=options,
+            iterations=int(ns.iteration),
+            levels=int(ns.proposal.flow.n_models),
+            logZ=fs.logZ,
+            logZ_err=fs.logZ_error,
+            weights_sum=float(weights[~unset].sum()),
+            unset_weights=int(unset.sum()),
+            weighted_trainings=sum(w is not None for w in calls),
+            bootstrap_logZ=ns.bootstrap_log_evidence,
+            bootstrap_logZ_err=ns.bootstrap_log_evidence_error,
+            wall_s=wall,
+            **launches,
+        )
+        final_flow = options.get("train_final_flow", False)
+        if final_flow:
+            s = ns.samples_unit
+            log_w = s["logL"] + s["logW"]
+            expected = np.exp(log_w - logsumexp(log_w))
+            last = calls[-1]
+            result["final_flow_weights_max_abs_err"] = (
+                None if last is None or len(last) != len(expected) else float(np.abs(last - expected).max())
+            )
+        emit(name, **result)
+        if not math.isfinite(fs.logZ) or not np.isclose(result["weights_sum"], 1.0):
+            raise RuntimeError(f"{name}: logZ {fs.logZ}, weights summing to {result['weights_sum']}")
+        if launches["k1_launches"] == 0 or launches["k1_backward_launches"] == 0:
+            raise RuntimeError(f"{name}: K1 launched {launches}")
+        if result["weighted_trainings"] != len(calls):
+            raise RuntimeError(f"{name}: {len(calls) - result['weighted_trainings']} levels trained without weights")
+        if options.get("bootstrap") and not (
+            result["bootstrap_logZ_err"] is not None and math.isfinite(result["bootstrap_logZ_err"])
+        ):
+            raise RuntimeError(f"{name}: the bootstrap error is {result['bootstrap_logZ_err']}")
+        if final_flow and not (
+            result["levels"] == ns.iteration + 1
+            and result["unset_weights"] == 1
+            and unset[-1]
+            and result["final_flow_weights_max_abs_err"] is not None
+            and result["final_flow_weights_max_abs_err"] <= 1e-12
+        ):
+            raise RuntimeError(f"{name}: no final level trained on the posterior weights: {result}")
+        results[name] = result
+    return results
+
+
 def timed(seconds, name, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, with its wall time in ``seconds[name]``."""
     start = time.perf_counter()
@@ -1012,12 +1196,20 @@ def main():
         flagship = timed(seconds, "flagship", phase_flagship)
         flagship_nsf = timed(seconds, "flagship_nsf", phase_flagship_nsf)
         flagship_ins = timed(seconds, "flagship_ins", phase_flagship_ins)
+        mixture = timed(seconds, "flagship_ins_mixture", phase_flagship_ins_mixture)
+        options = timed(seconds, "ins_options", phase_ins_options)
         emit("seconds", **seconds, total=sum(seconds.values()))
     except Exception:
         traceback.print_exc()
         return 1
     kernels = []
-    runs = {"flagship": flagship, "flagship_nsf": flagship_nsf, "flagship_ins": flagship_ins}
+    runs = {
+        "flagship": flagship,
+        "flagship_nsf": flagship_nsf,
+        "flagship_ins": flagship_ins,
+        "flagship_ins_mixture": mixture,
+        **options,
+    }
     for name, replaces, key in (
         ("affine_coupling", "nessai_tpu/ops/coupling_pallas.py:56", "k1_launches"),
         # the JAX package's backward: jax.vjp of the jnp reference

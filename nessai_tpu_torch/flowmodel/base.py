@@ -97,15 +97,23 @@ class FlowModel:
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
-    def prep_data(self, samples, val_size, batch_size=None):
+    def prep_data(self, samples, val_size, batch_size=None, weights=None):
         """Shuffle, split off ``val_size`` for validation and cut the
         training rows into batches (the last one may be smaller).
-        Returns ``(train_batches, val)`` as device tensors."""
+        ``weights`` (one per sample) are shuffled and split with the
+        samples. Returns ``(train_batches, val, weight_batches,
+        val_weights)`` as device tensors; the weight entries are None
+        without weights."""
         samples = np.asarray(samples, dtype=np.float32)
         if not np.isfinite(samples).all():
             raise ValueError("Training data is not finite")
         n = len(samples)
-        samples = samples[self.rng.permutation(n)]
+        if weights is not None:
+            weights = np.asarray(weights, dtype=np.float32)
+            if not np.isfinite(weights).all():
+                raise ValueError("Weights contain non-finite values")
+        perm = self.rng.permutation(n)
+        samples = samples[perm]
         n_val = int(round((val_size or 0.0) * n))
         n_train = n - n_val
         if n_train < 2:
@@ -118,7 +126,12 @@ class FlowModel:
         train = self._to_device(samples[:n_train])
         batches = list(torch.split(train, batch_size))
         val = self._to_device(samples[n_train:]) if n_val > 0 else None
-        return batches, val
+        if weights is None:
+            return batches, val, None, None
+        weights = weights[perm]
+        w_batches = list(torch.split(self._to_device(weights[:n_train]), batch_size))
+        w_val = self._to_device(weights[n_train:]) if n_val > 0 else None
+        return batches, val, w_batches, w_val
 
     def _state_copy(self) -> dict:
         return {k: v.detach().clone() for k, v in self.flow.state_dict().items()}
@@ -126,11 +139,20 @@ class FlowModel:
     def _trainable(self):
         return [p for p in self.flow.parameters() if p.requires_grad]
 
-    def _train_step(self, x) -> torch.Tensor:
-        """One optimiser step on the batch ``x``; returns its loss (a
-        device scalar, no host synchronisation)."""
+    def _loss(self, x, w=None) -> torch.Tensor:
+        """Mean negative log-density of the batch ``x``; with weights
+        ``w``, the JAX package's weighted loss ``-sum(w log p) /
+        max(sum(w), 1e-12)``."""
+        log_p = self.flow.log_prob(x)
+        if w is None:
+            return -log_p.mean()
+        return -(w * log_p).sum() / w.sum().clamp_min(1e-12)
+
+    def _train_step(self, x, w=None) -> torch.Tensor:
+        """One optimiser step on the batch ``x`` (with weights ``w``);
+        returns its loss (a device scalar, no host synchronisation)."""
         self.optimiser.zero_grad(set_to_none=True)
-        loss = -self.flow.log_prob(x).mean()
+        loss = self._loss(x, w)
         loss.backward()
         if self.training_config.clip_grad_norm:
             _clip_by_global_norm(self._trainable(), self.training_config.clip_grad_norm)
@@ -151,9 +173,12 @@ class FlowModel:
                 h, _ = b(h)
         self._actnorm_done = True
 
-    def train(self, samples, max_epochs=None, patience=None, val_size=None, save: bool = True, output=None):
-        """Train the flow on ``samples`` ([n, dims]). Returns the history
-        of this call, ``{"loss": [...], "val_loss": [...]}``."""
+    def train(
+        self, samples, weights=None, max_epochs=None, patience=None, val_size=None, save: bool = True, output=None
+    ):
+        """Train the flow on ``samples`` ([n, dims]), with the weighted
+        loss where ``weights`` are given. Returns the history of this
+        call, ``{"loss": [...], "val_loss": [...]}``."""
         if not self.initialised:
             self.initialise()
         samples = np.asarray(samples, dtype=np.float32)
@@ -165,7 +190,9 @@ class FlowModel:
         val_size = tc.val_size if val_size is None else val_size
 
         self._maybe_init_actnorm(samples)
-        batches, val = self.prep_data(samples, val_size)
+        batches, val, w_batches, w_val = self.prep_data(samples, val_size, weights=weights)
+        if w_batches is None:
+            w_batches = [None] * len(batches)
         history = {"loss": [], "val_loss": []}
         # as in the JAX package, the starting weights stand until an
         # epoch improves on them (a run that goes non-finite at once
@@ -174,10 +201,10 @@ class FlowModel:
         best_val = np.inf
         best_it = 0
         for epoch in range(int(max_epochs)):
-            loss = torch.stack([self._train_step(x) for x in batches]).mean()
+            loss = torch.stack([self._train_step(x, w) for x, w in zip(batches, w_batches)]).mean()
             if val is not None:
                 with torch.no_grad():
-                    metric = -self.flow.log_prob(val).mean()
+                    metric = self._loss(val, w_val)
                 loss_v, metric_v = torch.stack([loss, metric]).tolist()
                 if np.isnan(metric_v):
                     metric_v = loss_v

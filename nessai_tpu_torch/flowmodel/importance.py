@@ -87,10 +87,11 @@ class ImportanceFlowModel(FlowModel):
         level = copy.deepcopy(flow).requires_grad_(False)
         self.models.append(level.eval())
 
-    def train(self, samples, **kwargs):
-        """Train the current level on ``samples`` and freeze it onto the
-        list. The per-level weight files wait with checkpointing."""
-        history = super().train(samples, save=False, **kwargs)
+    def train(self, samples, weights=None, **kwargs):
+        """Train the current level on ``samples`` (with the weighted loss
+        where ``weights`` are given) and freeze it onto the list. The
+        per-level weight files wait with checkpointing."""
+        history = super().train(samples, weights=weights, save=False, **kwargs)
         self.add_level(self.flow)
         return history
 

@@ -26,13 +26,26 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["ImportanceFlowProposal"]
 
+#: A level's weight is NaN from its training until the sampler sets it.
+#: The final flow (``train_final_flow``) is trained after the last level
+#: and nothing sets its weight, as in the JAX package, which then fails
+#: in a redraw or a bootstrap with an error of numpy's.
+_UNSET_WEIGHT = (
+    "a level's weight is NaN. The final flow (train_final_flow=True) leaves "
+    "its level without a weight, so the meta-proposal cannot be drawn from or "
+    "evaluated after it: do not combine train_final_flow with a redraw "
+    "(redraw_samples) or with bootstrap"
+)
+
 
 class ImportanceFlowProposal(Proposal):
     """Meta-proposal: the prior and one flow per level, with weights.
 
     ``reset_flow`` is a bool (fresh weights for every level, or a copy of
     the previous level) or an int N (fresh weights every N levels).
-    ``device`` (default CUDA) is where the flows train and run.
+    ``device`` (default CUDA) is where the flows train and run. With
+    ``weighted_kl`` each level trains on its samples weighted by their
+    importance weights (the sampler passes False by default).
     """
 
     def __init__(
@@ -42,21 +55,17 @@ class ImportanceFlowProposal(Proposal):
         flow_config: Optional[dict] = None,
         training_config: Optional[dict] = None,
         reparameterisation: Optional[str] = "logit",
-        weighted_kl: bool = False,
+        weighted_kl: bool = True,
         reset_flow=True,
         rng=None,
         device=None,
     ):
-        if weighted_kl:
-            raise NotImplementedError(
-                "weighted_kl=True needs weighted flow training, which is not in "
-                "the PyTorch port yet (ROADMAP §1 item 3a)"
-            )
         if reparameterisation not in ("logit", None, "none"):
             raise ValueError(f"Unknown reparameterisation: {reparameterisation}")
         super().__init__(model, rng=rng)
         self.output = output
         self.level_count = -1
+        self.weighted_kl = weighted_kl
         self.reset_flow = int(reset_flow)
         self.reparameterisation = reparameterisation
         self.flow = ImportanceFlowModel(
@@ -146,14 +155,66 @@ class ImportanceFlowProposal(Proposal):
         return numpy_array_to_live_points(arr, self.model.names), log_j
 
     # ------------------------------------------------------------------
-    def train(self, samples: np.ndarray) -> None:
-        """Train the next level's flow on ``samples`` (unweighted)."""
+    def get_proposal_log_prob(self, it: int):
+        """The log-density in prime space (no Jacobian) of the proposal of
+        level ``it`` (-1: the prior), as a function of ``x_prime``."""
+        if it == -1:
+            return lambda x_prime: np.zeros(x_prime.shape[0])
+        if it < self.flow.n_models:
+            return lambda x_prime: self.flow.log_prob_ith(x_prime, it)
+        raise ValueError(f"No proposal for iteration {it}")
+
+    def compute_kl_between_proposals(
+        self, x: np.ndarray, p_it: Optional[int] = None, q_it: Optional[int] = None
+    ) -> float:
+        """Monte-Carlo KL divergence between the proposals of levels
+        ``p_it`` and ``q_it`` (by default the newest and the one before)
+        on structured hypercube samples ``x`` drawn from ``p``. The prior
+        lives in the hypercube, so its density takes no Jacobian."""
+        x_prime, log_j = self.rescale(x)
+        if p_it is None:
+            p_it = self.flow.n_models - 1
+        if q_it is None:
+            q_it = self.flow.n_models - 2
+        if p_it == q_it:
+            raise ValueError("p and q must be different")
+        if p_it < -1 or q_it < -1:
+            raise ValueError(f"Invalid p_it or q_it: {p_it}, {q_it}")
+        log_p = self.get_proposal_log_prob(p_it)(x_prime)
+        log_q = self.get_proposal_log_prob(q_it)(x_prime)
+        if p_it > -1:
+            log_p = log_p + log_j
+        if q_it > -1:
+            log_q = log_q + log_j
+        kl = float(np.mean(log_p - log_q))
+        logger.info("KL between %s and %s is: %.3g", p_it, q_it, kl)
+        return kl
+
+    # ------------------------------------------------------------------
+    def train(self, samples: np.ndarray, weights: Optional[np.ndarray] = None) -> None:
+        """Train the next level's flow on ``samples``. Weights that are
+        passed in are normalised to sum to one; otherwise, with
+        ``weighted_kl``, the weights are the samples' normalised
+        importance weights ``exp(logW)``; else the training is
+        unweighted."""
         self.level_count += 1
         self._weights[self.level_count] = np.nan
         x_prime, _ = self.rescale(samples)
+        if self.weighted_kl or weights is not None:
+            if weights is not None:
+                weights = np.asarray(weights, dtype=float)
+                weights = weights / np.sum(weights)
+            else:
+                log_w = np.asarray(samples["logW"], dtype=float).copy()
+                log_w -= logsumexp(log_w)
+                weights = np.exp(log_w)
+            if np.isnan(weights).any():
+                raise ValueError("Weights contain NaN(s)")
+            if not np.isfinite(weights).all():
+                raise ValueError("Weights contain Inf(s)")
         self.flow.add_new_flow(reset=self._reset_flow)
         logger.debug("Training level %d with %d samples", self.level_count, len(x_prime))
-        self.flow.train(x_prime)
+        self.flow.train(x_prime, weights=weights)
         self.training_count += 1
 
     # ------------------------------------------------------------------
@@ -168,7 +229,7 @@ class ImportanceFlowProposal(Proposal):
         if np.isnan(x_prime).any():
             logger.warning("NaNs in samples when computing log_Q")
         if any(np.isnan(w) for w in self.weights.values()):
-            raise RuntimeError("Some weights are not set!")
+            raise RuntimeError(f"Some weights are not set! {_UNSET_WEIGHT}")
         if self.n_proposals > 1 and log_j is None:
             raise RuntimeError("Must specify log_j! Meta-proposal includes flows")
         log_q_all = np.zeros((len(x_prime), self.n_proposals))
@@ -258,6 +319,8 @@ class ImportanceFlowProposal(Proposal):
         if weights is None:
             weights = self.weights_array
         weights = np.asarray(weights, dtype=float)
+        if np.isnan(weights).any():
+            raise RuntimeError(f"Cannot draw from the meta-proposal: {_UNSET_WEIGHT}")
         weights = weights / weights.sum()
         if counts is None:
             counts = self.rng.multinomial(n, weights)

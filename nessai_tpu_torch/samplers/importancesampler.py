@@ -26,6 +26,7 @@ from ..posterior import draw_posterior_samples as _draw_posterior_samples
 from ..proposal.importance import ImportanceFlowProposal
 from ..stopping_criteria import CriterionGroup, StoppingCriterionRegistry
 from ..utils.information import differential_entropy
+from ..utils.optimise import optimise_meta_proposal_weights
 from ..utils.stats import effective_sample_size, weighted_quantile
 from ..utils.structures import get_subset_arrays
 from .base import BaseNestedSampler
@@ -37,14 +38,16 @@ __all__ = ["OrderedSamples", "ImportanceNestedSampler"]
 
 class OrderedSamples:
     """logL-sorted sample store with its live/nested split and the
-    ``[n, n_proposals]`` log_q matrix."""
+    ``[n, n_proposals]`` log_q matrix. With ``replace_all`` every live
+    point moves to the nested set at each level."""
 
-    def __init__(self, strict_threshold: bool = False):
+    def __init__(self, strict_threshold: bool = False, replace_all: bool = False):
         self.samples = None
         self.log_q = None
         #: True where a sample has been moved to the nested set
         self.is_nested = None
         self.strict_threshold = strict_threshold
+        self.replace_all = replace_all
         self.log_likelihood_threshold = -np.inf
         self.state = _INSIntegralState()
         self._live_points_cleared = False
@@ -120,8 +123,13 @@ class OrderedSamples:
         self.is_nested[np.asarray(indices, dtype=int)] = True
 
     def remove_samples(self) -> int:
-        """Move the live points below the threshold into the nested set;
-        returns how many moved."""
+        """Move the live points below the threshold (every live point with
+        ``replace_all``) into the nested set; returns how many moved."""
+        if self.replace_all:
+            n_removed = int((~self.is_nested).sum())
+            self.is_nested[:] = True
+            self._live_points_cleared = True
+            return n_removed
         to_nest = (~self.is_nested) & (self.samples["logL"] < self.log_likelihood_threshold)
         n_removed = int(to_nest.sum())
         self.is_nested |= to_nest
@@ -220,9 +228,6 @@ class ImportanceNestedSampler(BaseNestedSampler):
         for name, value, item in (
             ("checkpointing", checkpointing, "3e"),
             ("plot", plot, "3f"),
-            ("replace_all", replace_all, "3a"),
-            ("train_final_flow", train_final_flow, "3d"),
-            ("bootstrap", bootstrap, "3c"),
             ("n_pool", n_pool, "8"),
             ("pool", pool, "8"),
         ):
@@ -241,10 +246,15 @@ class ImportanceNestedSampler(BaseNestedSampler):
         self.max_samples = max_samples
         self.n_update = n_update
         self.draw_constant = draw_constant
+        self.replace_all = replace_all
         self.strict_threshold = strict_threshold
         self.draw_iid_live = draw_iid_live
         self.threshold_method = threshold_method
         self.threshold_kwargs = dict(threshold_kwargs or {})
+        self._train_final_flow = train_final_flow
+        self.bootstrap = bootstrap
+        self.bootstrap_log_evidence = None
+        self.bootstrap_log_evidence_error = None
         self.configure_stopping_criterion(stopping_criterion, tolerance, check_criteria)
         self.proposal = ImportanceFlowProposal(
             self.model,
@@ -257,7 +267,7 @@ class ImportanceNestedSampler(BaseNestedSampler):
             rng=self.rng,
             device=self.device,
         )
-        self.training_samples = OrderedSamples(strict_threshold=strict_threshold)
+        self.training_samples = OrderedSamples(strict_threshold=strict_threshold, replace_all=replace_all)
         self.iid_samples = OrderedSamples(strict_threshold=strict_threshold) if draw_iid_live else None
 
         self.initialised = False
@@ -270,6 +280,9 @@ class ImportanceNestedSampler(BaseNestedSampler):
         self.sample_counts = {}
         self.live_points_ess = np.nan
         self._current_proposal_entropy = np.nan
+        self._final_samples_unit = None
+        self.final_log_w = None
+        self._final_state = None
         if self.min_samples > self.nlive:
             raise ValueError("`min_samples` must be less than `nlive`")
         if self.min_remove > self.nlive:
@@ -280,6 +293,8 @@ class ImportanceNestedSampler(BaseNestedSampler):
         #: time in ``ImportanceFlowProposal.update_log_q`` (the new level's
         #: log-density over every stored sample)
         self.update_log_q_time = datetime.timedelta()
+        #: time in :meth:`draw_final_samples`
+        self.draw_final_samples_time = datetime.timedelta()
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -320,6 +335,33 @@ class ImportanceNestedSampler(BaseNestedSampler):
     @property
     def samples_unit(self):
         return self._ordered_samples.samples
+
+    @property
+    def samples(self):
+        """Every sample, in the model space."""
+        return self.model.from_unit_hypercube(self.samples_unit)
+
+    @property
+    def live_points(self):
+        """The live points in the model space (None once cleared)."""
+        lp = self.live_points_unit
+        if lp is None:
+            return None
+        return self.model.from_unit_hypercube(lp)
+
+    @live_points.setter
+    def live_points(self, samples) -> None:
+        if samples is not None:
+            raise RuntimeError("Cannot set live points")
+
+    @property
+    def nested_samples(self):
+        """The nested samples in the model space (every sample once the
+        run is finalised)."""
+        ns = self.nested_samples_unit
+        if ns is None or not len(ns):
+            return np.empty(0)
+        return self.model.from_unit_hypercube(ns)
 
     @property
     def state(self) -> _INSIntegralState:
@@ -470,7 +512,9 @@ class ImportanceNestedSampler(BaseNestedSampler):
         )
         training = self.training_samples.samples[n_train:]
         logger.info("Training next proposal with %d samples", len(training))
-        self.proposal.train(training)
+        # train() normalises the weights, their sign included
+        weights = -np.exp(self.training_samples.log_q[n_train:, -1]) if self.replace_all else None
+        self.proposal.train(training, weights=weights)
         self.training_time += datetime.datetime.now() - st
 
     def add_new_proposal_weight(self, iteration: int, n_new: int) -> None:
@@ -633,7 +677,7 @@ class ImportanceNestedSampler(BaseNestedSampler):
     def nested_sampling_loop(self):
         """Add levels until the stopping criterion is met (or
         ``max_iteration``), then finalise. Returns ``(logZ, samples)``
-        with the samples in the unit hypercube."""
+        with every sample in the unit hypercube (:attr:`samples_unit`)."""
         if self.finalised:
             logger.warning("Sampler has already finished sampling")
             return self.log_evidence, self.samples_unit
@@ -652,7 +696,7 @@ class ImportanceNestedSampler(BaseNestedSampler):
             self.update_log_likelihood_threshold(threshold)
             n_removed = self.remove_samples()
             self.add_new_proposal()
-            n_add = self.nlive if self.draw_constant else n_removed
+            n_add = self.nlive if (self.draw_constant or self.replace_all) else n_removed
             self.add_new_proposal_weight(self.iteration, n_add)
             self.add_and_update_points(n_add)
             self.update_evidence()
@@ -671,13 +715,18 @@ class ImportanceNestedSampler(BaseNestedSampler):
         return self.log_evidence, self.samples_unit
 
     def finalise(self) -> None:
-        """Move every sample to the nested set and compute the final
-        evidence."""
+        """Train the final flow (``train_final_flow``), move every sample
+        to the nested set and compute the final evidence, then bootstrap
+        its error (``bootstrap``)."""
         if self.finalised:
             return
+        if self._train_final_flow:
+            self.train_final_flow()
         self.training_samples.finalise()
         if self.draw_iid_live:
             self.iid_samples.finalise()
+        if self.bootstrap:
+            self.adjust_final_samples()
         logger.info("Final KL divergence: %.3f", self.kl_divergence())
         logger.info(
             "Final log Z: %.3f +/- %.3f (ESS %.1f; %d proposal levels)",
@@ -729,11 +778,167 @@ class ImportanceNestedSampler(BaseNestedSampler):
         self.update_evidence()
         return samples
 
-    def draw_posterior_samples(self, sampling_method: str = "importance_sampling", n: Optional[int] = None):
-        """Posterior samples in the model space, drawn from the main
-        sample set with its importance weights."""
-        samples = self._ordered_samples.samples
-        log_w = samples["logL"] + samples["logW"]
+    # ------------------------------------------------------------------
+    # Final redraw, bootstrap and final flow
+    # ------------------------------------------------------------------
+    @property
+    def final_state(self) -> Optional[_INSIntegralState]:
+        """Evidence state of the redrawn samples (None before
+        :meth:`draw_final_samples`)."""
+        return self._final_state
+
+    @property
+    def final_log_evidence(self) -> Optional[float]:
+        if self._final_state is None:
+            return None
+        return self._final_state.log_evidence
+
+    @property
+    def final_log_evidence_error(self) -> Optional[float]:
+        """Standard error of the mean of the redrawn weights over their
+        mean, in long double."""
+        if self.final_log_w is None:
+            return None
+        n = len(self.final_log_w)
+        u = np.exp(np.asarray(self.final_log_w, dtype=np.longdouble))
+        z = u.mean()
+        return float(np.sqrt(((u - z) ** 2).sum() / (n * (n - 1))) / z)
+
+    @property
+    def final_log_posterior_weights(self) -> Optional[np.ndarray]:
+        if self.final_state:
+            return self.final_state.log_posterior_weights
+        return None
+
+    @property
+    def final_samples_unit(self) -> Optional[np.ndarray]:
+        """The redrawn samples in the unit hypercube."""
+        return self._final_samples_unit
+
+    @property
+    def final_samples(self) -> Optional[np.ndarray]:
+        """The redrawn samples in the model space."""
+        if self._final_samples_unit is None:
+            return None
+        return self.model.from_unit_hypercube(self._final_samples_unit)
+
+    def draw_final_samples(
+        self,
+        n_post: Optional[int] = None,
+        n_draw: Optional[int] = None,
+        max_its: int = 100,
+        max_batch_size: int = 20_000,
+        max_samples_ratio: Optional[float] = 1.0,
+        use_counts: bool = False,
+        optimise_weights: bool = False,
+        optimise_kwargs: Optional[dict] = None,
+        optimisation_method: str = "kl",
+    ):
+        """Redraw from the whole meta-proposal, in batches, until the
+        posterior ESS reaches ``n_post`` (by default the run's ESS) or
+        ``n_draw`` samples are drawn. ``max_samples_ratio`` caps the
+        redraw at that multiple of the run's samples. With
+        ``optimise_weights`` the level weights are first optimised
+        (``optimisation_method="kl"``; ``"evidence"`` keeps them).
+        ``use_counts`` is accepted and unused, as in the JAX package.
+        Returns the redrawn samples (unit hypercube)."""
+        st = datetime.datetime.now()
+        if n_post and n_draw:
+            raise RuntimeError("Specify at most one of n_post / n_draw")
+        if not n_post and not n_draw:
+            n_post = int(self.state.effective_n_posterior_samples)
+        max_samples = int(max_samples_ratio * len(self.samples_unit)) if max_samples_ratio else None
+
+        weights = self.proposal.weights_array.copy()
+        if optimise_weights:
+            if optimisation_method == "kl":
+                weights = optimise_meta_proposal_weights(
+                    self.samples_unit["logL"],
+                    self.training_samples.log_q,
+                    weights,
+                    **(optimise_kwargs or {}),
+                )
+            elif optimisation_method != "evidence":
+                raise ValueError(optimisation_method)
+
+        batch = min(max_batch_size, n_draw if n_draw else max(2 * n_post, 1000))
+        samples = None
+        for _ in range(max_its):
+            new, _ = self.proposal.draw_from_flows(batch, weights=weights)
+            new["logL"] = self.model.batch_evaluate_log_likelihood(new, unit_hypercube=True)
+            new["it"] = -2
+            samples = new if samples is None else np.concatenate([samples, new])
+            ess = effective_sample_size(samples["logL"] + samples["logW"])
+            if n_draw and len(samples) >= n_draw:
+                break
+            if n_post and ess >= n_post:
+                break
+            if max_samples is not None and len(samples) > max_samples:
+                logger.warning("Reached maximum number of redraw samples: %d", max_samples)
+                break
+        else:
+            logger.warning("Failed to reach target ESS in %d batches", max_its)
+        self._final_samples_unit = samples
+        self.final_log_w = samples["logL"] + samples["logW"]
+        self._final_state = _INSIntegralState()
+        self._final_state.update_evidence(samples, live_points=None)
+        self.draw_final_samples_time += datetime.datetime.now() - st
+        logger.info(
+            "Redraw: %d samples, ESS %.1f, logZ %.3f",
+            len(samples),
+            effective_sample_size(self.final_log_w),
+            self.final_log_evidence,
+        )
+        return samples
+
+    def adjust_final_samples(self, n_batches: int = 5) -> None:
+        """Bootstrap the evidence: ``n_batches`` draws of as many samples
+        as the run holds, with multinomial counts per proposal, give
+        :attr:`bootstrap_log_evidence` (their mean) and
+        :attr:`bootstrap_log_evidence_error` (their spread)."""
+        log_evidences = []
+        counts_orig = np.array(
+            [self.sample_counts.get(k, 0) for k in range(-1, self.proposal.level_count + 1)]
+        )
+        n = counts_orig.sum()
+        for _ in range(n_batches):
+            p = counts_orig / counts_orig.sum()
+            counts = self.rng.multinomial(n, p)
+            samples, _ = self.proposal.draw_from_flows(n, counts=counts)
+            samples["logL"] = self.model.batch_evaluate_log_likelihood(samples, unit_hypercube=True)
+            log_w = samples["logL"] + samples["logW"]
+            log_evidences.append(logsumexp(log_w) - np.log(len(samples)))
+        self.bootstrap_log_evidence = float(np.mean(log_evidences))
+        self.bootstrap_log_evidence_error = float(np.std(log_evidences))
+        logger.info(
+            "Bootstrap logZ: %.3f +/- %.3f",
+            self.bootstrap_log_evidence,
+            self.bootstrap_log_evidence_error,
+        )
+
+    def train_final_flow(self) -> None:
+        """Train one more level on every sample, weighted by its posterior
+        weight. Nothing sets the new level's weight (see
+        :meth:`ImportanceFlowProposal.draw_from_flows`)."""
+        log_w = self.samples_unit["logL"] + self.samples_unit["logW"]
+        log_w = log_w - logsumexp(log_w)
+        self.proposal.train(self.samples_unit, weights=np.exp(log_w))
+
+    def draw_posterior_samples(
+        self,
+        sampling_method: str = "importance_sampling",
+        n: Optional[int] = None,
+        use_final_samples: bool = True,
+    ):
+        """Posterior samples in the model space: from the redrawn samples
+        where a redraw has run (and ``use_final_samples``), else from the
+        main sample set, with their importance weights."""
+        if use_final_samples and self.final_samples_unit is not None:
+            samples = self.final_samples_unit
+            log_w = self.final_log_w
+        else:
+            samples = self._ordered_samples.samples
+            log_w = samples["logL"] + samples["logW"]
         post = _draw_posterior_samples(
             samples, log_w=log_w - logsumexp(log_w), method=sampling_method, n=n, rng=self.rng
         )

@@ -26,7 +26,82 @@ from .base import BaseNestedSampler
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["NestedSampler"]
+__all__ = ["NestedSampler", "check_reference_options"]
+
+#: The JAX sampler's keyword options that the port does not take yet:
+#: for each, the one value the port runs with (the reference's default,
+#: or the port's fixed choice) and the ROADMAP §1 item that brings the
+#: others.
+FIXED_OPTIONS = {
+    "stopping": (0.1, "6"),
+    "stopping_criterion": ("dlogZ", "6"),
+    "max_iteration": (None, "6"),
+    "checkpointing": (False, "8"),
+    "checkpoint_interval": (600, "8"),
+    "checkpoint_on_iteration": (False, "8"),
+    "checkpoint_on_training": (False, "8"),
+    "checkpoint_callback": (None, "8"),
+    "resume_file": (None, "8"),
+    "logging_interval": (None, "6"),
+    "log_on_iteration": (True, "6"),
+    "plot": (False, "8"),
+    "trace_parameters": (None, "8"),
+    "proposal_plots": (False, "8"),
+    "prior_sampling": (False, "6"),
+    "analytic_priors": (False, "6"),
+    "maximum_uninformed": (None, "6"),
+    "uninformed_proposal": (None, "6"),
+    "uninformed_acceptance_threshold": (None, "6"),
+    "uninformed_proposal_kwargs": (None, "6"),
+    "training_frequency": (None, "6"),
+    "cooldown": (200, "6"),
+    "memory": (False, "6"),
+    "acceptance_threshold": (0.01, "6"),
+    "retrain_acceptance": (True, "6"),
+    "train_on_empty": (True, "6"),
+    "reset_weights": (False, "6"),
+    "reset_permutations": (False, "6"),
+    "reset_acceptance": (False, "6"),
+    "reset_flow": (False, "6"),
+    "flow_class": (None, "6"),
+    "flow_proposal_class": (None, "6"),
+    "shrinkage_expectation": ("logt", "6"),
+    "batched_bookkeeping": (True, "6"),
+    "device_bookkeeping": (True, "6"),
+    "simulated_evidence_error": (True, "6"),
+    "n_pool": (None, "8"),
+    "pool": (None, "8"),
+    "close_pool": (False, "8"),
+}
+
+
+def _is_fixed(value, fixed) -> bool:
+    # a bool or None matches only itself (True == 1 in Python), a number
+    # or a string an equal plain number or string
+    if fixed is None or isinstance(fixed, bool):
+        return value is fixed
+    return type(value) in (int, float, str) and value == fixed
+
+
+def check_reference_options(options: dict) -> None:
+    """Accept the JAX sampler's options where they hold the value the
+    port runs with; raise ``NotImplementedError`` naming the ROADMAP item
+    for any other value and for the flow proposal's options (item 4 for
+    ``reparameterisations``, item 6 for the rest)."""
+    for name, value in options.items():
+        if name in FIXED_OPTIONS:
+            fixed, item = FIXED_OPTIONS[name]
+            if _is_fixed(value, fixed):
+                continue
+            raise NotImplementedError(
+                f"{name}={value!r} is not in the PyTorch port's standard sampler yet "
+                f"(ROADMAP §1 item {item}); it runs with {name}={fixed!r}"
+            )
+        item = "4" if name == "reparameterisations" else "6"
+        raise NotImplementedError(
+            f"The flow proposal option {name}={value!r} is not in the PyTorch port "
+            f"yet (ROADMAP §1 item {item})"
+        )
 
 
 class NestedSampler(BaseNestedSampler):
@@ -52,22 +127,15 @@ class NestedSampler(BaseNestedSampler):
         model,
         nlive: int = 2000,
         output: Optional[str] = None,
-        checkpointing: bool = False,
         seed: Optional[int] = None,
         rng: Optional[np.random.Generator] = None,
-        plot: bool = False,
         flow_config: Optional[dict] = None,
         training_config: Optional[dict] = None,
         poolsize: Optional[int] = None,
         device=None,
+        **options,
     ):
-        if checkpointing:
-            raise NotImplementedError(
-                "Checkpointing is not in the PyTorch port yet; pass "
-                "checkpointing=False"
-            )
-        if plot:
-            raise NotImplementedError("Plots are not in the PyTorch port yet; pass plot=False")
+        check_reference_options(options)
         super().__init__(
             model,
             nlive,

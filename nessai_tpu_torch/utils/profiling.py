@@ -5,25 +5,30 @@ host clock measure what a caller waits for, which for small kernels is
 the launch overhead; the profiler's kernel records give the time the
 GPU spent. Run as a script on a GPU machine to trace the flagship runs::
 
-    python -m nessai_tpu_torch.utils.profiling
+    python -m nessai_tpu_torch.utils.profiling [realnvp] [nsf] [ins] [ins_mixture]
 
-It profiles the RealNVP flagship, then the neural-spline flagship. Each
-runs three times in one process: a first run (which also pays for the
-CUDA context, the kernel build or load and the library handles), a run
-without tracing and a run under the profiler. For each it prints one
-JSON object: the wall time of each run, the training times, the GPU
-time and record count of the traced run, the GPU busy share of the
-untraced wall time, the GPU seconds of each of the port's own kernels,
-and the kernels that take the most GPU time, the traced run's training
-epochs and GPU records per epoch, and the launches per run of the
-flagship's own kernels (K1 forward and backward, or K2 forward and
-backward). For the importance nested sampler it also prints the levels
-and the time in training, in draws, in the ``update_log_q`` passes and
-in ``log_prob_all``.
+It profiles the named runs, by default all four: the RealNVP flagship,
+the neural-spline flagship, the importance nested sampler's flagship and
+its Gaussian-mixture configuration (with the final redraw). Each runs
+three times in one process: a first run (which also pays for the CUDA
+context, the kernel build or load and the library handles), a run
+without tracing and a run under the profiler (the mixture's traces the
+GPU alone). For each it prints one JSON object with the untraced runs'
+times before the traced run, and one at the end: the wall time of each
+run, the training times, the GPU time and record count of the traced
+run, the GPU busy share of the untraced wall time, the GPU seconds of
+each of the port's own kernels, and the kernels that take the most GPU
+time, the traced run's training epochs and GPU records per epoch, and
+the launches per run of the flagship's own kernels (K1 forward and
+backward, or K2 forward and backward). For the importance nested
+sampler it also prints the levels and the time in training, in draws,
+in the ``update_log_q`` passes, in ``log_prob_all`` and in the final
+redraw.
 """
 
 import json
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -33,6 +38,8 @@ __all__ = [
     "FLAGSHIP",
     "FLAGSHIP_NSF",
     "FLAGSHIP_INS",
+    "FLAGSHIP_INS_MIXTURE",
+    "FLAGSHIP_INS_MIXTURE_RUN",
     "OWN_KERNELS",
     "gpu_kernel_events",
     "event_time_ms",
@@ -79,6 +86,22 @@ FLAGSHIP_INS = dict(
     checkpointing=False,
 )
 
+#: The importance nested sampler on the Gaussian mixture with ESS-based
+#: stopping, as ``examples/importance_nested_sampler/ins_gaussian_mixture.py``
+#: runs it: ``GaussianMixture(2)``, nlive = 2000, seed 1234, the ratio
+#: criterion at 0 and an ESS of 3000, both to be met, everything else at
+#: the defaults (a fresh RealNVP of 4 × [Permutation, AffineCoupling
+#: (resnet), ActNorm] per level); ``fs.run(**FLAGSHIP_INS_MIXTURE_RUN)``
+#: redraws to a posterior ESS of 2000.
+FLAGSHIP_INS_MIXTURE = dict(
+    FLAGSHIP_INS,
+    nlive=2000,
+    stopping_criterion=["ratio", "ess"],
+    tolerance=[0.0, 3000],
+    check_criteria="all",
+)
+FLAGSHIP_INS_MIXTURE_RUN = dict(redraw_samples=True, n_posterior_samples=2000)
+
 
 def gpu_kernel_events(prof):
     """The GPU activity records of a finished profile (kernels, copies,
@@ -91,10 +114,11 @@ def gpu_kernel_events(prof):
     ]
 
 
-def _profile():
+def _profile(cpu: bool = True):
     from torch.profiler import ProfilerActivity, profile
 
-    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    return profile(activities=activities)
 
 
 def event_time_ms(fn, calls: int = 200, warmup: int = 5):
@@ -148,6 +172,7 @@ def phase_times(fs) -> dict:
             draw_time_s=ns.draw_samples_time.total_seconds(),
             update_log_q_time_s=ns.update_log_q_time.total_seconds(),
             log_prob_all_time_s=flow.log_prob_all_time.total_seconds(),
+            redraw_time_s=ns.draw_final_samples_time.total_seconds(),
             training_epochs=len(flow.history["loss"]),
         )
     return dict(
@@ -157,12 +182,13 @@ def phase_times(fs) -> dict:
     )
 
 
-def _run_flagship(output, config):
+def _run_flagship(output, config, model=None, run_kwargs=None):
     from ..flowsampler import FlowSampler
     from .testing import IntegrationTestModel
 
-    fs = FlowSampler(IntegrationTestModel(2), output=output, device="cuda", **config)
-    fs.run(plot=False, save=False)
+    model = IntegrationTestModel if model is None else model
+    fs = FlowSampler(model(2), output=output, device="cuda", **config)
+    fs.run(plot=False, save=False, **(run_kwargs or {}))
     torch.cuda.synchronize()
     return fs
 
@@ -176,18 +202,30 @@ OWN_KERNELS = (
 )
 
 
-def profile_flagship(top: int = 12, config=FLAGSHIP) -> dict:
-    """Time and trace a flagship run (``config``) on the GPU."""
+def profile_flagship(
+    top: int = 12, config=FLAGSHIP, model=None, run_kwargs=None, trace_cpu: bool = True, name=None
+) -> dict:
+    """Time and trace a flagship run (``config``, on ``model(2)``, by
+    default ``IntegrationTestModel``, run with ``run_kwargs``) on the
+    GPU. The untraced runs' times are printed (as ``name``) before the
+    traced run; ``trace_cpu=False`` traces the GPU alone."""
+    run = (config, model, run_kwargs)
     with tempfile.TemporaryDirectory(prefix=".profile_", dir=".") as output:
         start = time.perf_counter()
-        _run_flagship(output, config)
+        _run_flagship(output, *run)
         first = time.perf_counter() - start
         start = time.perf_counter()
-        fs = _run_flagship(output, config)
+        fs = _run_flagship(output, *run)
         untraced = time.perf_counter() - start
-        with _profile() as prof:
+        untraced_times = {f"untraced_{k}": v for k, v in phase_times(fs).items()}
+        print(
+            json.dumps(dict(flagship=name, stage="untraced", first_run_wall_s=first, untraced_wall_s=untraced,
+                            **untraced_times, logZ=fs.logZ)),
+            flush=True,
+        )
+        with _profile(cpu=trace_cpu) as prof:
             start = time.perf_counter()
-            fs_traced = _run_flagship(output, config)
+            fs_traced = _run_flagship(output, *run)
             traced = time.perf_counter() - start
     events = gpu_kernel_events(prof)
     # None where the profiler recorded no GPU work (no CUPTI tracing)
@@ -217,7 +255,7 @@ def profile_flagship(top: int = 12, config=FLAGSHIP) -> dict:
         card=card,
         first_run_wall_s=first,
         untraced_wall_s=untraced,
-        **{f"untraced_{k}": v for k, v in phase_times(fs).items()},
+        **untraced_times,
         traced_wall_s=traced,
         traced_training_time_s=traced_times["training_time_s"],
         gpu_records=len(events),
@@ -235,32 +273,41 @@ def profile_flagship(top: int = 12, config=FLAGSHIP) -> dict:
     )
 
 
+def _main(names) -> None:
+    """Profile the named runs (all four by default) and print one JSON
+    object for each."""
+    from ..ops.coupling import affine_coupling
+    from ..ops.rqs import rqs
+    from .testing import GaussianMixture
+
+    k1, k2 = (affine_coupling, "k1"), (rqs, "rqs")
+    runs = {
+        "realnvp": (dict(config=FLAGSHIP), k1),
+        "nsf": (dict(config=FLAGSHIP_NSF), k2),
+        "ins": (dict(config=FLAGSHIP_INS), k1),
+        # about 2.5 million GPU records: with the CPU's operator records
+        # as well, the trace was not read back within 20 minutes on the H100
+        "ins_mixture": (
+            dict(config=FLAGSHIP_INS_MIXTURE, model=GaussianMixture, run_kwargs=FLAGSHIP_INS_MIXTURE_RUN,
+                 trace_cpu=False),
+            k1,
+        ),
+    }
+    for name in names or runs:
+        kwargs, (wrapper, prefix) = runs[name]
+        wrapper.launches = wrapper.backward_launches = 0
+        result = profile_flagship(name=name, **kwargs)
+        # three runs: first, untraced, traced
+        launches = {
+            f"{prefix}_launches_per_run": wrapper.launches / 3,
+            f"{prefix}_backward_launches_per_run": wrapper.backward_launches / 3,
+        }
+        print(json.dumps(dict(flagship=name, **result, **launches)), flush=True)
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         raise SystemExit("profiling the flagship needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from ..ops.coupling import affine_coupling
-    from ..ops.rqs import rqs
-
-    affine_coupling.launches = affine_coupling.backward_launches = 0
-    realnvp = profile_flagship()
-    # three runs: first, untraced, traced
-    launches = dict(
-        k1_launches_per_run=affine_coupling.launches / 3,
-        k1_backward_launches_per_run=affine_coupling.backward_launches / 3,
-    )
-    print(json.dumps(dict(flagship="realnvp", **realnvp, **launches)), flush=True)
-    rqs.launches = rqs.backward_launches = 0
-    nsf = profile_flagship(config=FLAGSHIP_NSF)
-    # three runs: first, untraced, traced
-    launches = dict(rqs_launches_per_run=rqs.launches / 3, rqs_backward_launches_per_run=rqs.backward_launches / 3)
-    print(json.dumps(dict(flagship="nsf", **nsf, **launches)), flush=True)
-    affine_coupling.launches = affine_coupling.backward_launches = 0
-    ins = profile_flagship(config=FLAGSHIP_INS)
-    # three runs: first, untraced, traced
-    launches = dict(
-        k1_launches_per_run=affine_coupling.launches / 3,
-        k1_backward_launches_per_run=affine_coupling.backward_launches / 3,
-    )
-    print(json.dumps(dict(flagship="ins", **ins, **launches)))
+    _main(sys.argv[1:])

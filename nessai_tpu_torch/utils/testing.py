@@ -7,7 +7,7 @@ import torch
 
 from ..model import Model
 
-__all__ = ["IntegrationTestModel", "assert_structured_arrays_equal"]
+__all__ = ["IntegrationTestModel", "GaussianMixture", "assert_structured_arrays_equal"]
 
 
 class IntegrationTestModel(Model):
@@ -56,6 +56,26 @@ class IntegrationTestModel(Model):
     @property
     def analytic_log_evidence(self) -> float:
         return -len(self.names) * np.log(20.0)
+
+
+class GaussianMixture(IntegrationTestModel):
+    """The model of ``examples/importance_nested_sampler/
+    ins_gaussian_mixture.py``: an equal mixture of two unit Gaussians at
+    (4, ..., 4) and (-4, ..., -4), a uniform prior on [-10, 10]^n and
+    the analytic unit-hypercube maps, with a host (numpy) likelihood.
+
+    Analytic log-evidence: ``-n * log(20)`` (the mass outside the box, 6σ
+    from either mean, is negligible).
+    """
+
+    torch_log_likelihood = None
+
+    def log_likelihood(self, x):
+        x = self.unstructured_view(x)
+        a = -0.5 * np.sum((x - 4) ** 2, axis=-1)
+        b = -0.5 * np.sum((x + 4) ** 2, axis=-1)
+        norm_const = x.shape[-1] * 0.5 * np.log(2 * np.pi)
+        return np.logaddexp(a, b) - np.log(2) - norm_const
 
 
 def assert_structured_arrays_equal(x, y, atol=0.0, rtol=0.0) -> None:

@@ -491,3 +491,71 @@ def test_ins_capped_run_never_takes_the_plain_k1(cuda, tmp_path, monkeypatch):
         monkeypatch.setattr(coupling, name, refuse)
     fs = _capped_ins(tmp_path, "cuda")
     assert np.isfinite(fs.logZ)
+
+
+@pytest.mark.cuda
+def test_weighted_training_step_gpu_matches_cpu(cuda, tmp_path):
+    """One weighted training step of the INS flagship's flow on the card
+    (K1 forward and backward) against the same weights and batch on the
+    CPU: the loss, the gradients and the stepped weights."""
+    import numpy as np
+
+    from nessai_tpu_torch.flowmodel import FlowModel
+    from nessai_tpu_torch.ops import coupling
+
+    torch.set_float32_matmul_precision("highest")
+    models = {}
+    for device in (cuda, "cpu"):
+        fm = FlowModel(dict(n_inputs=2), output=str(tmp_path), rng=np.random.default_rng(3), device=device)
+        fm.initialise()
+        models[str(device)] = fm
+    gpu, cpu = models["cuda"], models["cpu"]
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for p in cpu.flow.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    gpu.flow.load_state_dict(cpu.flow.state_dict())
+    gpu.reset_optimiser()
+    cpu.reset_optimiser()
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.normal(0.0, 2.0, (900, 2)), dtype=torch.float32)
+    w = torch.as_tensor(rng.exponential(1.0, 900), dtype=torch.float32)
+    coupling.affine_coupling.launches = coupling.affine_coupling.backward_launches = 0
+    loss_gpu = gpu._train_step(x.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert coupling.affine_coupling.launches == 4 and coupling.affine_coupling.backward_launches == 4
+    loss_cpu = cpu._train_step(x, w)
+    torch.testing.assert_close(loss_gpu.cpu(), loss_cpu, atol=1e-5, rtol=1e-5)
+    for a, b in zip(gpu.flow.parameters(), cpu.flow.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ins_redraw_on_the_card_repeats_bit_for_bit(cuda, tmp_path):
+    """A capped run with the final redraw, twice from one seed on the
+    card: the same redrawn samples and final logZ, bit for bit."""
+    import numpy as np
+
+    from nessai_tpu_torch.flowsampler import FlowSampler
+    from nessai_tpu_torch.utils.testing import GaussianMixture
+
+    runs = []
+    for k in range(2):
+        fs = FlowSampler(
+            GaussianMixture(2),
+            output=str(tmp_path / str(k)),
+            importance_nested_sampler=True,
+            nlive=300,
+            min_samples=100,
+            seed=11,
+            max_iteration=2,
+            training_config=dict(max_epochs=30, patience=10),
+            device=cuda,
+        )
+        fs.run(redraw_samples=True, n_posterior_samples=300)
+        runs.append(fs)
+    a, b = (fs.ns for fs in runs)
+    assert np.isfinite(a.final_log_evidence) and a.final_log_evidence == b.final_log_evidence
+    assert a.final_log_evidence_error == b.final_log_evidence_error
+    for field in a.final_samples_unit.dtype.names:
+        np.testing.assert_array_equal(a.final_samples_unit[field], b.final_samples_unit[field])

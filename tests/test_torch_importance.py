@@ -340,7 +340,19 @@ def _assert_same_store(a, b):
 def test_level_trajectory_equals_jax(tmp_path, method, strict_threshold):
     """Five levels of new samples and log_q columns from one numpy seed,
     fed through both samplers' bookkeeping."""
-    jns, tns = _samplers(tmp_path, threshold_method=method, strict_threshold=strict_threshold)
+    _level_trajectory(tmp_path, method=method, strict_threshold=strict_threshold)
+
+
+def test_level_trajectory_with_replace_all_equals_jax(tmp_path):
+    """The same five levels with ``replace_all``: every live point moves
+    to the nested set at each level."""
+    _level_trajectory(tmp_path, method="entropy", strict_threshold=False, replace_all=True)
+
+
+def _level_trajectory(tmp_path, method, strict_threshold, replace_all=False):
+    jns, tns = _samplers(
+        tmp_path, threshold_method=method, strict_threshold=strict_threshold, replace_all=replace_all
+    )
     rng = np.random.default_rng(20261017)
     n = 1000
     u = rng.uniform(size=(n, 2))
@@ -362,6 +374,8 @@ def test_level_trajectory_equals_jax(tmp_path, method, strict_threshold):
             removed.append(ns.remove_samples())
             ns.add_new_proposal_weight(level, n)
         assert removed[0] == removed[1]
+        if replace_all:
+            assert tns.live_points_unit is None and tns.training_samples.is_nested.all()
         np.testing.assert_array_equal(jns.proposal.weights_array, tns.proposal.weights_array)
         # the new level's column for the stored samples, and new samples
         # from a shrinking box around the peak with their log_q rows
@@ -519,13 +533,9 @@ def test_ins_capped_iid_live(tmp_path):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(weighted_kl=True),
-        dict(bootstrap=True),
-        dict(train_final_flow=True),
         dict(checkpointing=True),
         dict(plot=True),
         dict(n_pool=2),
-        dict(replace_all=True),
         dict(resume=True),
     ],
     ids=lambda k: next(iter(k)),
@@ -538,7 +548,7 @@ def test_options_not_ported_raise_and_name_the_roadmap(tmp_path, kwargs):
         )
 
 
-@pytest.mark.parametrize("kwargs", [dict(redraw_samples=True), dict(plot=True), dict(save=True)])
+@pytest.mark.parametrize("kwargs", [dict(plot=True), dict(save=True)])
 def test_run_options_not_ported_raise(tmp_path, kwargs):
     fs = FlowSampler(
         IntegrationTestModel(2), output=str(tmp_path), importance_nested_sampler=True,
@@ -608,6 +618,10 @@ def test_draws_from_the_whole_meta_proposal_after_a_run(tmp_path):
         dict(reset_flow=2),
         dict(threshold_method="quantile", threshold_kwargs=dict(q=0.6)),
         dict(stopping_criterion=["ratio", "ess"], tolerance=[0.0, 1e4], check_criteria="all"),
+        dict(weighted_kl=True),
+        dict(bootstrap=True),
+        dict(replace_all=True),
+        dict(train_final_flow=True),
     ],
     ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items())[:40],
 )
@@ -628,10 +642,19 @@ def test_ins_options_run(tmp_path, kwargs):
     )
     logZ, samples = fs.run()
     ns = fs.ns
-    assert ns.iteration == 2 and ns.proposal.flow.n_models == 2
-    assert np.isfinite(logZ) and np.isclose(ns.proposal.weights_array.sum(), 1.0)
+    # the final flow is one more level, which no sample count weighs
+    final_flow = kwargs.get("train_final_flow", False)
+    weights = ns.proposal.weights_array
+    assert ns.iteration == 2 and ns.proposal.flow.n_models == 2 + final_flow
+    assert np.isfinite(logZ) and np.isclose(weights[: 3].sum(), 1.0)
+    assert np.isnan(weights[3:]).all() and len(weights) == 3 + final_flow
     assert set(ns.criterion) == set(ns.stopping_criteria)
     added = ns.history["n_removed"] if kwargs.get("draw_constant") is False else [200, 200]
     assert len(samples) == 200 + sum(added)
-    x = np.stack([samples[n] for n in ns.model.names], axis=1)
-    assert ((x >= 0) & (x <= 1)).all()
+    # every sample, in the model space; the store in the unit hypercube
+    for n in ns.model.names:
+        lo, hi = ns.model.bounds[n]
+        assert ((samples[n] >= lo) & (samples[n] <= hi)).all()
+        assert ((ns.samples_unit[n] >= 0) & (ns.samples_unit[n] <= 1)).all()
+    if kwargs.get("bootstrap"):
+        assert np.isfinite(ns.bootstrap_log_evidence) and np.isfinite(ns.bootstrap_log_evidence_error)

@@ -71,6 +71,7 @@ def test_import_every_module_without_jax():
         "utils.stats",
         "utils.information",
         "utils.structures",
+        "utils.optimise",
     ],
 )
 def test_import_walk_reaches_the_importance_sampler(module):
