@@ -25,7 +25,11 @@ sampler's flagship (``FlowSampler(..., importance_nested_sampler=True,
 device="cuda")``), its Gaussian-mixture configuration with the final
 redraw (``flagship_ins_mixture``) and capped runs of its flagship with
 the weighted flow training and the bootstrap, and with replace_all and
-the final flow (``ins_options``); a ``kernels`` summary. The
+the final flow (``ins_options``); every registered reparameterisation's
+device inverse against the host's (``reparam_inverse_gpu_vs_cpu``, before the runs) and
+the half-Gaussian and angle examples through the reparameterisations
+(``flagship_reparam_inversion``, ``flagship_reparam_angle``); a
+``kernels`` summary. The
 last line is ``{"ok": true, "device": {...}}``. Any failing phase ends
 the script with a non-zero exit code and without that line. Without a
 GPU the script exits with code 2 at once.
@@ -72,8 +76,10 @@ K1_SHAPES = [
 #: validation pass, a mask in no order with three transformed columns,
 #: alternating masks at widths that take 16-byte loads, and the
 #: importance nested sampler's pass over every stored sample (16,384
-#: rows) and its final redraw's ``log_prob_all`` batches (20,000 rows);
-#: new rows go last, so that the rows before them keep their inputs
+#: rows) and its final redraw's ``log_prob_all`` batches (20,000 rows),
+#: then the reparameterisation runs' training batches of 1000 rows at
+#: D = 2 and D = 3 (the angle run's alternating masks); new rows go
+#: last, so that the rows before them keep their inputs
 K1_LAYER_SHAPES = [
     (900, 2, (1, 0)),
     (900, 2, (0, 1)),
@@ -83,6 +89,9 @@ K1_LAYER_SHAPES = [
     (65536, 32, (1, 0) * 16),
     (16384, 2, (1, 0)),
     (20000, 2, (1, 0)),
+    (1000, 2, (1, 0)),
+    (1000, 3, (0, 1, 0)),
+    (1000, 3, (1, 0, 1)),
 ]
 #: shape of the kernels-line numbers of both K1 kernels: a flagship
 #: training step's coupling
@@ -132,6 +141,16 @@ K2_EVENT_TIMING = dict(inner=10, repeats=10)
 #: weight perturbation of the NSF in the flow check: the splines move
 #: away from the identity (log-derivatives of order 1)
 NSF_FLOW_PERTURBATION = 0.1
+#: The reparameterisations' device inverse (every registered name) on
+#: the card against the host's float64 inverse of the same float32 x',
+#: at the rows of a populate round of the runs below: each x column to
+#: ``REPARAM_X_TOL`` and each log-Jacobian to ``REPARAM_LJ_TOL`` of
+#: (1 + |reference|). The float32 inverse strays by up to 4e-7 in x on
+#: the CPU; its log-Jacobian by up to 4.4e-4 where a sigmoid's 1 - y is
+#: rounded near y = 1 (``dequantise-logit``), as the JAX package's float32
+#: inverse does.
+REPARAM_ROWS = 65536
+REPARAM_X_TOL, REPARAM_LJ_TOL = 1e-5, 1e-3
 #: what ``ms`` and ``plain_ms`` are where the profiler sees no GPU work
 EVENT_FALLBACK = (
     "where the profiler records no GPU work, CUDA-event time per call over "
@@ -806,6 +825,52 @@ def phase_ins_flow():
             raise RuntimeError(f"{name} launched K1 {rows[name]['k1_launches_per_call']} times, not {n}")
 
 
+def phase_reparam_inverse():
+    """Every registered reparameterisation's ``torch_inverse`` on the GPU
+    against its host ``inverse_reparameterise`` in float64, on
+    ``REPARAM_ROWS`` rows of its test case after an ``update`` (live
+    bounds) and a forward pass (detected edges, sampled radii)."""
+    from nessai_tpu_torch.reparameterisations import default_reparameterisations, get_reparameterisation
+    from nessai_tpu_torch.utils.testing import reparameterisation_case
+
+    rows = {}
+    failed = []
+    for name in default_reparameterisations:
+        parameters, bounds, kwargs, data = reparameterisation_case(name, REPARAM_ROWS, seed=21)
+        cls, config = get_reparameterisation(name)
+        config.update(kwargs)
+        r = cls(parameters=parameters, prior_bounds=bounds, rng=np.random.default_rng(22), **config)
+        fields = list(data) + [a for a in r.auxiliary_parameters if a not in data]
+        x = np.full(REPARAM_ROWS, np.nan, dtype=[(f, "f8") for f in fields])
+        for f, v in data.items():
+            x[f] = v
+        r.update(x)
+        x_prime = np.zeros(REPARAM_ROWS, dtype=[(f, "f8") for f in r.prime_parameters])
+        _, x_prime, _ = r.reparameterise(x.copy(), x_prime, np.zeros(REPARAM_ROWS))
+        for f in r.prime_parameters:
+            x_prime[f] = x_prime[f].astype(np.float32)
+        ref = np.full(len(x_prime), np.nan, dtype=x.dtype)
+        ref, _, ref_lj = r.inverse_reparameterise(ref, x_prime.copy(), np.zeros(len(x_prime)))
+        cols = {f: torch.as_tensor(x_prime[f], dtype=torch.float32, device="cuda") for f in r.prime_parameters}
+        updates, log_j = r.torch_inverse(cols)
+        torch.cuda.synchronize()
+        errs = {}
+        for f, v in updates.items():
+            if v.device.type != "cuda":
+                raise RuntimeError(f"{name}: column {f} left the GPU")
+            diff = np.abs(v.double().cpu().numpy() - ref[f])
+            errs[f] = float((diff / (1.0 + np.abs(ref[f]))).max())
+        lj = log_j.double().cpu().numpy() if isinstance(log_j, torch.Tensor) else np.asarray(log_j, float)
+        lj_err = float((np.abs(np.broadcast_to(lj, len(ref_lj)) - ref_lj) / (1.0 + np.abs(ref_lj))).max())
+        rows[str(name)] = dict(x_err=errs, log_j_err=lj_err, columns=sorted(updates))
+        if max(errs.values()) > REPARAM_X_TOL or lj_err > REPARAM_LJ_TOL:
+            failed.append(str(name))
+    emit("reparam_inverse_gpu_vs_cpu", n=REPARAM_ROWS, x_tol=REPARAM_X_TOL, log_j_tol=REPARAM_LJ_TOL,
+         error="max |gpu - host float64| / (1 + |host|)", names=len(rows), rows=rows)
+    if failed:
+        raise RuntimeError(f"device inverse of {failed} disagrees with the host's")
+
+
 def _drive(config, counters, model=None, run_kwargs=None, before_run=None):
     """One run of ``config`` on ``model`` (``IntegrationTestModel(2)`` by
     default) through ``FlowSampler(..., device="cuda")`` and
@@ -1083,6 +1148,100 @@ def phase_flagship_ins_mixture():
     return result
 
 
+def phase_flagship_reparam(name, config, model):
+    """A run of the standard sampler through the reparameterisations
+    (``config`` on ``model``, both from the JAX package's examples) in
+    full on the GPU. Fails unless |pull| < 3, K1 forward and backward
+    launched, and the nested and posterior samples lie in the model's
+    bounds. Records the edges each training detected."""
+    edges = []
+
+    def record_edges(fs):
+        proposal = fs.ns.flow_proposal
+        train = proposal.train
+
+        def recording(x):
+            train(x)
+            edges.append({k: dict(r._edges) for k, r in proposal._reparameterisation.items()
+                          if getattr(r, "_edges", None)})
+
+        proposal.train = recording
+
+    fs, model, nested, wall, launches = _drive(config, _k1_counters(), model=model, before_run=record_edges)
+    ns = fs.ns
+    proposal = ns.flow_proposal
+    analytic = float(model.analytic_log_evidence)
+    err = float(fs.logZ_error)
+    pull = (fs.logZ - analytic) / err
+    training = ns.training_time.total_seconds()
+    result = dict(
+        logZ=fs.logZ,
+        logZ_err=err,
+        analytic=analytic,
+        pull=pull,
+        iterations=int(ns.iteration),
+        trainings=int(ns.train_count),
+        wall_s=wall,
+        sampling_time_s=ns.sampling_time.total_seconds(),
+        training_time_s=training,
+        training_share_of_wall=training / wall,
+        training_epochs=len(proposal.flow.history["loss"]),
+        population_time_s=proposal.population_time.total_seconds(),
+        populates=int(proposal.populated_count),
+        likelihood_evaluations=int(model.likelihood_evaluations),
+        likelihood_time_s=model.likelihood_evaluation_time.total_seconds(),
+        parameters=list(proposal.parameters),
+        prime_parameters=list(proposal.prime_parameters),
+        reparameterisations={k: type(r).__name__ for k, r in proposal._reparameterisation.items()},
+        edges_by_training=edges,
+        **launches,
+        max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
+        posterior_samples=int(fs.posterior_samples.size),
+    )
+    emit(name, **result)
+    if launches["k1_launches"] == 0 or launches["k1_backward_launches"] == 0:
+        raise RuntimeError(f"{name} launched K1 {launches}")
+    if not math.isfinite(pull) or abs(pull) >= PULL_LIMIT:
+        raise RuntimeError(f"{name} logZ pull {pull} is not within {PULL_LIMIT} sigma")
+    if len(nested) != ns.iteration + ns.nlive:
+        raise RuntimeError(f"{name}: nested samples do not match iterations + nlive")
+    if not _in_bounds(nested, model) or not _in_bounds(fs.posterior_samples, model):
+        raise RuntimeError(f"{name}: samples are empty, not finite or outside the prior bounds")
+    return result, edges, fs
+
+
+def phase_flagship_reparam_inversion():
+    """``FLAGSHIP_REPARAM_INVERSION`` (``examples/half_gaussian.py``):
+    also fails unless a training detected an edge for x."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_REPARAM_INVERSION
+    from nessai_tpu_torch.utils.testing import HalfGaussianModel
+
+    result, edges, _ = phase_flagship_reparam(
+        "flagship_reparam_inversion", FLAGSHIP_REPARAM_INVERSION, HalfGaussianModel()
+    )
+    if not any(e.get("rescaletobounds_x", {}).get("x") for e in edges):
+        raise RuntimeError(f"the inversion run detected no edge for x: {edges}")
+    return result
+
+
+def phase_flagship_reparam_angle():
+    """``FLAGSHIP_REPARAM_ANGLE`` (``examples/reparameterisations_example.py``):
+    also fails unless theta lies in [0, 2 pi] and the auxiliary radius
+    is a column of the x space, not of the returned samples."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_REPARAM_ANGLE
+    from nessai_tpu_torch.utils.testing import AngleModel
+
+    result, _, fs = phase_flagship_reparam("flagship_reparam_angle", FLAGSHIP_REPARAM_ANGLE, AngleModel())
+    theta = np.concatenate([fs.nested_samples["theta"], fs.posterior_samples["theta"]])
+    if not (np.all(theta >= 0.0) and np.all(theta <= 2 * np.pi)):
+        raise RuntimeError("the angle run's theta leaves [0, 2 pi]")
+    if result["prime_parameters"] != ["theta_x", "theta_y", "amp_prime"] or "theta_radial" not in result["parameters"]:
+        raise RuntimeError(f"unexpected spaces: {result['parameters']}, {result['prime_parameters']}")
+    if "theta_radial" in fs.nested_samples.dtype.names:
+        raise RuntimeError("the auxiliary radius reached the returned samples")
+    return result
+
+
 #: the capped option runs of ``ins_options``: name and sampler options
 INS_OPTION_RUNS = (
     ("ins_weighted_kl_bootstrap", dict(weighted_kl=True, bootstrap=True)),
@@ -1193,11 +1352,14 @@ def main():
         timed(seconds, "flow_nsf", phase_flow, FLAGSHIP_NSF, "nsf",
               scale=NSF_FLOW_PERTURBATION, reference_dtype=torch.float64)
         timed(seconds, "ins_flow", phase_ins_flow)
+        timed(seconds, "reparam_inverse", phase_reparam_inverse)
         flagship = timed(seconds, "flagship", phase_flagship)
         flagship_nsf = timed(seconds, "flagship_nsf", phase_flagship_nsf)
         flagship_ins = timed(seconds, "flagship_ins", phase_flagship_ins)
         mixture = timed(seconds, "flagship_ins_mixture", phase_flagship_ins_mixture)
         options = timed(seconds, "ins_options", phase_ins_options)
+        inversion = timed(seconds, "flagship_reparam_inversion", phase_flagship_reparam_inversion)
+        angle = timed(seconds, "flagship_reparam_angle", phase_flagship_reparam_angle)
         emit("seconds", **seconds, total=sum(seconds.values()))
     except Exception:
         traceback.print_exc()
@@ -1209,6 +1371,8 @@ def main():
         "flagship_ins": flagship_ins,
         "flagship_ins_mixture": mixture,
         **options,
+        "flagship_reparam_inversion": inversion,
+        "flagship_reparam_angle": angle,
     }
     for name, replaces, key in (
         ("affine_coupling", "nessai_tpu/ops/coupling_pallas.py:56", "k1_launches"),

@@ -74,6 +74,9 @@ class Model(ABC):
     likelihood_evaluation_time = datetime.timedelta()
     allow_vectorised: bool = True
     allow_multi_valued_likelihood: bool = False
+    #: names of the discrete parameters (None if there are none): the
+    #: model check then draws its probe with ``new_point``
+    discrete_parameters: Optional[List[str]] = None
     rng: Optional[np.random.Generator] = None
     #: Device of ``torch_log_likelihood`` (``None`` means CUDA); the
     #: sampler sets it to its own device.
@@ -162,6 +165,10 @@ class Model(ABC):
     def log_likelihood(self, x) -> np.ndarray:
         """Log-likelihood of structured live points."""
         raise NotImplementedError
+
+    @property
+    def has_discrete_parameters(self) -> bool:
+        return self.discrete_parameters is not None
 
     @property
     def has_torch_likelihood(self) -> bool:
@@ -328,24 +335,34 @@ class Model(ABC):
             and np.isfinite(self.upper_bounds).all()
         ):
             raise ModelError("The port supports finite prior bounds only")
-        log_p = -np.inf
-        counter = 0
-        while log_p == -np.inf or log_p == np.inf:
-            arr = rng.uniform(self.lower_bounds, self.upper_bounds, (1, self.dims))
-            probe = numpy_array_to_live_points(arr, self.names)
+        if self.has_discrete_parameters:
+            # a box draw cannot hit a discrete support: probe with new_point
+            logger.warning("Model has discrete parameters: testing with `new_point`")
             try:
-                log_p = self.log_prior(probe)
+                self.log_prior(self.new_point(1))
             except Exception as e:
-                raise ModelError(f"Log-prior raised an error: {e}")
-            if log_p is None:
-                raise ModelError("Log-prior returned None")
-            log_p = float(np.asarray(log_p).flatten()[0])
-            counter += 1
-            if counter == 1000:
                 raise ModelError(
-                    "Could not draw a valid point from within the prior "
-                    "bounds after 1000 tries, check the log prior function."
+                    f"Could not draw a new point and compute the log prior with error: {e}"
                 )
+        else:
+            log_p = -np.inf
+            counter = 0
+            while log_p == -np.inf or log_p == np.inf:
+                arr = rng.uniform(self.lower_bounds, self.upper_bounds, (1, self.dims))
+                probe = numpy_array_to_live_points(arr, self.names)
+                try:
+                    log_p = self.log_prior(probe)
+                except Exception as e:
+                    raise ModelError(f"Log-prior raised an error: {e}")
+                if log_p is None:
+                    raise ModelError("Log-prior returned None")
+                log_p = float(np.asarray(log_p).flatten()[0])
+                counter += 1
+                if counter == 1000:
+                    raise ModelError(
+                        "Could not draw a valid point from within the prior "
+                        "bounds after 1000 tries, check the log prior function."
+                    )
         x = self.new_point()
         if self.log_prior(x) is None:
             raise ModelError("Log-prior returned None")

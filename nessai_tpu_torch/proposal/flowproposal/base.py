@@ -1,8 +1,10 @@
 """Shared machinery for flow-based proposals. Counterpart of
 ``nessai_tpu/proposal/flowproposal/base.py``: owns the FlowModel and the
-reparameterisation stack, rescales between x and x', trains the flow and
-keeps the pool with an adaptive pool size."""
+reparameterisation stack (built from the user's spec), rescales between
+x and x', trains the flow and keeps the pool with an adaptive pool
+size."""
 
+import inspect
 import logging
 import os
 from typing import Optional
@@ -12,7 +14,13 @@ import numpy as np
 from ... import config as global_config
 from ...flowmodel import FlowModel
 from ...livepoint import empty_structured_array, get_dtype, live_points_to_array
-from ...reparameterisations import CombinedReparameterisation, get_reparameterisation
+from ...reparameterisations import (
+    CombinedReparameterisation,
+    NullReparameterisation,
+    get_reparameterisation,
+    parse_reparameterisations,
+    resolve_reparameterisation_parameters,
+)
 from ...utils.device import get_device
 from ..rejection import RejectionProposal
 
@@ -27,8 +35,9 @@ class BaseFlowProposal(RejectionProposal):
 
     #: cap on the pool-size scale of 1/acceptance
     max_poolsize_scale: float = 10.0
-    #: reparameterisation of the parameters that are not given one
-    fallback_reparameterisation: str = "zscore"
+    #: whether :meth:`add_default_reparameterisations` is applied;
+    #: subclasses may flip this
+    use_default_reparameterisations = False
 
     def __init__(
         self,
@@ -39,6 +48,9 @@ class BaseFlowProposal(RejectionProposal):
         poolsize: Optional[int] = None,
         rng=None,
         reparameterisations=None,
+        fallback_reparameterisation: Optional[str] = "zscore",
+        use_default_reparameterisations: Optional[bool] = None,
+        reverse_reparameterisations: bool = False,
         device=None,
     ):
         super().__init__(model, rng=rng)
@@ -50,6 +62,13 @@ class BaseFlowProposal(RejectionProposal):
         self.flow_config = dict(flow_config or {})
         self.training_config = training_config
         self.reparameterisations = reparameterisations
+        if use_default_reparameterisations is not None:
+            self.use_default_reparameterisations = use_default_reparameterisations
+        #: reparameterisation of the parameters that no spec covers (None:
+        #: the identity)
+        self.fallback_reparameterisation = fallback_reparameterisation
+        self.reverse_reparameterisations = reverse_reparameterisations
+        self.use_x_prime_prior = False
         #: the sampler sets this False when it never checkpoints
         self.save_flow_weights = True
 
@@ -111,59 +130,157 @@ class BaseFlowProposal(RejectionProposal):
         self.flow.initialise()
         self.initialised = True
 
+    def add_default_reparameterisations(self) -> None:
+        """Hook for subclasses to add reparameterisations that are assumed
+        by default; applied after the user's specs when
+        :attr:`use_default_reparameterisations` is True."""
+        logger.debug("No default reparameterisations")
+
+    @property
+    def prior_bounds(self):
+        return {n: np.asarray(self.model.bounds[n], float) for n in self.model.names}
+
+    def get_reparameterisation(self, name):
+        """The reparameterisation class and keyword arguments of ``name``
+        (subclass hook)."""
+        return get_reparameterisation(name)
+
+    def _get_prior_bounds_for_parameters(self, parameters):
+        """Prior bounds restricted to model parameters (None if empty)."""
+        bounds = self.prior_bounds
+        if isinstance(parameters, list):
+            prior_bounds = {p: bounds[p] for p in parameters if p in bounds}
+        elif parameters in bounds:
+            prior_bounds = {parameters: bounds[parameters]}
+        else:
+            prior_bounds = {}
+        return prior_bounds or None
+
+    def get_reparameterisation_from_spec(self, spec):
+        """Resolve a :class:`ReparameterisationSpec` to (class, config)."""
+        try:
+            rc, config = self.get_reparameterisation(spec.reparameterisation)
+        except ValueError:
+            raise RuntimeError(
+                f"{spec.source_key} is not a parameter in the model or a known reparameterisation"
+            )
+        config.update(spec.kwargs)
+
+        if spec.source_is_parameter:
+            config["parameters"] = spec.input_parameters
+        else:
+            parameters = resolve_reparameterisation_parameters(
+                spec.input_parameters,
+                available_parameters=list(
+                    dict.fromkeys(
+                        list(self.model.names)
+                        + list(self._reparameterisation.parameters)
+                        + list(self._reparameterisation.prime_parameters)
+                    )
+                ),
+            )
+            if parameters is not None:
+                config["parameters"] = parameters
+            else:
+                logger.warning("Reparameterisation might be missing input parameters!")
+
+        # accept both spellings from user kwargs
+        if "input_parameters" in config:
+            config["parameters"] = config.pop("input_parameters")
+        if not config.get("parameters"):
+            raise RuntimeError(
+                "No input_parameters key in the config! Check reparameterisations, "
+                "setting logging level to DEBUG can be helpful"
+            )
+        return rc, config
+
+    def instantiate_reparameterisation_from_spec(self, spec):
+        """Instantiate a reparameterisation from a spec."""
+        rc, config = self.get_reparameterisation_from_spec(spec)
+        config.setdefault("prior_bounds", self._get_prior_bounds_for_parameters(config["parameters"]))
+        if "rng" in inspect.signature(rc.__init__).parameters:
+            config.setdefault("rng", self.rng)
+        logger.debug("Instantiating %s with config: %s", rc.__name__, config)
+        return rc(**config)
+
     def configure_reparameterisations(self, reparameterisations) -> None:
-        """Build the stack from ``None`` (the fallback for every
-        parameter), a name (applied to every parameter) or a dict of
-        parameter -> name."""
-        self._reparameterisation = CombinedReparameterisation()
+        """Build the stack from the user's spec, as the JAX package does:
+
+        - None: the fallback reparameterisation on every parameter;
+        - a name: that reparameterisation on every parameter;
+        - a dict of parameter -> name | dict(reparameterisation=...,
+          **kwargs) | list of chained specs, or of reparameterisation
+          name / label -> {parameters: [...], **kwargs}. Parameter keys
+          and values may be regex patterns.
+
+        Then :meth:`add_default_reparameterisations` (with
+        :attr:`use_default_reparameterisations`), then the fallback
+        (``fallback_reparameterisation``, or the identity for None) on
+        the parameters no spec covers.
+        """
+        self._reparameterisation = CombinedReparameterisation(reverse_order=self.reverse_reparameterisations)
         names = list(self.model.names)
-        if isinstance(reparameterisations, str):
-            reparameterisations = {n: reparameterisations for n in names}
-        elif reparameterisations is None:
-            reparameterisations = {}
-        elif not isinstance(reparameterisations, dict):
-            raise TypeError(
-                "The PyTorch port takes reparameterisations as None, a "
-                "name, or a dict of parameter -> name"
-            )
-        groups = {}
-        for n in names:
-            groups.setdefault(
-                reparameterisations.get(n, self.fallback_reparameterisation), []
-            ).append(n)
-        unknown = set(reparameterisations) - set(names)
-        if unknown:
-            raise RuntimeError(f"{sorted(unknown)} are not parameters of the model")
-        for name, parameters in groups.items():
-            cls, kwargs = get_reparameterisation(name)
-            bounds = {p: np.asarray(self.model.bounds[p], float) for p in parameters}
-            self._reparameterisation.add_reparameterisation(
-                cls(parameters=parameters, prior_bounds=bounds, rng=self.rng, **kwargs)
-            )
+        specs = parse_reparameterisations(
+            reparameterisations, model_names=names, class_name=type(self).__name__
+        )
+        assigned = set()
+        for spec in specs:
+            r = self.instantiate_reparameterisation_from_spec(spec)
+            self._reparameterisation.add_reparameterisation(r)
+            assigned.update(r.parameters)
+
+        if self.use_default_reparameterisations:
+            before = set(self._reparameterisation.parameters)
+            self.add_default_reparameterisations()
+            assigned.update(set(self._reparameterisation.parameters) - before)
+
+        remaining = [n for n in names if n not in assigned]
+        if remaining and self.fallback_reparameterisation is not None:
+            cls, kwargs = get_reparameterisation(self.fallback_reparameterisation)
+            kwargs.setdefault("prior_bounds", self._get_prior_bounds_for_parameters(remaining))
+            self._reparameterisation.add_reparameterisation(cls(parameters=remaining, rng=self.rng, **kwargs))
+        elif remaining:
+            self._reparameterisation.add_reparameterisation(NullReparameterisation(parameters=remaining))
+        self.use_x_prime_prior = self._reparameterisation.has_prime_prior
 
     def set_rescaling(self) -> None:
+        """Set the x-space parameters (the model's names, then the
+        stack's auxiliary parameters) and the x'-space parameters."""
         if self._reparameterisation is None:
             self.configure_reparameterisations(self.reparameterisations)
-        self.parameters = list(self.model.names)
+        self.parameters = list(self.model.names) + [
+            a for a in self._reparameterisation.auxiliary_parameters if a not in self.model.names
+        ]
         self.prime_parameters = list(self._reparameterisation.prime_parameters)
         logger.info("x-space parameters: %s", self.parameters)
         logger.info("x'-space parameters: %s", self.prime_parameters)
 
     def verify_rescaling(self) -> None:
-        """Check that the reparameterisations round-trip on prior draws."""
+        """Check that the reparameterisations round-trip on prior draws,
+        without and with ``compute_radius`` (duplicating inversions
+        return the input tiled)."""
+        if not self._reparameterisation.one_to_one:
+            logger.warning("Could not check if reparameterisation is invertible")
+            return
         x = self._convert_to_x(self.model.new_point(N=100))
-        for _ in range(2):
+        for compute_radius in (False, True):
             self._reparameterisation.update(x)
-            x_prime, log_j = self.rescale(x)
+            x_prime, log_j = self.rescale(x, compute_radius=compute_radius)
             x_out, log_j_inv = self.inverse_rescale(x_prime)
+            k = len(x_out) // len(x)
+            if k * len(x) != len(x_out):
+                raise RuntimeError("Rescaling changed the number of samples by a non-integer factor")
+            x_tiled = np.tile(x, k)
             for n in self.model.names:
-                if not np.allclose(x[n], x_out[n], atol=1e-8, equal_nan=True):
+                if not np.allclose(x_tiled[n], x_out[n], atol=1e-8, equal_nan=True):
                     raise RuntimeError(f"Rescaling is not invertible for {n}")
             if not np.allclose(log_j, -log_j_inv, atol=1e-8):
                 raise RuntimeError("Rescaling Jacobian is not invertible")
         self._reparameterisation.reset()
 
     def _convert_to_x(self, points):
+        """Widen model-space points to the proposal's x dtype (adds the
+        auxiliary fields)."""
         if points.dtype == self.x_dtype:
             return points
         out = empty_structured_array(len(points), dtype=self.x_dtype)
@@ -172,18 +289,23 @@ class BaseFlowProposal(RejectionProposal):
                 out[n] = points[n]
         return out
 
-    def rescale(self, x):
+    def rescale(self, x, compute_radius: bool = False):
         """x -> (x', log|dx'/dx|)."""
         x_prime = np.zeros(len(x), dtype=self.x_prime_dtype)
         log_j = np.zeros(len(x))
-        _, x_prime, log_j = self._reparameterisation.reparameterise(x.copy(), x_prime, log_j)
+        _, x_prime, log_j = self._reparameterisation.reparameterise(
+            x.copy(), x_prime, log_j, compute_radius=compute_radius
+        )
         return x_prime, log_j
 
     def inverse_rescale(self, x_prime):
         """x' -> (x, log|dx/dx'|)."""
         x = empty_structured_array(len(x_prime), dtype=self.x_dtype)
         log_j = np.zeros(len(x_prime))
-        x, _, log_j = self._reparameterisation.inverse_reparameterise(x, x_prime, log_j)
+        x, x_prime, log_j = self._reparameterisation.inverse_reparameterise(x, x_prime, log_j)
+        for p in global_config.livepoints.non_sampling_parameters:
+            if p in x_prime.dtype.names and p in x.dtype.names:
+                x[p] = x_prime[p]
         return x, log_j
 
     # ------------------------------------------------------------------
@@ -202,7 +324,11 @@ class BaseFlowProposal(RejectionProposal):
 
     # ------------------------------------------------------------------
     def log_prior(self, x):
+        """x-space log-prior, with the auxiliary parameters' priors."""
         return self.model.batch_evaluate_log_prior(x) + self._reparameterisation.log_prior(x)
+
+    def x_prime_log_prior(self, x_prime):
+        return self._reparameterisation.x_prime_log_prior(x_prime)
 
     def compute_weights(self, x, log_q):
         """logW = logP - logQ."""

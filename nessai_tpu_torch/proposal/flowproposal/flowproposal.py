@@ -6,9 +6,10 @@ Each populate round draws latent points on the host (the truncated
 Gaussian, from ``self.rng``), then one device call,
 :meth:`FlowProposal._fused_backward`, takes them through the flow inverse
 (four affine-coupling kernel launches for the flagship RealNVP), the base
-log-density, the inverse reparameterisation, the prior-bounds check and
-the model's ``torch_log_likelihood``; rejection sampling against the
-prior runs on the host.
+log-density, the inverse reparameterisation (each stack member's
+``torch_inverse``), the prior-bounds check and the model's
+``torch_log_likelihood``; rejection sampling against the prior runs on
+the host.
 """
 
 import datetime
@@ -42,6 +43,8 @@ class FlowProposal(BaseFlowProposal):
     def initialise(self) -> None:
         super().initialise()
         self._truncation = LatentRadiusTruncation(self.prime_dims, rng=self.rng)
+        #: stack members whose host inverse has been logged
+        self._logged_host_inverse = set()
 
     @property
     def _draw_n(self) -> int:
@@ -54,29 +57,58 @@ class FlowProposal(BaseFlowProposal):
 
     @torch.no_grad()
     def _fused_backward(self, z, with_likelihood: bool = True):
-        """One device call: latent ``z`` -> x (proposal-parameter order),
-        log q(x), [logL,] in-bounds mask. Returns float64 numpy arrays
-        (``log_l`` is None without the likelihood)."""
+        """One device call: latent ``z`` -> x (one column per entry of
+        :attr:`parameters`: the model's names, then auxiliary parameters
+        such as a sampled radius), log q(x), [logL,] and the in-bounds
+        mask over the model's names. Returns float64 numpy arrays
+        (``log_l`` is None without the likelihood).
+
+        Where a member of the stack has no device inverse, the flow
+        inverse still runs here and the inverse reparameterisation runs
+        on the host (:meth:`_host_backward`)."""
         device = self.device
         model = self.model
         flow = self.flow.flow
         zt = torch.as_tensor(np.asarray(z, np.float32), device=device)
         x_prime, log_q = flow.inverse_and_log_prob(zt)
         cols = {pp: x_prime[:, i] for i, pp in enumerate(self.prime_parameters)}
-        cols, log_j = self._reparameterisation.torch_inverse(cols)
+        inverted = self._reparameterisation.torch_inverse(cols)
+        if inverted is None:
+            return self._host_backward(x_prime, log_q)
+        cols, log_j = inverted
         log_q = log_q - log_j
         x = torch.stack([cols[p] for p in self.parameters], dim=1)
+        x_model = x[:, : len(model.names)]
         lower = torch.as_tensor(model.lower_bounds, dtype=torch.float32, device=device)
         upper = torch.as_tensor(model.upper_bounds, dtype=torch.float32, device=device)
-        in_b = torch.all((x >= lower) & (x <= upper), dim=1)
+        in_b = torch.all((x_model >= lower) & (x_model <= upper), dim=1)
         columns = [x, log_q[:, None], in_b[:, None].to(x.dtype)]
         if with_likelihood:
-            columns.append(model.torch_log_likelihood(x)[:, None])
+            columns.append(model.torch_log_likelihood(x_model)[:, None])
         # one device -> host copy for everything
         out = torch.cat(columns, dim=1).cpu().numpy().astype(np.float64)
         d = x.shape[1]
         log_l = out[:, d + 2] if with_likelihood else None
         return out[:, :d], out[:, d], log_l, out[:, d + 1] > 0.5
+
+    def _host_backward(self, x_prime, log_q):
+        """The flow's output copied to the host and inverted there by the
+        stack's numpy ``inverse_reparameterise``, as the JAX package's
+        rounds populate does where its stack has no device inverse; the
+        likelihood is then evaluated on the accepted pool."""
+        if self._reparameterisation.no_torch_inverse not in self._logged_host_inverse:
+            self._logged_host_inverse.add(self._reparameterisation.no_torch_inverse)
+            logger.info(
+                "%s has no device inverse: the inverse reparameterisation runs on the host",
+                self._reparameterisation.no_torch_inverse,
+            )
+        out = torch.cat([x_prime, log_q[:, None]], dim=1).cpu().numpy().astype(np.float64)
+        x_prime_host = np.zeros(len(out), dtype=self.x_prime_dtype)
+        for i, pp in enumerate(self.prime_parameters):
+            x_prime_host[pp] = out[:, i]
+        x, log_j = self.inverse_rescale(x_prime_host)
+        x_arr = np.stack([x[p] for p in self.parameters], axis=1)
+        return x_arr, out[:, -1] - log_j, None, self.model.in_bounds(x)
 
     def populate(self, worst_point, n_samples: int = 10000) -> None:
         """Fill the pool with ``n_samples`` accepted draws."""
@@ -88,6 +120,7 @@ class FlowProposal(BaseFlowProposal):
         n_proposed = 0
         n_accepted = 0
         with_ll = self.model.has_torch_likelihood
+        ll_in_pool = with_ll
         while n_accepted < n_samples:
             z = self._truncation.sample_latent(self._draw_n)
             n_proposed += len(z)
@@ -99,14 +132,15 @@ class FlowProposal(BaseFlowProposal):
                 continue
             st_lik = datetime.datetime.now()
             x_arr, log_q, log_l, in_b = self._fused_backward(z, with_likelihood=with_ll)
-            if with_ll:
+            ll_in_pool = log_l is not None
+            if ll_in_pool:
                 self.model.likelihood_evaluation_time += datetime.datetime.now() - st_lik
                 self.model.likelihood_evaluations += len(z)
             keep = in_b & np.isfinite(log_q)
             x = empty_structured_array(int(keep.sum()), dtype=self.x_dtype)
             for i, name in enumerate(self.parameters):
                 x[name] = x_arr[keep, i]
-            if with_ll:
+            if ll_in_pool:
                 x["logL"] = log_l[keep]
             log_q = log_q[keep]
             if not len(x):
@@ -130,7 +164,7 @@ class FlowProposal(BaseFlowProposal):
             raise RuntimeError("Failed to populate the proposal pool (0 accepted samples)")
         self.samples = self.convert_to_samples(self.x)
         self.population_time += datetime.datetime.now() - st
-        if not with_ll:
+        if not ll_in_pool:
             self.samples["logL"] = self.model.batch_evaluate_log_likelihood(self.samples)
         self.indices = self.rng.permutation(self.samples.size).tolist()
         self.population_acceptance = n_accepted / n_proposed if n_proposed else np.nan

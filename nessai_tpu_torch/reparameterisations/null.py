@@ -1,5 +1,7 @@
 """Pass-through reparameterisation. Counterpart of
-``nessai_tpu/reparameterisations/null.py``."""
+``nessai_tpu/reparameterisations/null.py``
+(``IdentityReparameterisation``, with ``NullReparameterisation`` as an
+alias)."""
 
 from .base import Reparameterisation
 
@@ -7,10 +9,11 @@ __all__ = ["IdentityReparameterisation", "NullReparameterisation"]
 
 
 class IdentityReparameterisation(Reparameterisation):
-    """Identity: x' = x, with the prime parameters named like x."""
+    """Identity: x' = x (prime parameters share the original names)."""
 
-    def __init__(self, parameters=None, prior_bounds=None, rng=None):
-        super().__init__(parameters, prior_bounds, rng, prime_parameters=parameters)
+    def __init__(self, parameters=None, prior_bounds=None, rng=None, **kwargs):
+        super().__init__(parameters=parameters, prior_bounds=prior_bounds, rng=rng, **kwargs)
+        self.prime_parameters = list(self.parameters)
 
     def reparameterise(self, x, x_prime, log_j, **kwargs):
         for p, pp in zip(self.parameters, self.prime_parameters):

@@ -26,7 +26,7 @@ from .base import BaseNestedSampler
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["NestedSampler", "check_reference_options"]
+__all__ = ["NestedSampler", "check_reference_options", "PROPOSAL_OPTIONS"]
 
 #: The JAX sampler's keyword options that the port does not take yet:
 #: for each, the one value the port runs with (the reference's default,
@@ -83,12 +83,25 @@ def _is_fixed(value, fixed) -> bool:
     return type(value) in (int, float, str) and value == fixed
 
 
+#: The flow proposal's options that the port takes, passed on to
+#: :class:`~nessai_tpu_torch.proposal.FlowProposal`.
+PROPOSAL_OPTIONS = (
+    "reparameterisations",
+    "fallback_reparameterisation",
+    "use_default_reparameterisations",
+    "reverse_reparameterisations",
+)
+
+
 def check_reference_options(options: dict) -> None:
     """Accept the JAX sampler's options where they hold the value the
     port runs with; raise ``NotImplementedError`` naming the ROADMAP item
-    for any other value and for the flow proposal's options (item 4 for
-    ``reparameterisations``, item 6 for the rest)."""
+    for any other value and for the flow proposal's options that the
+    port does not take (item 6). The options of
+    :data:`PROPOSAL_OPTIONS` are not checked here."""
     for name, value in options.items():
+        if name in PROPOSAL_OPTIONS:
+            continue
         if name in FIXED_OPTIONS:
             fixed, item = FIXED_OPTIONS[name]
             if _is_fixed(value, fixed):
@@ -97,10 +110,9 @@ def check_reference_options(options: dict) -> None:
                 f"{name}={value!r} is not in the PyTorch port's standard sampler yet "
                 f"(ROADMAP §1 item {item}); it runs with {name}={fixed!r}"
             )
-        item = "4" if name == "reparameterisations" else "6"
         raise NotImplementedError(
             f"The flow proposal option {name}={value!r} is not in the PyTorch port "
-            f"yet (ROADMAP §1 item {item})"
+            "yet (ROADMAP §1 item 6)"
         )
 
 
@@ -109,6 +121,9 @@ class NestedSampler(BaseNestedSampler):
 
     ``device`` (default CUDA) is where the flow trains and the pool is
     populated; the sampling loop itself runs on the host in float64.
+    The options of :data:`PROPOSAL_OPTIONS` (``reparameterisations=``
+    and its fallback, default and order options) go to the flow
+    proposal.
     The flow is trained whenever its pool runs empty, and the run stops
     when the estimated remaining evidence ``dlogZ`` falls to
     :attr:`tolerance`.
@@ -182,6 +197,7 @@ class NestedSampler(BaseNestedSampler):
             poolsize=self.nlive if poolsize is None else poolsize,
             rng=self.rng,
             device=self.device,
+            **{k: options[k] for k in PROPOSAL_OPTIONS if k in options},
         )
         self._flow_proposal.save_flow_weights = False
         self.proposal = self._uninformed_proposal

@@ -5,11 +5,13 @@ host clock measure what a caller waits for, which for small kernels is
 the launch overhead; the profiler's kernel records give the time the
 GPU spent. Run as a script on a GPU machine to trace the flagship runs::
 
-    python -m nessai_tpu_torch.utils.profiling [realnvp] [nsf] [ins] [ins_mixture]
+    python -m nessai_tpu_torch.utils.profiling [realnvp] [nsf] [ins] [ins_mixture] \
+        [reparam_inversion] [reparam_angle]
 
-It profiles the named runs, by default all four: the RealNVP flagship,
-the neural-spline flagship, the importance nested sampler's flagship and
-its Gaussian-mixture configuration (with the final redraw). Each runs
+It profiles the named runs, by default all six: the RealNVP flagship,
+the neural-spline flagship, the importance nested sampler's flagship,
+its Gaussian-mixture configuration (with the final redraw), and the
+half-Gaussian and angle examples through the reparameterisations. Each runs
 three times in one process: a first run (which also pays for the CUDA
 context, the kernel build or load and the library handles), a run
 without tracing and a run under the profiler (the mixture's traces the
@@ -26,6 +28,7 @@ in the ``update_log_q`` passes, in ``log_prob_all`` and in the final
 redraw.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -40,6 +43,8 @@ __all__ = [
     "FLAGSHIP_INS",
     "FLAGSHIP_INS_MIXTURE",
     "FLAGSHIP_INS_MIXTURE_RUN",
+    "FLAGSHIP_REPARAM_INVERSION",
+    "FLAGSHIP_REPARAM_ANGLE",
     "OWN_KERNELS",
     "gpu_kernel_events",
     "event_time_ms",
@@ -101,6 +106,32 @@ FLAGSHIP_INS_MIXTURE = dict(
     check_criteria="all",
 )
 FLAGSHIP_INS_MIXTURE_RUN = dict(redraw_samples=True, n_posterior_samples=2000)
+
+#: The standard sampler at its defaults (nlive 2000, a RealNVP of 4 ×
+#: [Permutation, AffineCoupling (resnet), ActNorm], 500 epochs at most,
+#: patience 20, batches of 1000), seed 1234, as the JAX package's
+#: examples run it. The boundary-inversion run of
+#: ``examples/half_gaussian.py`` on ``utils.testing.HalfGaussianModel``:
+#: x, bounded below at 0 where its density piles up, through
+#: ``inversion`` (edge detection, the split inversion), y through
+#: ``default`` (``RescaleToBounds`` with live bounds).
+FLAGSHIP_REPARAM_INVERSION = dict(
+    nlive=2000,
+    seed=1234,
+    resume=False,
+    plot=False,
+    checkpointing=False,
+    reparameterisations={"x": "inversion", "y": "default"},
+)
+
+#: The angle run of ``examples/reparameterisations_example.py`` on
+#: ``utils.testing.AngleModel``: theta through ``angle-2pi`` (Cartesian
+#: coordinates with an auxiliary chi(2) radius, three prime dimensions),
+#: amp through ``default``.
+FLAGSHIP_REPARAM_ANGLE = dict(
+    FLAGSHIP_REPARAM_INVERSION,
+    reparameterisations={"theta": {"reparameterisation": "angle-2pi"}, "amp": "default"},
+)
 
 
 def gpu_kernel_events(prof):
@@ -186,8 +217,8 @@ def _run_flagship(output, config, model=None, run_kwargs=None):
     from ..flowsampler import FlowSampler
     from .testing import IntegrationTestModel
 
-    model = IntegrationTestModel if model is None else model
-    fs = FlowSampler(model(2), output=output, device="cuda", **config)
+    model = IntegrationTestModel(2) if model is None else model()
+    fs = FlowSampler(model, output=output, device="cuda", **config)
     fs.run(plot=False, save=False, **(run_kwargs or {}))
     torch.cuda.synchronize()
     return fs
@@ -205,8 +236,9 @@ OWN_KERNELS = (
 def profile_flagship(
     top: int = 12, config=FLAGSHIP, model=None, run_kwargs=None, trace_cpu: bool = True, name=None
 ) -> dict:
-    """Time and trace a flagship run (``config``, on ``model(2)``, by
-    default ``IntegrationTestModel``, run with ``run_kwargs``) on the
+    """Time and trace a flagship run (``config``, on the model that
+    ``model()`` makes, by default ``IntegrationTestModel(2)``, run with
+    ``run_kwargs``) on the
     GPU. The untraced runs' times are printed (as ``name``) before the
     traced run; ``trace_cpu=False`` traces the GPU alone."""
     run = (config, model, run_kwargs)
@@ -274,11 +306,11 @@ def profile_flagship(
 
 
 def _main(names) -> None:
-    """Profile the named runs (all four by default) and print one JSON
+    """Profile the named runs (all six by default) and print one JSON
     object for each."""
     from ..ops.coupling import affine_coupling
     from ..ops.rqs import rqs
-    from .testing import GaussianMixture
+    from .testing import AngleModel, GaussianMixture, HalfGaussianModel
 
     k1, k2 = (affine_coupling, "k1"), (rqs, "rqs")
     runs = {
@@ -288,10 +320,12 @@ def _main(names) -> None:
         # about 2.5 million GPU records: with the CPU's operator records
         # as well, the trace was not read back within 20 minutes on the H100
         "ins_mixture": (
-            dict(config=FLAGSHIP_INS_MIXTURE, model=GaussianMixture, run_kwargs=FLAGSHIP_INS_MIXTURE_RUN,
-                 trace_cpu=False),
+            dict(config=FLAGSHIP_INS_MIXTURE, model=functools.partial(GaussianMixture, 2),
+                 run_kwargs=FLAGSHIP_INS_MIXTURE_RUN, trace_cpu=False),
             k1,
         ),
+        "reparam_inversion": (dict(config=FLAGSHIP_REPARAM_INVERSION, model=HalfGaussianModel), k1),
+        "reparam_angle": (dict(config=FLAGSHIP_REPARAM_ANGLE, model=AngleModel), k1),
     }
     for name in names or runs:
         kwargs, (wrapper, prefix) = runs[name]

@@ -4,10 +4,19 @@ import math
 
 import numpy as np
 import torch
+from scipy.stats import halfnorm, norm, vonmises
 
 from ..model import Model
 
-__all__ = ["IntegrationTestModel", "GaussianMixture", "assert_structured_arrays_equal"]
+__all__ = [
+    "IntegrationTestModel",
+    "GaussianMixture",
+    "HalfGaussianModel",
+    "AngleModel",
+    "REPARAMETERISATION_CASES",
+    "reparameterisation_case",
+    "assert_structured_arrays_equal",
+]
 
 
 class IntegrationTestModel(Model):
@@ -76,6 +85,163 @@ class GaussianMixture(IntegrationTestModel):
         b = -0.5 * np.sum((x + 4) ** 2, axis=-1)
         norm_const = x.shape[-1] * 0.5 * np.log(2 * np.pi)
         return np.logaddexp(a, b) - np.log(2) - norm_const
+
+
+class _UniformBoxModel(Model):
+    """A uniform prior on the box of :attr:`bounds`."""
+
+    def log_prior(self, x):
+        with np.errstate(divide="ignore"):
+            log_p = np.log(self.in_bounds(x), dtype="float")
+        for n in self.names:
+            log_p -= np.log(self.bounds[n][1] - self.bounds[n][0])
+        return log_p
+
+
+class HalfGaussianModel(_UniformBoxModel):
+    """The model of ``examples/half_gaussian.py``: a half-normal in x on
+    [0, 10] (a density that piles up at the lower bound) and a unit
+    normal in y on [-10, 10], with host (scipy) likelihoods.
+
+    Analytic log-evidence: ``-log 200`` (the likelihood's mass outside
+    the box is negligible).
+    """
+
+    def __init__(self):
+        self.names = ["x", "y"]
+        self.bounds = {"x": [0, 10], "y": [-10, 10]}
+
+    def log_likelihood(self, x):
+        return halfnorm.logpdf(x["x"]) + norm.logpdf(x["y"])
+
+    @property
+    def analytic_log_evidence(self) -> float:
+        return -np.log(200.0)
+
+
+class AngleModel(_UniformBoxModel):
+    """The model of ``examples/reparameterisations_example.py``: a von
+    Mises angle (kappa 2 about pi) on [0, 2 pi] and a normal amplitude
+    N(2, 0.5) on [0, 5], with host (scipy) likelihoods.
+
+    Analytic log-evidence: ``log(Phi(6) - Phi(-4)) - log(10 pi)``, the
+    amplitude's mass inside [0, 5] over the prior volume (the von Mises
+    density integrates to one over the period).
+    """
+
+    def __init__(self):
+        self.names = ["theta", "amp"]
+        self.bounds = {"theta": [0, 2 * np.pi], "amp": [0, 5]}
+
+    def log_likelihood(self, x):
+        return vonmises.logpdf(x["theta"], kappa=2, loc=np.pi) + norm.logpdf(x["amp"], loc=2, scale=0.5)
+
+    @property
+    def analytic_log_evidence(self) -> float:
+        return float(np.log(norm.cdf(6.0) - norm.cdf(-4.0)) - np.log(10 * np.pi))
+
+
+def _uniform(lo, hi):
+    return lambda rng, n: rng.uniform(lo, hi, n)
+
+
+def _half_normal(lo, hi, scale, upper=False):
+    """Draws that pile up at ``lo`` (at ``hi`` with ``upper``)."""
+
+    def draw(rng, n):
+        v = np.minimum(np.abs(rng.normal(0, scale, n)), 0.999 * (hi - lo))
+        return hi - v if upper else lo + v
+
+    return draw
+
+
+def _normal(loc, scale, lo=-np.inf, hi=np.inf):
+    return lambda rng, n: np.clip(rng.normal(loc, scale, n), lo, hi)
+
+
+_BOUNDED = dict(
+    parameters=["a", "b"],
+    prior_bounds={"a": [-3.0, 5.0], "b": [0.0, 10.0]},
+    draws={"a": _normal(1.0, 1.5, -2.99, 4.99), "b": _uniform(0.01, 9.99)},
+)
+_INVERSION = dict(
+    parameters=["a", "b", "c"],
+    prior_bounds={"a": [0.0, 10.0], "b": [0.0, 10.0], "c": [-2.0, 2.0]},
+    # a piles up at its lower bound, b at its upper, c at neither
+    draws={"a": _half_normal(0.0, 10.0, 2.0), "b": _half_normal(0.0, 10.0, 2.0, upper=True),
+           "c": _normal(0.0, 0.3, -1.99, 1.99)},
+)
+_UNIT = dict(
+    parameters=["a", "b"],
+    prior_bounds={"a": [0.0, 1.0], "b": [0.0, 1.0]},
+    draws={"a": _uniform(0.02, 0.98), "b": _normal(0.4, 0.1, 0.01, 0.99)},
+)
+_GAUSSIAN = dict(
+    parameters=["a", "b"],
+    prior_bounds={"a": [-10.0, 10.0], "b": [-10.0, 10.0]},
+    draws={"a": _normal(1.0, 2.0), "b": _normal(-2.0, 0.5)},
+)
+_POSITIVE = dict(
+    parameters=["a", "b"],
+    prior_bounds={"a": [0.1, 20.0], "b": [0.1, 20.0]},
+    draws={"a": lambda rng, n: np.exp(rng.normal(0.5, 0.5, n)), "b": _uniform(0.5, 10.0)},
+)
+_ANGLE_2PI = dict(
+    parameters=["t"], prior_bounds={"t": [0.0, 2 * np.pi]}, draws={"t": _uniform(0.0, 2 * np.pi)}
+)
+#: an angle with its radius given as a second parameter
+_ANGLE_RADIUS = dict(
+    parameters=["t", "r"],
+    prior_bounds={"t": [0.0, 2 * np.pi], "r": [0.0, 5.0]},
+    draws={"t": _uniform(0.0, 2 * np.pi), "r": _uniform(0.1, 5.0)},
+)
+_DISCRETE = dict(
+    parameters=["k"], prior_bounds={"k": [0.0, 4.0]}, draws={"k": lambda rng, n: rng.integers(0, 5, n).astype(float)}
+)
+
+#: For every name of the reparameterisation registry: its parameters,
+#: their prior bounds, the keyword arguments it needs beyond the
+#: registry's, and draws of in-range data for each parameter (``draw(rng,
+#: n)``). Used to hold the port's reparameterisations against the JAX
+#: package's and their device inverses against the host's.
+REPARAMETERISATION_CASES = {
+    **{name: _BOUNDED for name in ("default", "rescaletobounds", "rescale-to-bounds", "offset",
+                                   "angle-sine", "angle-cosine", "logit", "log-rescale")},
+    "inversion": _INVERSION,
+    "inversion-duplicate": _INVERSION,
+    "scale": dict(_GAUSSIAN, kwargs={"scale": 2.5}),
+    "rescale": dict(_GAUSSIAN, kwargs={"scale": [2.5, 0.5]}),
+    "scaleandshift": dict(_GAUSSIAN, kwargs={"scale": 2.0, "shift": {"a": 1.0, "b": -1.0}}),
+    **{name: _GAUSSIAN for name in ("zscore", "standardize", "z-score", "zscore-gaussian-cdf",
+                                    "z-score-gaussian-cdf")},
+    **{name: _UNIT for name in ("z-score-logit", "zscore-logit", "z-score-inv-gaussian-cdf",
+                                "zscore-inv-gaussian-cdf")},
+    **{name: _POSITIVE for name in ("log-z-score", "log-standardise")},
+    "angle": _ANGLE_RADIUS,
+    "angle-2pi": _ANGLE_2PI,
+    "angle-pi": dict(parameters=["t"], prior_bounds={"t": [0.0, np.pi]}, draws={"t": _uniform(0.0, np.pi)}),
+    "periodic": dict(parameters=["t"], prior_bounds={"t": [-2.0, 2.0]}, draws={"t": _uniform(-2.0, 2.0)}),
+    "angle-pair": dict(
+        parameters=["ra", "dec"],
+        prior_bounds={"ra": [0.0, 2 * np.pi], "dec": [-np.pi / 2, np.pi / 2]},
+        draws={"ra": _uniform(0.0, 2 * np.pi), "dec": lambda rng, n: np.arcsin(rng.uniform(-0.99, 0.99, n))},
+    ),
+    "to-cartesian": dict(parameters=["a"], prior_bounds={"a": [-3.0, 5.0]}, draws={"a": _uniform(-2.99, 4.99)}),
+    "dequantise": _DISCRETE,
+    "dequantise-logit": _DISCRETE,
+    **{name: _BOUNDED for name in ("none", "null", None)},
+}
+
+
+def reparameterisation_case(name, n: int, seed: int):
+    """The registered reparameterisation ``name``'s case of
+    :data:`REPARAMETERISATION_CASES`: ``(parameters, prior_bounds, kwargs,
+    data)`` with ``n`` draws of each parameter from ``seed``."""
+    case = REPARAMETERISATION_CASES[name]
+    rng = np.random.default_rng(seed)
+    data = {p: case["draws"][p](rng, n) for p in case["parameters"]}
+    bounds = {p: list(b) for p, b in case["prior_bounds"].items()}
+    return list(case["parameters"]), bounds, dict(case.get("kwargs", {})), data
 
 
 def assert_structured_arrays_equal(x, y, atol=0.0, rtol=0.0) -> None:

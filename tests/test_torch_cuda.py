@@ -559,3 +559,45 @@ def test_ins_redraw_on_the_card_repeats_bit_for_bit(cuda, tmp_path):
     assert a.final_log_evidence_error == b.final_log_evidence_error
     for field in a.final_samples_unit.dtype.names:
         np.testing.assert_array_equal(a.final_samples_unit[field], b.final_samples_unit[field])
+
+
+def _reparameterisation_names():
+    from nessai_tpu_torch.utils.testing import REPARAMETERISATION_CASES
+
+    return list(REPARAMETERISATION_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _reparameterisation_names(), ids=str)
+def test_reparameterisation_device_inverse_gpu_matches_cpu(cuda, name):
+    """Every registered name's ``torch_inverse`` on CUDA columns against
+    the same on CPU columns, after an update and a forward pass: x
+    columns within 1e-5 and log-Jacobians within 1e-3 of 1 + |CPU value|
+    (``chip_smoke.py``'s tolerances against the host's float64)."""
+    import numpy as np
+
+    from nessai_tpu_torch.reparameterisations import get_reparameterisation
+    from nessai_tpu_torch.utils.testing import reparameterisation_case
+
+    parameters, bounds, kwargs, data = reparameterisation_case(name, 4096, seed=12)
+    cls, config = get_reparameterisation(name)
+    config.update(kwargs)
+    r = cls(parameters=parameters, prior_bounds=bounds, rng=np.random.default_rng(13), **config)
+    fields = list(data) + [a for a in r.auxiliary_parameters if a not in data]
+    x = np.full(4096, np.nan, dtype=[(f, "f8") for f in fields])
+    for f, v in data.items():
+        x[f] = v
+    r.update(x)
+    x_prime = np.zeros(4096, dtype=[(f, "f8") for f in r.prime_parameters])
+    _, x_prime, _ = r.reparameterise(x.copy(), x_prime, np.zeros(4096))
+    outs = []
+    for device in (cuda, torch.device("cpu")):
+        cols = {f: torch.as_tensor(x_prime[f], dtype=torch.float32, device=device) for f in r.prime_parameters}
+        updates, log_j = r.torch_inverse(cols)
+        log_j = torch.as_tensor(log_j, dtype=torch.float32).expand(len(x_prime))
+        outs.append(({f: v.cpu().double() for f, v in updates.items()}, log_j.cpu().double()))
+    (gpu, lj_gpu), (cpu, lj_cpu) = outs
+    assert set(gpu) == set(cpu)
+    for f in cpu:
+        assert ((gpu[f] - cpu[f]).abs() / (1 + cpu[f].abs())).max() <= 1e-5, f
+    assert ((lj_gpu - lj_cpu).abs() / (1 + lj_cpu.abs())).max() <= 1e-3

@@ -85,6 +85,31 @@ def test_import_walk_reaches_the_importance_sampler(module):
     assert f"nessai_tpu_torch.{module}" in names
 
 
+@pytest.mark.parametrize(
+    "module",
+    [
+        "reparameterisations.base",
+        "reparameterisations.rescale",
+        "reparameterisations.angle",
+        "reparameterisations.discrete",
+        "reparameterisations.combined",
+        "reparameterisations.utils",
+        "utils.hist",
+        "utils.entry_points",
+        "utils.sorting",
+    ],
+)
+def test_import_walk_reaches_the_reparameterisations(module):
+    """The walk of ``test_import_every_module_without_jax`` imports the
+    reparameterisations and the modules they need."""
+    import pkgutil
+
+    import nessai_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(nessai_tpu_torch.__path__, "nessai_tpu_torch.")}
+    assert f"nessai_tpu_torch.{module}" in names
+
+
 def _model():
     from nessai_tpu_torch.utils.testing import IntegrationTestModel
 

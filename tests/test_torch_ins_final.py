@@ -654,7 +654,6 @@ def test_ins_whole_runs_agree_with_jax(tmp_path):
         (dict(shrinkage_expectation="t"), "6"),
         (dict(simulated_evidence_error=False), "6"),
         (dict(flow_class="GWFlowProposal"), "6"),
-        (dict(reparameterisations={"x_0": "default"}), "4"),
         (dict(drawsize=100), "6"),
         (dict(checkpointing=True), "8"),
         (dict(plot=True), "8"),
@@ -667,6 +666,43 @@ def test_ins_whole_runs_agree_with_jax(tmp_path):
 def test_standard_sampler_reference_options_raise_and_name_the_item(tmp_path, option, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP §1 item {item}\b"):
         FlowSampler(IntegrationTestModel(2), output=str(tmp_path), nlive=50, device="cpu", **option)
+
+
+@pytest.mark.parametrize(
+    "options, stack",
+    [
+        (dict(reparameterisations=None), {"scaleandshift_x_0_x_1": "ScaleAndShift"}),
+        (dict(reparameterisations="default"), {"rescaletobounds_x_0_x_1": "RescaleToBounds"}),
+        (dict(reparameterisations={"x_0": "default"}),
+         {"rescaletobounds_x_0": "RescaleToBounds", "scaleandshift_x_1": "ScaleAndShift"}),
+        (dict(reparameterisations={"x_0": {"reparameterisation": "inversion-duplicate"}}),
+         {"rescaletobounds_x_0": "RescaleToBounds", "scaleandshift_x_1": "ScaleAndShift"}),
+        (dict(reparameterisations={"x_.*": "logit"}), {"rescaletobounds_x_0_x_1": "RescaleToBounds"}),
+        (dict(reparameterisations={"angle": {"parameters": ["x_1"], "scale": None}}),
+         {"angle_x_1": "Angle", "scaleandshift_x_0": "ScaleAndShift"}),
+        (dict(reparameterisations={"x_0": "offset"}, fallback_reparameterisation=None),
+         {"rescaletobounds_x_0": "RescaleToBounds", "identityreparameterisation_x_1": "IdentityReparameterisation"}),
+        (dict(reparameterisations={"x_0": "default", "x_1": "zscore"}, reverse_reparameterisations=True,
+              use_default_reparameterisations=False),
+         {"rescaletobounds_x_0": "RescaleToBounds", "scaleandshift_x_1": "ScaleAndShift"}),
+    ],
+    ids=lambda v: str(v) if isinstance(v, dict) and "reparameterisations" in v else "",
+)
+def test_standard_sampler_takes_reparameterisations(tmp_path, options, stack):
+    """Each spec form reaches the flow proposal through the sampler: its
+    stack is built, verified, fitted, and a pool drawn through it lies
+    in the prior bounds."""
+    fs = FlowSampler(IntegrationTestModel(2), output=str(tmp_path), nlive=100, seed=3, device="cpu",
+                     flow_config=FLOW_CONFIG, **options)
+    ns = fs.ns
+    ns.initialise()
+    proposal = ns.flow_proposal
+    assert {k: type(r).__name__ for k, r in proposal._reparameterisation.items()} == stack
+    assert proposal.reverse_reparameterisations == options.get("reverse_reparameterisations", False)
+    proposal.train(ns.live_points.copy())
+    proposal.populate(None, n_samples=50)
+    assert proposal.samples.size == 50
+    assert _in_bounds(proposal.samples, ns.model) and np.isfinite(proposal.samples["logL"]).all()
 
 
 def test_standard_sampler_takes_the_fixed_values(tmp_path):

@@ -226,7 +226,7 @@ def test_reparameterisation_specs(tmp_path, spec, primes):
     prop.set_rescaling()
     assert sorted(prop.prime_parameters) == primes
     prop.verify_rescaling()
-    with pytest.raises(RuntimeError, match="not parameters"):
+    with pytest.raises(RuntimeError, match="y is not a parameter in the model or a known reparameterisation"):
         FlowProposal(
             model, output=str(tmp_path), reparameterisations={"y": "zscore"}, device="cpu"
         ).set_rescaling()
