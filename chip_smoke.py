@@ -42,6 +42,7 @@ import json
 import logging
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1160,8 +1161,8 @@ def phase_flagship_reparam(name, config, model):
         proposal = fs.ns.flow_proposal
         train = proposal.train
 
-        def recording(x):
-            train(x)
+        def recording(x, **kwargs):
+            train(x, **kwargs)
             edges.append({k: dict(r._edges) for k, r in proposal._reparameterisation.items()
                           if getattr(r, "_edges", None)})
 
@@ -1323,6 +1324,448 @@ def phase_ins_options():
     return results
 
 
+# ----------------------------------------------------------------------
+# Checkpoint, resume, result files and the likelihood pool
+# ----------------------------------------------------------------------
+#: seconds a child of the resume phases may take
+CHILD_TIMEOUT_S = 300
+#: K1 forward through the reloaded INS levels against the log_q recorded
+#: before the checkpoint; logZ as the JAX package's resume test asks;
+#: the flow on the CPU against the card
+RESUME_LOG_Q_TOL, RESUME_LOGZ_TOL, CPU_LOG_PROB_TOL = 1e-5, 1e-8, 1e-5
+
+
+def _gpu_settings():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def _has_plotting():
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def _timed_dumps():
+    """Time every checkpoint the samplers write (seconds per dump)."""
+    from nessai_tpu_torch.samplers import base
+
+    seconds = []
+    dump = base.safe_file_dump
+
+    def timed_dump(*args, **kwargs):
+        start = time.perf_counter()
+        dump(*args, **kwargs)
+        seconds.append(time.perf_counter() - start)
+
+    base.safe_file_dump = timed_dump
+    return seconds
+
+
+def _child_result(**fields):
+    print(json.dumps({"child_result": fields}), flush=True)
+
+
+def child_standard_first(output):
+    """``FLAGSHIP`` with a checkpoint after every training, until the
+    parent's SIGTERM."""
+    from nessai_tpu_torch.flowsampler import FlowSampler
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP
+    from nessai_tpu_torch.utils.testing import IntegrationTestModel
+
+    _gpu_settings()
+    config = dict(FLAGSHIP, resume=True, checkpointing=True, checkpoint_on_training=True)
+    fs = FlowSampler(IntegrationTestModel(2), output=output, device="cuda", **config)
+    fs.run(plot=False, save=False)
+    _child_result(finished=True)
+
+
+def child_standard_resume(output):
+    """Resume ``FLAGSHIP`` from ``output`` and finish it, with the JSON
+    result file."""
+    from nessai_tpu_torch.flowsampler import FlowSampler
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP
+    from nessai_tpu_torch.utils.testing import IntegrationTestModel
+
+    _gpu_settings()
+    counters = _k1_counters()
+    dumps = _timed_dumps()
+    model = IntegrationTestModel(2)
+    config = dict(FLAGSHIP, resume=True, checkpointing=True, checkpoint_on_training=True)
+    fs = FlowSampler(model, output=output, device="cuda", result_extension="json", **config)
+    ns = fs.ns
+    flow = ns.flow_proposal.flow
+    saved = torch.load(flow.weights_file, map_location="cpu", weights_only=True)
+    weights_bitwise = all(
+        torch.equal(v.cpu(), saved[k]) for k, v in flow.flow.state_dict().items()
+    ) and set(saved) == set(flow.flow.state_dict())
+    at_resume = dict(iteration=int(ns.iteration), likelihood_evaluations=int(model.likelihood_evaluations))
+    for wrapper, attr in counters.values():
+        setattr(wrapper, attr, 0)
+    start = time.perf_counter()
+    fs.run(plot=_has_plotting(), save=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = {key: int(getattr(w, a)) for key, (w, a) in counters.items()}
+    with open(os.path.join(output, "result.json")) as f:
+        result_file = json.load(f)
+    analytic = float(model.analytic_log_evidence)
+    _child_result(
+        at_resume=at_resume,
+        weights_bitwise=bool(weights_bitwise),
+        weights_file=os.path.relpath(flow.weights_file, output),
+        logZ=fs.logZ,
+        logZ_err=fs.logZ_error,
+        pull=(fs.logZ - analytic) / fs.logZ_error,
+        iterations=int(ns.iteration),
+        trainings_after_resume=int(ns.train_count),
+        likelihood_evaluations=int(model.likelihood_evaluations),
+        wall_s=wall,
+        checkpoint_s=dumps,
+        checkpoint_bytes=os.path.getsize(ns.resume_file),
+        result_json_log_evidence=result_file["log_evidence"],
+        result_json_posterior_samples=len(result_file["posterior_samples"][model.names[0]]),
+        posterior_samples=int(fs.posterior_samples.size),
+        plots=sorted(f for f in os.listdir(output) if f.endswith(".png")),
+        **launches,
+    )
+
+
+def child_ins_first(output):
+    """``FLAGSHIP_INS`` to the end of its third level, checkpointed
+    there; the level's log_q matrices and logZ go to ``level3.npz``."""
+    from nessai_tpu_torch.flowsampler import FlowSampler
+    from nessai_tpu_torch.samplers.base import safe_file_dump
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_INS
+    from nessai_tpu_torch.utils.testing import IntegrationTestModel
+
+    _gpu_settings()
+    dumps = []
+
+    def at_level_end(sampler):
+        # the forced checkpoint of the finished run is not kept
+        if sampler.finalised:
+            return
+        start = time.perf_counter()
+        safe_file_dump(sampler, sampler.resume_file)
+        dumps.append(time.perf_counter() - start)
+        np.savez(
+            os.path.join(output, "level3.npz"),
+            training_log_q=sampler.training_samples.log_q,
+            iid_log_q=sampler.iid_samples.log_q,
+            logZ=sampler.log_evidence,
+            iteration=sampler.iteration,
+        )
+
+    config = dict(
+        FLAGSHIP_INS,
+        resume=True,
+        checkpointing=True,
+        max_iteration=3,
+        checkpoint_on_iteration=True,
+        checkpoint_interval=3,
+        checkpoint_callback=at_level_end,
+    )
+    fs = FlowSampler(IntegrationTestModel(2), output=output, device="cuda", **config)
+    fs.run(plot=False, save=False)
+    _child_result(checkpoint_s=dumps, checkpoint_bytes=os.path.getsize(fs.ns.resume_file))
+
+
+def child_ins_resume(output):
+    """Resume ``FLAGSHIP_INS`` from its third level, hold the recomputed
+    log_q and logZ against the recorded ones, and finish the run."""
+    from nessai_tpu_torch.flowsampler import FlowSampler
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_INS
+    from nessai_tpu_torch.utils.testing import IntegrationTestModel
+
+    _gpu_settings()
+    counters = _k1_counters()
+    model = IntegrationTestModel(2)
+    fs = FlowSampler(model, output=output, device="cuda", **dict(FLAGSHIP_INS, resume=True, checkpointing=True))
+    ns = fs.ns
+    recorded = np.load(os.path.join(output, "level3.npz"))
+    log_q_err = max(
+        float(np.abs(ns.training_samples.log_q - recorded["training_log_q"]).max()),
+        float(np.abs(ns.iid_samples.log_q - recorded["iid_log_q"]).max()),
+    )
+    logZ_at_resume = ns.log_evidence
+    iteration_at_resume = int(ns.iteration)
+    ns.configure_iterations(max_iteration=None)
+    for wrapper, attr in counters.values():
+        setattr(wrapper, attr, 0)
+    start = time.perf_counter()
+    fs.run(plot=False, save=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    analytic = float(model.analytic_log_evidence)
+    _child_result(
+        iteration_at_resume=iteration_at_resume,
+        recorded_iteration=int(recorded["iteration"]),
+        log_q_max_abs_err=log_q_err,
+        logZ_at_resume=logZ_at_resume,
+        recorded_logZ=float(recorded["logZ"]),
+        logZ=fs.logZ,
+        logZ_err=fs.logZ_error,
+        pull=(fs.logZ - analytic) / fs.logZ_error,
+        iterations=int(ns.iteration),
+        wall_s=wall,
+        **{key: int(getattr(w, a)) for key, (w, a) in counters.items()},
+    )
+
+
+CHILDREN = {
+    "standard_first": child_standard_first,
+    "standard_resume": child_standard_resume,
+    "ins_first": child_ins_first,
+    "ins_resume": child_ins_resume,
+}
+
+
+def _run_child(name, output, until=None):
+    """Run ``chip_smoke.py --child name output`` in a new process, with
+    its output in ``output``. With ``until`` (a function of the output
+    directory) the child gets SIGTERM once ``until`` holds. Returns its
+    exit code, its result and its wall seconds."""
+    log = os.path.join(output, f"{name}.log")
+    start = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--child", name, output],
+            stdout=out,
+            stderr=subprocess.STDOUT,
+        )
+        try:
+            if until is not None:
+                while proc.poll() is None and not until(output):
+                    if time.perf_counter() - start > CHILD_TIMEOUT_S:
+                        raise RuntimeError(f"{name}: no second checkpoint in {CHILD_TIMEOUT_S} s")
+                    time.sleep(0.05)
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=CHILD_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - start
+    with open(log) as f:
+        lines = f.read().splitlines()
+    result = None
+    for line in lines:
+        if line.startswith('{"child_result"'):
+            result = json.loads(line)["child_result"]
+    if rc not in (0, 130) or (rc == 0 and result is None):
+        print("\n".join(lines[-40:]), flush=True)
+    return rc, result, wall
+
+
+def _second_checkpoint(output):
+    resume = os.path.join(output, "nested_sampler_resume.pkl")
+    return os.path.exists(resume + ".old") and os.path.exists(resume) and not os.path.exists(resume + ".temp")
+
+
+def _same_bits(a, b) -> bool:
+    return np.asarray(a).tobytes() == np.asarray(b).tobytes()
+
+
+def phase_resume_standard(output):
+    """``FLAGSHIP`` in a child, checkpointed after every training, ended
+    by SIGTERM after its second checkpoint (exit code 130 and a resume
+    file that loads), then resumed and finished in a second child, with
+    its JSON result file."""
+    import pickle
+    import shutil
+
+    rc, _, first_wall = _run_child("standard_first", output, until=_second_checkpoint)
+    resume_file = os.path.join(output, "nested_sampler_resume.pkl")
+    with open(resume_file, "rb") as f:
+        pickled = pickle.load(f)
+    # kept for resume_on_cpu: this checkpoint and its weights file
+    shutil.copy(resume_file, os.path.join(output, "sigterm.pkl"))
+    shutil.copy(pickled._flow_proposal._weights_file, os.path.join(output, "sigterm_weights.pt"))
+    rc2, child, second_wall = _run_child("standard_resume", output)
+    if child is None:
+        raise RuntimeError(f"the resumed child exited with {rc2} and no result")
+    analytic = -math.log(400.0)
+    result = dict(
+        sigterm_exit_code=rc,
+        pickled_iteration=int(pickled.iteration),
+        pickled_likelihood_evaluations=int(pickled._previous_likelihood_evaluations),
+        pickled_checkpoint_iterations=list(pickled.history["checkpoint_iterations"]),
+        first_child_wall_s=first_wall,
+        resumed_child_exit_code=rc2,
+        resumed_child_wall_s=second_wall,
+        analytic=analytic,
+        **child,
+    )
+    emit("resume_standard", **result)
+    checks = {
+        "exit code 130 after SIGTERM": rc == 130,
+        "resumed child exit code 0": rc2 == 0,
+        "iteration at resume is the pickled one": child["at_resume"]["iteration"] == result["pickled_iteration"],
+        "likelihood evaluations carried over": child["at_resume"]["likelihood_evaluations"]
+        >= result["pickled_likelihood_evaluations"],
+        "flow weights bitwise equal to the weights file": child["weights_bitwise"],
+        "|pull| < 3": math.isfinite(child["pull"]) and abs(child["pull"]) < PULL_LIMIT,
+        "K1 forward and backward launched after resume": child["k1_launches"] > 0
+        and child["k1_backward_launches"] > 0,
+        "result.json log_evidence is logZ": child["result_json_log_evidence"] == child["logZ"],
+        "result.json posterior samples": child["result_json_posterior_samples"] == child["posterior_samples"],
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"resume_standard: failed {[k for k, v in checks.items() if not v]}")
+    return result
+
+
+def phase_resume_ins(output):
+    """``FLAGSHIP_INS`` checkpointed at the end of its third level in a
+    child, then resumed on the card in another: log_q recomputed through
+    the reloaded levels (K1 forward) and logZ against the recorded ones,
+    then the run finished without the level cap."""
+    rc, first, first_wall = _run_child("ins_first", output)
+    if rc != 0 or first is None:
+        raise RuntimeError(f"the INS child exited with {rc}")
+    rc2, child, second_wall = _run_child("ins_resume", output)
+    if rc2 != 0 or child is None:
+        raise RuntimeError(f"the resumed INS child exited with {rc2}")
+    result = dict(
+        first_child_wall_s=first_wall,
+        checkpoint_s=first["checkpoint_s"],
+        checkpoint_bytes=first["checkpoint_bytes"],
+        resumed_child_wall_s=second_wall,
+        log_q_tol=RESUME_LOG_Q_TOL,
+        logZ_tol=RESUME_LOGZ_TOL,
+        **child,
+    )
+    emit("resume_ins", **result)
+    checks = {
+        "resumed at level 3": child["iteration_at_resume"] == child["recorded_iteration"] == 3,
+        "log_q within 1e-5": child["log_q_max_abs_err"] <= RESUME_LOG_Q_TOL,
+        "logZ within 1e-8": abs(child["logZ_at_resume"] - child["recorded_logZ"]) <= RESUME_LOGZ_TOL,
+        "|pull| < 3": math.isfinite(child["pull"]) and abs(child["pull"]) < PULL_LIMIT,
+        "K1 launched after resume": child["k1_launches"] > 0 and child["k1_backward_launches"] > 0,
+        "levels added after resume": child["iterations"] > 3,
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"resume_ins: failed {[k for k, v in checks.items() if not v]}")
+    return result
+
+
+def phase_resume_on_cpu(output):
+    """The ``resume_standard`` SIGTERM checkpoint resumed in this process
+    on the CPU: the sampler's state bit for bit as pickled, and its flow
+    against the same checkpoint resumed on the card."""
+    import pickle
+
+    from nessai_tpu_torch.samplers.nestedsampler import NestedSampler
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP
+    from nessai_tpu_torch.utils.testing import IntegrationTestModel
+
+    path = os.path.join(output, "sigterm.pkl")
+    weights = os.path.join(output, "sigterm_weights.pt")
+    with open(path, "rb") as f:
+        pickled = pickle.load(f)
+    configs = dict(flow_config=FLAGSHIP["flow_config"], training_config=FLAGSHIP["training_config"])
+    on_cpu = NestedSampler.resume(path, IntegrationTestModel(2), device="cpu", weights_path=weights, **configs)
+    on_gpu = NestedSampler.resume(path, IntegrationTestModel(2), device="cuda", weights_path=weights, **configs)
+    # the rebuilt flow draws its seed from the run's generator, as in
+    # the JAX package
+    pickled.rng.integers(0, 2**31 - 1)
+    state_attrs = ("logZ", "oldZ", "logw", "info", "logLs", "log_vols", "nlives")
+    checks = {
+        "iteration": on_cpu.iteration == pickled.iteration,
+        "live points": _same_bits(on_cpu.live_points, pickled.live_points),
+        "nested samples": _same_bits(on_cpu.nested_samples_array, pickled.nested_samples_array),
+        "logZ state": all(_same_bits(getattr(on_cpu.state, a), getattr(pickled.state, a)) for a in state_attrs),
+        "host rng": on_cpu.rng.bit_generator.state == pickled.rng.bit_generator.state,
+        "flow on the cpu": next(on_cpu.flow_proposal.flow.flow.parameters()).device.type == "cpu",
+    }
+    # the checkpoint's 1000 live points in the flow's space
+    from nessai_tpu_torch.livepoint import live_points_to_array
+
+    proposal = on_cpu.flow_proposal
+    x_prime, _ = proposal.rescale(proposal._convert_to_x(on_cpu.live_points))
+    x = live_points_to_array(x_prime, proposal.prime_parameters)
+    log_prob_cpu = proposal.flow.log_prob(x)
+    log_prob_gpu = on_gpu.flow_proposal.flow.log_prob(x)
+    err = float(np.abs(log_prob_cpu - log_prob_gpu).max())
+    checks["log_prob cpu vs gpu"] = err <= CPU_LOG_PROB_TOL
+    emit("resume_on_cpu", iteration=int(on_cpu.iteration), points=len(x), log_prob_max_abs_err=err,
+         log_prob_range=[float(log_prob_cpu.min()), float(log_prob_cpu.max())], tol=CPU_LOG_PROB_TOL, checks=checks)
+    if not all(checks.values()):
+        raise RuntimeError(f"resume_on_cpu: failed {[k for k, v in checks.items() if not v]}")
+    return dict(log_prob_max_abs_err=err)
+
+
+def phase_resume(seconds):
+    """The three resume phases in one fresh directory."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_resume_") as output:
+        standard = os.path.join(output, "standard")
+        ins = os.path.join(output, "ins")
+        os.makedirs(standard)
+        os.makedirs(ins)
+        results = dict(resume_standard=timed(seconds, "resume_standard", phase_resume_standard, standard))
+        results["resume_ins"] = timed(seconds, "resume_ins", phase_resume_ins, ins)
+        timed(seconds, "resume_on_cpu", phase_resume_on_cpu, standard)
+    return results
+
+
+def phase_pool_reparam_angle(angle):
+    """``FLAGSHIP_REPARAM_ANGLE`` with its host likelihood on a pool of
+    two worker processes: the same bits, iterations and likelihood
+    count as ``flagship_reparam_angle``, and the pool closed at the
+    end."""
+    import multiprocessing
+
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_REPARAM_ANGLE
+    from nessai_tpu_torch.utils.testing import AngleModel
+
+    config = dict(FLAGSHIP_REPARAM_ANGLE, n_pool=2)
+    fs, model, nested, wall, launches = _drive(config, _k1_counters(), model=AngleModel())
+    children = multiprocessing.active_children()
+    result = dict(
+        logZ=fs.logZ,
+        logZ_err=fs.logZ_error,
+        iterations=int(fs.ns.iteration),
+        likelihood_evaluations=int(model.likelihood_evaluations),
+        likelihood_time_s=model.likelihood_evaluation_time.total_seconds(),
+        wall_s=wall,
+        pool_closed=model.pool is None,
+        live_children=len(children),
+        **launches,
+    )
+    emit("pool_reparam_angle", **result)
+    checks = {
+        "logZ bits": result["logZ"] == angle["logZ"],
+        "iterations": result["iterations"] == angle["iterations"],
+        "likelihood evaluations": result["likelihood_evaluations"] == angle["likelihood_evaluations"],
+        "pool closed": result["pool_closed"] and not children,
+        "K1 launched": launches["k1_launches"] > 0 and launches["k1_backward_launches"] > 0,
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"pool_reparam_angle: failed {[k for k, v in checks.items() if not v]}")
+    return result
+
+
+def phase_flagship_checkpointing(flagship):
+    """The RealNVP flagship with ``checkpointing=True``: weight files after
+    every training and the final checkpoint draw nothing from any random
+    stream, so the bits are the pinned run's."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP
+
+    result, nested, fs = _flagship_run(dict(FLAGSHIP, checkpointing=True), _k1_counters())
+    result["unpinned_wall_s"] = flagship["wall_s"]
+    emit("flagship_checkpointing", **result)
+    if result["logZ"] != flagship["logZ"] or result["iterations"] != flagship["iterations"]:
+        raise RuntimeError(f"checkpointing moved the flagship: {result['logZ']} != {flagship['logZ']}")
+    if result["k1_launches"] != flagship["k1_launches"]:
+        raise RuntimeError("checkpointing changed the flagship's K1 launches")
+    _check_run(result, nested, fs)
+    return result
+
+
 def timed(seconds, name, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, with its wall time in ``seconds[name]``."""
     start = time.perf_counter()
@@ -1336,6 +1779,9 @@ def main():
         print("chip_smoke.py needs a CUDA GPU; torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--child"]:
+        CHILDREN[sys.argv[2]](sys.argv[3])
+        return 0
     try:
         from nessai_tpu_torch.utils.profiling import FLAGSHIP, FLAGSHIP_NSF
 
@@ -1360,6 +1806,9 @@ def main():
         options = timed(seconds, "ins_options", phase_ins_options)
         inversion = timed(seconds, "flagship_reparam_inversion", phase_flagship_reparam_inversion)
         angle = timed(seconds, "flagship_reparam_angle", phase_flagship_reparam_angle)
+        checkpointing = timed(seconds, "flagship_checkpointing", phase_flagship_checkpointing, flagship)
+        pool = timed(seconds, "pool_reparam_angle", phase_pool_reparam_angle, angle)
+        resumed = phase_resume(seconds)
         emit("seconds", **seconds, total=sum(seconds.values()))
     except Exception:
         traceback.print_exc()
@@ -1373,6 +1822,11 @@ def main():
         **options,
         "flagship_reparam_inversion": inversion,
         "flagship_reparam_angle": angle,
+        "flagship_checkpointing": checkpointing,
+        "pool_reparam_angle": pool,
+        # the resumed processes' runs
+        "resume_standard": resumed["resume_standard"],
+        "resume_ins": resumed["resume_ins"],
     }
     for name, replaces, key in (
         ("affine_coupling", "nessai_tpu/ops/coupling_pallas.py:56", "k1_launches"),

@@ -9,7 +9,7 @@ from typing import List
 
 import numpy as np
 
-__all__ = ["livepoints", "general"]
+__all__ = ["livepoints", "plotting", "general"]
 
 
 @dataclass
@@ -58,9 +58,29 @@ class LivepointsConfig:
 
 
 @dataclass
+class PlottingConfig:
+    """Plot style (``plot.nessai_style``) and clipping."""
+
+    disable_style: bool = False
+    sns_style: str = "ticks"
+    base_colour: str = "#02979d"
+    highlight_colour: str = "#f5b754"
+    line_colours: List[str] = field(
+        default_factory=lambda: ["#4575b4", "#d73027", "#fad117", "#ff8c00"]
+    )
+    line_styles: List[str] = field(
+        default_factory=lambda: ["-", "--", ":", "-."]
+    )
+    max_figsize: float = 50.0
+    #: minimum value data is clipped to for plotting
+    clip_min: float = -1e10
+
+
+@dataclass
 class GeneralConfig:
     eps: float = 1e-8
 
 
 livepoints = LivepointsConfig()
+plotting = PlottingConfig()
 general = GeneralConfig()

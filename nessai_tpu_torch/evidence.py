@@ -174,6 +174,24 @@ class _NSIntegralState:
         log_w = logsubexp(log_vols[:-1], log_vols[1:])
         return log_L[1:-1] + log_w[:-1] - log_Z
 
+    def plot(self, filename=None):
+        """log-likelihood against log prior volume (needs matplotlib);
+        saved to ``filename`` or returned as a figure."""
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure()
+        plt.plot(self.log_vols, self.logLs)
+        plt.title(f"logZ={self.logZ:.2f} H={self.info[-1] * np.log2(np.e):.2f} bits")
+        plt.grid(which="both")
+        plt.xlabel("log prior-volume")
+        plt.ylabel("log-likelihood")
+        plt.xlim([self.log_vols[-1], self.log_vols[0]])
+        if filename is not None:
+            fig.savefig(filename, bbox_inches="tight")
+            plt.close(fig)
+            return None
+        return fig
+
 
 class _INSIntegralState:
     """Evidence state of the importance nested sampler: a Monte-Carlo

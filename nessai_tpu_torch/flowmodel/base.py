@@ -8,6 +8,7 @@ and the best weights are restored at the end. Host arrays come in and
 go out as numpy; the flow and its data live on ``device``.
 """
 
+import copy
 import logging
 import os
 import shutil
@@ -28,7 +29,10 @@ from .config import (
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["FlowModel"]
+__all__ = ["FlowModel", "WEIGHTS_FILE"]
+
+#: name of the weights file that :meth:`FlowModel.train` saves
+WEIGHTS_FILE = "model.pt"
 
 
 @torch.no_grad()
@@ -227,7 +231,7 @@ class FlowModel:
         self.history["val_loss"].extend(history["val_loss"])
         out_dir = self.output if output is None else output
         if save and out_dir is not None:
-            self.save_weights(os.path.join(out_dir, "model.pt"))
+            self.save_weights(os.path.join(out_dir, WEIGHTS_FILE))
         return history
 
     # ------------------------------------------------------------------
@@ -257,16 +261,55 @@ class FlowModel:
     # Persistence
     # ------------------------------------------------------------------
     def save_weights(self, weights_file) -> None:
-        """Save the flow's ``state_dict``, moving an existing file to
+        """Save the flow's ``state_dict`` (as CPU tensors, so the file
+        loads on any device), moving an existing file to
         ``<file>.old``."""
         if os.path.exists(weights_file):
             shutil.move(weights_file, weights_file + ".old")
-        torch.save(self.flow.state_dict(), weights_file)
+        torch.save(_cpu_state_dict(self.flow), weights_file)
         self.weights_file = weights_file
 
     def load_weights(self, weights_file) -> None:
+        """Load a ``state_dict`` saved by :meth:`save_weights` onto the
+        flow on :attr:`device`."""
         if not self.initialised:
             self.initialise()
-        self.flow.load_state_dict(torch.load(weights_file, map_location=self.device))
+        state = torch.load(weights_file, map_location=self.device, weights_only=True)
+        self.flow.load_state_dict(state)
         self.weights_file = weights_file
         self._actnorm_done = True
+
+    def reload_weights(self, weights_file=None) -> None:
+        """Load ``weights_file`` (by default the last file saved or
+        loaded)."""
+        if weights_file is None:
+            weights_file = self.weights_file
+        self.load_weights(weights_file)
+
+    # ------------------------------------------------------------------
+    def __getstate__(self):
+        """The weights as a CPU ``state_dict``; the flow, the optimiser
+        and its moments stay out of the pickle, as in the JAX package,
+        so a resumed training starts AdamW afresh."""
+        state = self.__dict__.copy()
+        state["_state_dict"] = _cpu_state_dict(self.flow) if self.flow is not None else None
+        state["flow"] = None
+        state["optimiser"] = None
+        state["initialised"] = False
+        return state
+
+    def __setstate__(self, state):
+        saved = state.pop("_state_dict", None)
+        self.__dict__.update(state)
+        if saved is not None:
+            # the new flow's seed is not drawn from the run's generator:
+            # its weights are the saved ones
+            rng_state = copy.deepcopy(self.rng.bit_generator.state)
+            self.initialise()
+            self.rng.bit_generator.state = rng_state
+            self.flow.load_state_dict(saved)
+            self._actnorm_done = True
+
+
+def _cpu_state_dict(flow) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in flow.state_dict().items()}

@@ -14,15 +14,16 @@ come back as float64, as in the JAX package.
 import copy
 import datetime
 import logging
-from typing import List
+import os
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..flows import Flow
 from ..flows.utils import reset_weights
-from .base import FlowModel
-from .config import flow_config_to_dict
+from .base import WEIGHTS_FILE, FlowModel, _cpu_state_dict
+from .config import flow_config_to_dict, update_flow_config, update_training_config
 
 logger = logging.getLogger(__name__)
 
@@ -35,7 +36,9 @@ class ImportanceFlowModel(FlowModel):
     ``self.flow`` is the level in training; :meth:`train` freezes a copy
     of it onto :attr:`models`. Fresh weights (:meth:`add_new_flow` with
     ``reset``) and the latent draws of :meth:`sample_and_log_prob_ith`
-    come from ``torch.Generator`` objects seeded from ``rng``.
+    come from ``torch.Generator`` objects seeded from ``rng``. Each
+    trained level is saved to ``output/level_<i>/model.pt``; a pickle
+    holds no level, and :meth:`resume` reloads them from those files.
     """
 
     def __init__(self, flow_config=None, training_config=None, output=None, rng=None, device=None):
@@ -51,6 +54,8 @@ class ImportanceFlowModel(FlowModel):
         self.log_prob_all_time = datetime.timedelta()
         self._weights_generator = None
         self._sample_generator = None
+        #: the weights file of every level (None where none was saved)
+        self.weights_files: List[Optional[str]] = []
 
     @property
     def n_models(self) -> int:
@@ -89,11 +94,84 @@ class ImportanceFlowModel(FlowModel):
 
     def train(self, samples, weights=None, **kwargs):
         """Train the current level on ``samples`` (with the weighted loss
-        where ``weights`` are given) and freeze it onto the list. The
-        per-level weight files wait with checkpointing."""
-        history = super().train(samples, weights=weights, save=False, **kwargs)
+        where ``weights`` are given), freeze it onto the list and save
+        its weights to ``output/level_<i>/model.pt``."""
+        kwargs.pop("output", None)
+        history = super().train(samples, weights=weights, **kwargs)
         self.add_level(self.flow)
+        if self.output is not None:
+            path = self._level_file(self.output, self.n_models - 1)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            torch.save(_cpu_state_dict(self.models[-1]), path)
+            self.weights_files.append(path)
+        else:
+            self.weights_files.append(None)
         return history
+
+    # ------------------------------------------------------------------
+    # Persistence
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _level_file(output: str, i: int) -> str:
+        return os.path.join(output, f"level_{i}", WEIGHTS_FILE)
+
+    def save_all_weights(self) -> None:
+        """Save every level's weights to ``output/level_<i>/model.pt``."""
+        for i, level in enumerate(self.models):
+            path = self._level_file(self.output, i)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            torch.save(_cpu_state_dict(level), path)
+
+    def load_all_weights(self, output: Optional[str] = None) -> None:
+        """Rebuild the levels on :attr:`device` from
+        ``output/level_<i>/model.pt``, for i = 0, 1, ... while the files
+        exist."""
+        if output is None:
+            output = self.output
+        if not self.initialised:
+            self.initialise()
+        self.models = []
+        while os.path.exists(path := self._level_file(output, self.n_models)):
+            self.flow.load_state_dict(torch.load(path, map_location=self.device, weights_only=True))
+            self.add_level(self.flow)
+        logger.info("Reloaded %d flow levels", self.n_models)
+
+    def update_weights_path(self, weights_path: str, n=None) -> None:
+        """Save the levels under ``weights_path`` from now on (``n`` is
+        accepted and unused, as in the JAX package)."""
+        self.output = weights_path
+
+    def resume(self, flow_config=None, training_config=None, weights_path=None) -> None:
+        """Rebuild the levels from their weight files in
+        ``weights_path`` (by default :attr:`output`)."""
+        if flow_config is not None:
+            self.flow_config = update_flow_config(flow_config)
+        if training_config is not None:
+            self.training_config = update_training_config(training_config)
+        self.initialise()
+        self.load_all_weights(weights_path or self.output)
+
+    def __getstate__(self):
+        """Levels are kept as weight files, not in the pickle; the
+        generators' states go in as CPU byte tensors with their devices."""
+        state = super().__getstate__()
+        state["models"] = []
+        for name in ("_weights_generator", "_sample_generator"):
+            gen = state.pop(name)
+            state[name + "_state"] = None if gen is None else (gen.get_state(), str(gen.device))
+        return state
+
+    def __setstate__(self, state):
+        generators = {
+            name: state.pop(name + "_state", None) for name in ("_weights_generator", "_sample_generator")
+        }
+        super().__setstate__(state)
+        for name, saved in generators.items():
+            if saved is not None:
+                gen_state, device = saved
+                gen = torch.Generator(device=device)
+                gen.set_state(gen_state)
+                setattr(self, name, gen)
 
     # ------------------------------------------------------------------
     @torch.no_grad()

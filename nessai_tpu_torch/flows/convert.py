@@ -9,7 +9,15 @@ so weights are transposed. Permutations become buffers. A coupling
 (affine or spline) is ``{"net": ...}``; a chain without ActNorm simply
 has no such entries. :func:`levels_from_jax` carries the per-level
 parameters of the JAX package's ``ImportanceFlowModel`` into the port's.
+:func:`state_dict_from_jax_file` and :func:`level_state_dicts_from_jax`
+read the JAX package's weight files (a pickled pytree of numpy arrays:
+``FlowModel.save_weights``' ``model.pkl``, and the importance nested
+sampler's ``level_<i>/model.pkl``) into the port's ``state_dict``s.
 """
+
+import copy
+import os
+import pickle
 
 import numpy as np
 import torch
@@ -17,7 +25,13 @@ import torch
 from .bijectors import ActNorm, AffineCoupling, Permutation, RQSCoupling
 from .nets import MLP, ResNet
 
-__all__ = ["params_from_jax", "params_to_jax", "levels_from_jax"]
+__all__ = [
+    "params_from_jax",
+    "params_to_jax",
+    "levels_from_jax",
+    "state_dict_from_jax_file",
+    "level_state_dicts_from_jax",
+]
 
 
 def _dense_from(layer, p):
@@ -115,3 +129,24 @@ def levels_from_jax(flow_model, params_list) -> None:
     for params in params_list:
         params_from_jax(flow_model.flow, params)
         flow_model.add_level(flow_model.flow)
+
+
+def state_dict_from_jax_file(flow, weights_file) -> dict:
+    """The port's ``state_dict`` (CPU tensors) for the JAX package's
+    weights file ``weights_file``, on the architecture of ``flow`` (which
+    is left as it is)."""
+    with open(weights_file, "rb") as f:
+        params = pickle.load(f)
+    target = copy.deepcopy(flow).cpu()
+    params_from_jax(target, params)
+    return {k: v.detach().clone() for k, v in target.state_dict().items()}
+
+
+def level_state_dicts_from_jax(flow, output) -> list:
+    """The port's ``state_dict`` of every level that the JAX package's
+    importance nested sampler saved under ``output``
+    (``level_<i>/model.pkl`` for i = 0, 1, ... while the files exist)."""
+    out = []
+    while os.path.exists(path := os.path.join(output, f"level_{len(out)}", "model.pkl")):
+        out.append(state_dict_from_jax_file(flow, path))
+    return out

@@ -17,6 +17,7 @@ __all__ = [
     "empty_structured_array",
     "numpy_array_to_live_points",
     "live_points_to_array",
+    "live_points_to_dict",
     "unstructured_view",
 ]
 
@@ -113,6 +114,14 @@ def live_points_to_array(live_points, names=None):
     return np.stack(
         [np.asarray(live_points[n], dtype=float) for n in names], axis=-1
     )
+
+
+def live_points_to_dict(live_points, names=None) -> dict:
+    """Live points as a dict of one array per field (``names``, by
+    default every field)."""
+    if names is None:
+        names = live_points.dtype.names
+    return {n: np.asarray(live_points[n]) for n in names}
 
 
 def unstructured_view(x, names=None):

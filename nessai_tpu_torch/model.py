@@ -26,6 +26,14 @@ from .livepoint import (
 )
 from .utils.device import get_device
 from .utils.errors import RNGNotSetError, RNGSetError
+from .utils.multiprocessing import (
+    batch_evaluate_function,
+    check_vectorised_function,
+    get_n_pool,
+    initialise_pool_variables,
+    log_likelihood_wrapper,
+    log_prior_wrapper,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -38,24 +46,6 @@ class ModelError(RuntimeError):
 
 class OneDimensionalModelError(ModelError):
     """Raised for 1-D models, which nessai does not support."""
-
-
-def _check_vectorised_function(func, x) -> bool:
-    """Whether ``func`` applied to a batch matches per-row application."""
-    try:
-        batch = np.asarray(func(x), dtype="float64").flatten()
-    except (TypeError, ValueError, IndexError, AttributeError):
-        return False
-    if batch.shape != (len(x),):
-        return False
-    single = np.array([func(xx) for xx in x], dtype="float64").flatten()
-    return np.allclose(batch, single, atol=1e-15, rtol=1e-15, equal_nan=True)
-
-
-def _batch_evaluate(func, x, vectorised: bool) -> np.ndarray:
-    if vectorised:
-        return func(x)
-    return np.array([func(xx) for xx in x])
 
 
 class Model(ABC):
@@ -83,6 +73,16 @@ class Model(ABC):
     device = None
     #: Optional device hook: ``[n, dims]`` float32 tensor -> ``[n]``.
     torch_log_likelihood = None
+    #: Host likelihoods in chunks of at most this many points (None: one
+    #: batch)
+    likelihood_chunksize: Optional[int] = None
+    #: Evaluate the prior through the pool as well
+    parallelise_prior: bool = False
+    #: Pool of worker processes for host likelihoods (see
+    #: :meth:`configure_pool`); never pickled
+    pool = None
+    n_pool: Optional[int] = None
+    _pool_configured: bool = False
 
     @property
     def names(self) -> List[str]:
@@ -234,7 +234,7 @@ class Model(ABC):
             elif not self.allow_vectorised:
                 self._vectorised_likelihood = False
             else:
-                self._vectorised_likelihood = _check_vectorised_function(
+                self._vectorised_likelihood = check_vectorised_function(
                     self.log_likelihood, self.new_point(4)
                 )
         return self._vectorised_likelihood
@@ -245,7 +245,7 @@ class Model(ABC):
             arr = self._require_rng().uniform(
                 self.lower_bounds, self.upper_bounds, (4, self.dims)
             )
-            self._vectorised_prior = _check_vectorised_function(
+            self._vectorised_prior = check_vectorised_function(
                 self.log_prior, numpy_array_to_live_points(arr, self.names)
             )
         return self._vectorised_prior
@@ -256,11 +256,49 @@ class Model(ABC):
         if self._vectorised_prior_unit_hypercube is None:
             self._vectorised_prior_unit_hypercube = (
                 self.allow_vectorised
-                and _check_vectorised_function(
+                and check_vectorised_function(
                     self.log_prior_unit_hypercube, self.sample_unit_hypercube(4)
                 )
             )
         return self._vectorised_prior_unit_hypercube
+
+    def configure_pool(self, pool=None, n_pool=None) -> None:
+        """Use ``pool`` (any object with ``map``), or a new
+        ``multiprocessing.Pool`` of ``n_pool`` forked workers, for host
+        likelihoods. A device likelihood (``torch_log_likelihood``) is
+        never evaluated through the pool, so a worker never touches
+        CUDA."""
+        self.n_pool = n_pool
+        if pool is not None:
+            self.pool = pool
+            n = get_n_pool(pool)
+            if n is not None:
+                self.n_pool = n
+        elif n_pool is not None:
+            import multiprocessing
+
+            # forked workers share the model through a module global,
+            # as in the JAX package, and run only host code
+            initialise_pool_variables(self)
+            self.pool = multiprocessing.get_context("fork").Pool(
+                processes=n_pool,
+                initializer=initialise_pool_variables,
+                initargs=(self,),
+            )
+        self._pool_configured = self.pool is not None
+
+    def close_pool(self, code=None) -> None:
+        """Close the pool (terminate it for ``code == 2``) and wait for
+        its workers."""
+        if self.pool is not None:
+            logger.info("Closing pool")
+            if code == 2:
+                self.pool.terminate()
+            else:
+                self.pool.close()
+            self.pool.join()
+            self.pool = None
+            self._pool_configured = False
 
     def evaluate_log_likelihood(self, x):
         """Single-point evaluation with counter update."""
@@ -286,8 +324,14 @@ class Model(ABC):
                 out = self.torch_log_likelihood(arr)
             out = out.cpu().numpy().astype(np.float64)
         else:
-            out = _batch_evaluate(
-                self.log_likelihood, x, self.vectorised_likelihood
+            out = batch_evaluate_function(
+                self.log_likelihood,
+                x,
+                self.vectorised_likelihood,
+                chunksize=self.likelihood_chunksize,
+                func_wrapper=log_likelihood_wrapper,
+                n_pool=self.n_pool,
+                pool=self.pool,
             )
         self.likelihood_evaluation_time += datetime.datetime.now() - st
         self.likelihood_evaluations += len(x)
@@ -296,7 +340,14 @@ class Model(ABC):
     def batch_evaluate_log_prior(self, x, unit_hypercube: bool = False) -> np.ndarray:
         if unit_hypercube:
             x = self.from_unit_hypercube(x)
-        return _batch_evaluate(self.log_prior, x, self.vectorised_prior)
+        return batch_evaluate_function(
+            self.log_prior,
+            x,
+            self.vectorised_prior,
+            func_wrapper=log_prior_wrapper,
+            n_pool=self.n_pool if self.parallelise_prior else None,
+            pool=self.pool if self.parallelise_prior else None,
+        )
 
     def log_prior_unit_hypercube(self, x) -> np.ndarray:
         """Log-prior density in the unit hypercube: zero inside it (the
@@ -308,7 +359,7 @@ class Model(ABC):
         return out
 
     def batch_evaluate_log_prior_unit_hypercube(self, x) -> np.ndarray:
-        return _batch_evaluate(
+        return batch_evaluate_function(
             self.log_prior_unit_hypercube, x, self.vectorised_prior_unit_hypercube
         )
 
@@ -383,6 +434,13 @@ class Model(ABC):
                     "Repeated likelihood calls return different values; "
                     "set allow_multi_valued_likelihood=True to permit this."
                 )
+
+    def __getstate__(self):
+        """The pool stays out of a pickle."""
+        state = self.__dict__.copy()
+        state["pool"] = None
+        state["_pool_configured"] = False
+        return state
 
 
 class UniformPriorMixin:

@@ -1,9 +1,13 @@
 """Proposal base class. Counterpart of ``nessai_tpu/proposal/base.py``."""
 
 import datetime
+import logging
+import os
 from abc import ABC, abstractmethod
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 __all__ = ["Proposal"]
 
@@ -40,3 +44,20 @@ class Proposal(ABC):
 
     def train(self, x) -> None:
         """This proposal cannot be trained."""
+
+    def update_output(self, output: str) -> None:
+        """Move the proposal's output directory, if it has one."""
+        if hasattr(self, "output"):
+            self.output = output
+            os.makedirs(self.output, exist_ok=True)
+
+    def resume(self, model) -> None:
+        """Rebind the model after unpickling."""
+        self.model = model
+
+    def __getstate__(self):
+        """The model stays out of the pickle (the sampler rebinds it at
+        resume)."""
+        state = self.__dict__.copy()
+        state["model"] = None
+        return state

@@ -51,6 +51,7 @@ class BaseFlowProposal(RejectionProposal):
         fallback_reparameterisation: Optional[str] = "zscore",
         use_default_reparameterisations: Optional[bool] = None,
         reverse_reparameterisations: bool = False,
+        plot="min",
         device=None,
     ):
         super().__init__(model, rng=rng)
@@ -71,6 +72,7 @@ class BaseFlowProposal(RejectionProposal):
         self.use_x_prime_prior = False
         #: the sampler sets this False when it never checkpoints
         self.save_flow_weights = True
+        self.configure_plotting(plot)
 
         self.flow: Optional[FlowModel] = None
         self._reparameterisation: Optional[CombinedReparameterisation] = None
@@ -109,15 +111,30 @@ class BaseFlowProposal(RejectionProposal):
                 max(1.0, 1.0 / acceptance), float(self.max_poolsize_scale)
             )
 
+    def configure_plotting(self, plot) -> None:
+        """``plot``: ``"all"`` (or ``"train"``/``"pool"`` for one of
+        them) or any other truthy value plots the training loss and each
+        pool; False plots nothing."""
+        if plot in ("all", "train", "pool"):
+            self._plot_training = plot in ("all", "train")
+            self._plot_pool = plot in ("all", "pool")
+        elif isinstance(plot, str) and plot not in ("min", "minimal"):
+            logger.warning("Unknown plot argument: %s, setting all false", plot)
+            self._plot_training = self._plot_pool = False
+        else:
+            self._plot_training = self._plot_pool = bool(plot)
+
     # ------------------------------------------------------------------
-    def initialise(self) -> None:
-        """Set up the reparameterisations, check that they invert, and
-        build the FlowModel."""
+    def initialise(self, resumed: bool = False) -> None:
+        """Set up the reparameterisations, check that they invert (not
+        at resume, where they hold their fitted state), and build the
+        FlowModel."""
         if self.initialised:
             return
         os.makedirs(self.output, exist_ok=True)
         self.set_rescaling()
-        self.verify_rescaling()
+        if not resumed:
+            self.verify_rescaling()
         flow_config = dict(self.flow_config)
         flow_config["n_inputs"] = self.prime_dims
         self.flow = FlowModel(
@@ -309,17 +326,78 @@ class BaseFlowProposal(RejectionProposal):
         return x, log_j
 
     # ------------------------------------------------------------------
-    def train(self, x) -> None:
+    def train(self, x, plot: bool = True) -> None:
         """Fit the reparameterisations to ``x`` and train the flow on
-        their output."""
+        their output (with its loss plot where ``plot`` and the
+        proposal's plotting allow)."""
         if not self.initialised:
             raise RuntimeError("Proposal must be initialised before training")
         x = self._convert_to_x(np.asarray(x).copy())
         self._reparameterisation.update(x)
         x_prime, _ = self.rescale(x)
         x_prime = live_points_to_array(x_prime, self.prime_parameters)
-        self.flow.train(x_prime, save=self.save_flow_weights)
+        history = self.flow.train(x_prime, save=self.save_flow_weights)
+        if self._plot_training and plot and history["loss"]:
+            try:
+                from ...plot import plot_loss
+
+                plot_loss(
+                    int(np.argmin(history["val_loss"])),
+                    history,
+                    filename=os.path.join(self.flow.output, "loss.png"),
+                )
+            except Exception as e:
+                logger.warning("Could not plot loss: %s", e)
         self.training_count += 1
+        self.populated = False
+
+    def plot_pool(self, x) -> None:
+        """Plot the pool's 1-D distributions to ``pool_<n>.png`` (logged
+        and skipped where it fails)."""
+        try:
+            from ...plot import plot_1d_comparison
+
+            plot_1d_comparison(
+                x,
+                labels=["pool"],
+                filename=os.path.join(self.output, f"pool_{self.populated_count}.png"),
+            )
+        except Exception as e:
+            logger.warning("Could not plot pool: %s", e)
+
+    # ------------------------------------------------------------------
+    # Persistence
+    # ------------------------------------------------------------------
+    def __getstate__(self):
+        """The flow, the pool and the populated flag stay out of the
+        pickle, as in the JAX package; the fitted reparameterisations go
+        in. The flow is rebuilt from its last weight file at
+        :meth:`resume`."""
+        state = super().__getstate__()
+        state["x"] = None
+        state["samples"] = []
+        state["indices"] = []
+        state["populated"] = False
+        flow = state.pop("flow")
+        state["_weights_file"] = flow.weights_file if flow is not None else None
+        state["flow"] = None
+        state["_initialised"] = False
+        return state
+
+    def resume(self, model, flow_config=None, training_config=None, weights_file=None) -> None:
+        """Rebind the model, rebuild the flow on :attr:`device` and load
+        ``weights_file`` (by default the last weights saved before the
+        checkpoint). The pool is empty: the run populates afresh."""
+        super().resume(model)
+        if flow_config is not None:
+            self.flow_config = dict(flow_config)
+        if training_config is not None:
+            self.training_config = training_config
+        self.initialise(resumed=True)
+        if weights_file is None:
+            weights_file = getattr(self, "_weights_file", None)
+        if weights_file is not None and os.path.exists(weights_file):
+            self.flow.load_weights(weights_file)
         self.populated = False
 
     # ------------------------------------------------------------------

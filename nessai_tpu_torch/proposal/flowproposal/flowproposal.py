@@ -40,8 +40,8 @@ class FlowProposal(BaseFlowProposal):
     #: latent draws after which one populate gives up
     max_samples: int = 1_000_000
 
-    def initialise(self) -> None:
-        super().initialise()
+    def initialise(self, resumed: bool = False) -> None:
+        super().initialise(resumed=resumed)
         self._truncation = LatentRadiusTruncation(self.prime_dims, rng=self.rng)
         #: stack members whose host inverse has been logged
         self._logged_host_inverse = set()
@@ -170,3 +170,5 @@ class FlowProposal(BaseFlowProposal):
         self.population_acceptance = n_accepted / n_proposed if n_proposed else np.nan
         self.populated_count += 1
         self.populated = True
+        if self._plot_pool:
+            self.plot_pool(self.samples)

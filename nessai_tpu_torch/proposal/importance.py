@@ -19,6 +19,7 @@ from scipy.special import logsumexp
 from .. import config as global_config
 from ..flowmodel.importance import ImportanceFlowModel
 from ..livepoint import empty_structured_array, live_points_to_array, numpy_array_to_live_points
+from ..utils.device import get_device
 from ..utils.rescaling import logit, sigmoid
 from .base import Proposal
 
@@ -68,12 +69,15 @@ class ImportanceFlowProposal(Proposal):
         self.weighted_kl = weighted_kl
         self.reset_flow = int(reset_flow)
         self.reparameterisation = reparameterisation
+        self.flow_config = dict(flow_config or {}, n_inputs=model.dims)
+        self.training_config = training_config
+        self.device = get_device(device)
         self.flow = ImportanceFlowModel(
-            flow_config=dict(flow_config or {}, n_inputs=model.dims),
+            flow_config=self.flow_config,
             training_config=training_config,
             output=output,
             rng=self.rng,
-            device=device,
+            device=self.device,
         )
         #: proposal weights keyed by level (-1 = prior)
         self._weights = {-1: 1.0}
@@ -113,6 +117,37 @@ class ImportanceFlowProposal(Proposal):
         self.flow.initialise()
         self.verify_rescaling()
         super().initialise()
+
+    def update_output(self, output: str) -> None:
+        """Move the output directory; the levels are saved there from now
+        on."""
+        super().update_output(output)
+        self.flow.update_weights_path(self.output)
+
+    def resume(self, model, flow_config=None, training_config=None, weights_path=None) -> None:
+        """Rebind the model and rebuild the levels on :attr:`device` from
+        their weight files (in ``weights_path``, by default
+        :attr:`output`)."""
+        super().resume(model)
+        if flow_config is not None:
+            self.flow_config = dict(flow_config, n_inputs=model.dims)
+        if training_config is not None:
+            self.training_config = training_config
+        self.flow = ImportanceFlowModel(
+            flow_config=self.flow_config,
+            training_config=self.training_config,
+            output=self.output,
+            rng=self.rng,
+            device=self.device,
+        )
+        self.flow.resume(weights_path=weights_path or self.output)
+
+    def __getstate__(self):
+        """The flows stay out of the pickle: their levels are weight
+        files."""
+        state = super().__getstate__()
+        state["flow"] = None
+        return state
 
     def verify_rescaling(self, n: int = 1000, rtol: float = 1e-08, atol: float = 1e-08) -> None:
         """Check that :meth:`rescale` and :meth:`inverse_rescale` invert
@@ -191,15 +226,26 @@ class ImportanceFlowProposal(Proposal):
         return kl
 
     # ------------------------------------------------------------------
-    def train(self, samples: np.ndarray, weights: Optional[np.ndarray] = None) -> None:
+    def train(self, samples: np.ndarray, plot: bool = False, weights: Optional[np.ndarray] = None) -> None:
         """Train the next level's flow on ``samples``. Weights that are
         passed in are normalised to sum to one; otherwise, with
         ``weighted_kl``, the weights are the samples' normalised
         importance weights ``exp(logW)``; else the training is
-        unweighted."""
+        unweighted. With ``plot`` the training data and draws from the
+        trained level are plotted into ``output/level_<i>/``."""
         self.level_count += 1
         self._weights[self.level_count] = np.nan
         x_prime, _ = self.rescale(samples)
+        level_output = os.path.join(self.output, f"level_{self.level_count}", "")
+        if plot:
+            from ..plot import plot_1d_comparison, plot_live_points
+
+            os.makedirs(level_output, exist_ok=True)
+            plot_live_points(samples, filename=os.path.join(level_output, "training_data.png"))
+            plot_1d_comparison(
+                numpy_array_to_live_points(x_prime, self.model.names),
+                filename=os.path.join(level_output, "prime_training_data.png"),
+            )
         if self.weighted_kl or weights is not None:
             if weights is not None:
                 weights = np.asarray(weights, dtype=float)
@@ -216,6 +262,13 @@ class ImportanceFlowProposal(Proposal):
         logger.debug("Training level %d with %d samples", self.level_count, len(x_prime))
         self.flow.train(x_prime, weights=weights)
         self.training_count += 1
+        if plot:
+            from ..plot import plot_live_points
+
+            test_prime, log_prob = self.flow.sample_and_log_prob_ith(self.flow.n_models - 1, N=2000)
+            test_samples, log_j_inv = self.inverse_rescale(test_prime)
+            test_samples["logQ"] = log_prob - log_j_inv
+            plot_live_points(test_samples, filename=os.path.join(level_output, "generated_samples.png"))
 
     # ------------------------------------------------------------------
     def compute_log_Q(

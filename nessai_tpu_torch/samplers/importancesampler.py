@@ -15,7 +15,7 @@ the proposal's device.
 import datetime
 import logging
 import os
-from typing import Literal, Optional
+from typing import Any, Callable, Literal, Optional
 
 import numpy as np
 from scipy.special import logsumexp
@@ -39,15 +39,18 @@ __all__ = ["OrderedSamples", "ImportanceNestedSampler"]
 class OrderedSamples:
     """logL-sorted sample store with its live/nested split and the
     ``[n, n_proposals]`` log_q matrix. With ``replace_all`` every live
-    point moves to the nested set at each level."""
+    point moves to the nested set at each level. A pickle holds the
+    log_q matrix only with ``save_log_q``; otherwise it is recomputed
+    through the flows at resume."""
 
-    def __init__(self, strict_threshold: bool = False, replace_all: bool = False):
+    def __init__(self, strict_threshold: bool = False, replace_all: bool = False, save_log_q: bool = False):
         self.samples = None
         self.log_q = None
         #: True where a sample has been moved to the nested set
         self.is_nested = None
         self.strict_threshold = strict_threshold
         self.replace_all = replace_all
+        self.save_log_q = save_log_q
         self.log_likelihood_threshold = -np.inf
         self.state = _INSIntegralState()
         self._live_points_cleared = False
@@ -172,13 +175,19 @@ class OrderedSamples:
         above = self.samples["logL"] >= threshold
         return log_evidence_from_ins_samples(self.samples[above]) - self.state.log_evidence
 
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        if not self.save_log_q:
+            state["log_q"] = None
+        return state
+
 
 class ImportanceNestedSampler(BaseNestedSampler):
     """The importance nested sampler.
 
     ``device`` (default CUDA) is where the flows train and run; the
-    sampling loop runs on the host in float64. The options that raise
-    ``NotImplementedError`` name the ROADMAP item that queues them.
+    sampling loop runs on the host in float64. It checkpoints only at
+    the end of a level (:meth:`checkpoint`).
     """
 
     #: compat names of criteria whose canonical name is not a state attribute
@@ -197,8 +206,16 @@ class ImportanceNestedSampler(BaseNestedSampler):
         output: Optional[str] = None,
         seed: Optional[int] = None,
         rng: Optional[np.random.Generator] = None,
-        checkpointing: bool = False,
-        plot: bool = False,
+        checkpointing: bool = True,
+        checkpoint_interval: int = 600,
+        checkpoint_on_iteration: bool = False,
+        checkpoint_callback: Optional[Callable] = None,
+        save_log_q: bool = False,
+        logging_interval: Optional[int] = None,
+        log_on_iteration: bool = True,
+        resume_file: Optional[str] = None,
+        plot: bool = True,
+        plotting_frequency: int = 5,
         min_iteration: Optional[int] = None,
         max_iteration: Optional[int] = None,
         min_samples: int = 500,
@@ -207,16 +224,25 @@ class ImportanceNestedSampler(BaseNestedSampler):
         stopping_criterion="ratio",
         tolerance=0.0,
         n_update: Optional[int] = None,
+        plot_pool: bool = False,
+        plot_trace: bool = True,
+        plot_likelihood_levels: bool = True,
+        plot_level_cdf: bool = False,
+        plot_training_data: bool = False,
+        plot_extra_state: bool = False,
+        trace_plot_kwargs: Optional[dict] = None,
+        save_existing_checkpoint: bool = False,
         replace_all: bool = False,
         threshold_method: Literal["entropy", "quantile"] = "entropy",
         threshold_kwargs: Optional[dict] = None,
         n_pool: Optional[int] = None,
-        pool=None,
+        pool: Optional[Any] = None,
         check_criteria: Literal["any", "all"] = "any",
         weighted_kl: bool = False,
         draw_constant: bool = True,
         train_final_flow: bool = False,
         bootstrap: bool = False,
+        close_pool: bool = False,
         strict_threshold: bool = False,
         draw_iid_live: bool = True,
         flow_config: Optional[dict] = None,
@@ -225,22 +251,42 @@ class ImportanceNestedSampler(BaseNestedSampler):
         reparameterisation: Optional[str] = "logit",
         device=None,
     ):
-        for name, value, item in (
-            ("checkpointing", checkpointing, "3e"),
-            ("plot", plot, "3f"),
-            ("n_pool", n_pool, "8"),
-            ("pool", pool, "8"),
-        ):
-            if value:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not in the PyTorch port's importance nested "
-                    f"sampler yet (ROADMAP §1 item {item})"
-                )
         self.add_fields()
-        super().__init__(model, nlive, output=output, seed=seed, rng=rng, device=device)
+        super().__init__(
+            model,
+            nlive,
+            output=output,
+            seed=seed,
+            rng=rng,
+            checkpointing=checkpointing,
+            checkpoint_interval=checkpoint_interval,
+            checkpoint_on_iteration=checkpoint_on_iteration,
+            checkpoint_callback=checkpoint_callback,
+            logging_interval=logging_interval,
+            log_on_iteration=log_on_iteration,
+            resume_file=resume_file,
+            plot=plot,
+            n_pool=n_pool,
+            pool=pool,
+            device=device,
+        )
+        # the flag shadows the method on the instance, as in the JAX
+        # package; FlowSampler closes the pool through the model
+        self.close_pool = close_pool
+        self.save_log_q = save_log_q
+        self.plotting_frequency = plotting_frequency
+        self._plot_pool = plot_pool
+        self._plot_trace = plot_trace
+        self._plot_likelihood_levels = plot_likelihood_levels
+        self._plot_level_cdf = plot_level_cdf
+        self.plot_training_data = plot_training_data
+        self._plot_extra_state = plot_extra_state
+        self.trace_plot_kwargs = {} if trace_plot_kwargs is None else dict(trace_plot_kwargs)
+        #: keep the previous resume file as ``.old`` at each checkpoint
+        #: (off by default: INS resume files can be large)
+        self.save_existing_checkpoint = save_existing_checkpoint
         self.n_initial = n_initial or nlive
-        self.min_iteration = -1 if min_iteration is None else int(min_iteration)
-        self.max_iteration = np.inf if max_iteration is None else int(max_iteration)
+        self.configure_iterations(min_iteration=min_iteration, max_iteration=max_iteration)
         self.min_samples = min_samples
         self.min_remove = min_remove
         self.max_samples = max_samples
@@ -267,8 +313,12 @@ class ImportanceNestedSampler(BaseNestedSampler):
             rng=self.rng,
             device=self.device,
         )
-        self.training_samples = OrderedSamples(strict_threshold=strict_threshold, replace_all=replace_all)
-        self.iid_samples = OrderedSamples(strict_threshold=strict_threshold) if draw_iid_live else None
+        self.training_samples = OrderedSamples(
+            strict_threshold=strict_threshold, replace_all=replace_all, save_log_q=save_log_q
+        )
+        self.iid_samples = (
+            OrderedSamples(strict_threshold=strict_threshold, save_log_q=save_log_q) if draw_iid_live else None
+        )
 
         self.initialised = False
         self.log_likelihood_threshold = -np.inf
@@ -463,7 +513,16 @@ class ImportanceNestedSampler(BaseNestedSampler):
         if cdf[-1] == 0:
             cdf = np.arange(len(p), dtype=float)
         cdf = cdf / cdf[-1]
-        return int(np.argmax(cdf >= q))
+        n = int(np.argmax(cdf >= q))
+        if self.plot and self._plot_level_cdf:
+            self.plot_level_cdf(
+                samples["logL"],
+                cdf,
+                threshold=float(samples["logL"][n]),
+                q=q,
+                filename=os.path.join(self.output, "levels", f"level_cdf_{self.iteration}.png"),
+            )
+        return n
 
     def determine_log_likelihood_threshold(self, samples, method="entropy", **kwargs) -> float:
         if method == "quantile":
@@ -514,7 +573,7 @@ class ImportanceNestedSampler(BaseNestedSampler):
         logger.info("Training next proposal with %d samples", len(training))
         # train() normalises the weights, their sign included
         weights = -np.exp(self.training_samples.log_q[n_train:, -1]) if self.replace_all else None
-        self.proposal.train(training, weights=weights)
+        self.proposal.train(training, plot=self.plot_training_data, weights=weights)
         self.training_time += datetime.datetime.now() - st
 
     def add_new_proposal_weight(self, iteration: int, n_new: int) -> None:
@@ -674,6 +733,16 @@ class ImportanceNestedSampler(BaseNestedSampler):
     # ------------------------------------------------------------------
     # Main loop
     # ------------------------------------------------------------------
+    def checkpoint(self, periodic: bool = False, force: bool = False):
+        """Only the end of a level is a valid checkpoint (the sample
+        store and its log_q matrix change within a level): a checkpoint
+        that is not periodic, such as one from a signal, is refused with
+        a warning, as in the JAX package."""
+        if periodic is False:
+            logger.warning("Importance Sampler cannot checkpoint mid iteration")
+            return
+        super().checkpoint(periodic=periodic, force=force)
+
     def nested_sampling_loop(self):
         """Add levels until the stopping criterion is met (or
         ``max_iteration``), then finalise. Returns ``(logZ, samples)``
@@ -705,6 +774,10 @@ class ImportanceNestedSampler(BaseNestedSampler):
             self.log_state()
             self.update_history()
             self.iteration += 1
+            if not self.iteration % self.plotting_frequency:
+                self.produce_plots()
+            if self.checkpointing:
+                self.checkpoint(periodic=True)
             if self.iteration >= self.max_iteration:
                 logger.warning("Reached max iteration")
                 break
@@ -750,6 +823,21 @@ class ImportanceNestedSampler(BaseNestedSampler):
                 n_total,
             )
         self.finalised = True
+        if self.checkpointing:
+            self.checkpoint(periodic=True, force=True)
+
+    def configure_iterations(self, min_iteration=None, max_iteration=None) -> None:
+        """Set the least and the most levels (None: no limit)."""
+        self.min_iteration = -1 if min_iteration is None else int(min_iteration)
+        self.max_iteration = np.inf if max_iteration is None else int(max_iteration)
+
+    def update_output(self, output: str) -> None:
+        """Move the output directory, with the proposal's levels, into
+        ``output``."""
+        super().update_output(output)
+        if self.proposal is not None:
+            subdir = os.path.basename(os.path.normpath(self.proposal.output))
+            self.proposal.update_output(os.path.join(output, subdir, ""))
 
     # ------------------------------------------------------------------
     def update_sample_counts(self) -> None:
@@ -943,3 +1031,281 @@ class ImportanceNestedSampler(BaseNestedSampler):
             samples, log_w=log_w - logsumexp(log_w), method=sampling_method, n=n, rng=self.rng
         )
         return self.model.from_unit_hypercube(post)
+
+    # ------------------------------------------------------------------
+    # Plots (need matplotlib; the periodic ones log a failure and go on)
+    # ------------------------------------------------------------------
+    def plot_likelihood_levels(self, filename: Optional[str] = None, cmap: str = "viridis", max_bins: int = 50):
+        """Each level's log-likelihood distribution: the whole range and
+        a panel zoomed to the last level."""
+        try:
+            import matplotlib.pyplot as plt
+
+            from ..utils.hist import auto_bins
+
+            s = self.samples_unit
+            its = np.unique(s["it"])
+            colours = plt.get_cmap(cmap)(np.linspace(0, 1, len(its)))
+            finite = np.isfinite(s["logL"])
+            vmax = np.max(s["logL"][finite])
+            last = (s["it"] == its[-1]) & finite
+            vmin = np.min(s["logL"][last]) if last.any() else None
+
+            fig, axs = plt.subplots(1, 2, figsize=(10, 4))
+            for it, c in zip(its, colours):
+                vals = s["logL"][s["it"] == it]
+                vals = vals[np.isfinite(vals)]
+                if not len(vals):
+                    continue
+                bins = auto_bins(vals, max_bins=max_bins)
+                for ax in axs:
+                    ax.hist(vals, bins, histtype="step", color=c, density=True)
+                    ax.set_xlabel("Log-likelihood")
+            axs[0].set_ylabel("Density")
+            if vmin is not None:
+                axs[1].set_xlim(vmin, vmax)
+            fig.tight_layout()
+            if filename:
+                fig.savefig(filename, bbox_inches="tight")
+                plt.close(fig)
+                return None
+            return fig
+        except Exception as e:
+            logger.warning("Could not plot likelihood levels: %s", e)
+
+    def plot_level_cdf(
+        self,
+        log_likelihood_values: np.ndarray,
+        cdf: np.ndarray,
+        threshold: float,
+        q: float,
+        filename: Optional[str] = None,
+    ):
+        """The CDF that set the next threshold."""
+        try:
+            import matplotlib.pyplot as plt
+
+            fig = plt.figure()
+            plt.plot(log_likelihood_values, cdf)
+            plt.xlabel("Log-likelihood")
+            plt.title("CDF")
+            plt.axhline(q, c="C1")
+            plt.axvline(threshold, c="C1")
+            if filename:
+                os.makedirs(os.path.dirname(filename), exist_ok=True)
+                fig.savefig(filename, bbox_inches="tight")
+                plt.close(fig)
+                return None
+            return fig
+        except Exception as e:
+            logger.warning("Could not plot level CDF: %s", e)
+
+    def plot_state(self, filename: Optional[str] = None):
+        """The history's ten-panel state plot."""
+        import matplotlib.pyplot as plt
+
+        h = self.history
+        if not h or not h["logZ"]:
+            return None
+        fig = self._state_figure(h)
+        if filename:
+            fig.savefig(filename)
+            plt.close(fig)
+            return None
+        return fig
+
+    def plot_trace(self, enable_colours: bool = True, filename: Optional[str] = None, **kwargs):
+        """Every stored sample against logW, one panel per parameter,
+        coloured by the level that drew it."""
+        import matplotlib.pyplot as plt
+
+        if self.samples_unit is None:
+            return None
+        samples = self.samples_unit
+        parameters = [p for p in samples.dtype.names if p != "logW"]
+        n = len(parameters)
+        fig, axs = plt.subplots(n, 1, sharex=True, figsize=(5, 2 * n), squeeze=False)
+        colour_kwargs = dict(c=samples["it"], vmin=-1, vmax=samples["it"].max()) if enable_colours else {}
+        for ax, p in zip(axs[:, 0], parameters):
+            ax.scatter(samples["logW"], samples[p], s=1.0, **colour_kwargs)
+            ax.set_ylabel(p)
+        axs[-1, 0].set_xlabel("Log W")
+        fig.tight_layout()
+        if filename is not None:
+            fig.savefig(filename)
+            plt.close(fig)
+            return None
+        return fig
+
+    def plot_extra_state(self, filename: Optional[str] = None):
+        """logX, the gradient, the leakages and the entropies by level."""
+        import matplotlib.pyplot as plt
+
+        h = self.history
+        if not h or not h.get("logX"):
+            return None
+        fig, axs = plt.subplots(4, 1, sharex=True, figsize=(10, 12))
+        its = np.arange(len(h["logX"]))
+        axs[0].plot(its, h["logX"])
+        axs[0].set_ylabel("Log X")
+        axs[1].plot(its, h["gradients"][: len(its)])
+        axs[1].set_ylabel("dlogL/dlogX")
+        axs[2].plot(its, h["leakage_live_points"][: len(its)], label="Total leakage")
+        axs[2].plot(its, h["leakage_new_points"][: len(its)], label="New leakage")
+        axs[2].set_ylabel("Leakage")
+        axs[2].legend()
+        axs[3].plot(its, h["samples_entropy"][: len(its)], label="Overall")
+        axs[3].plot(its, h["proposal_entropy"][: len(its)], label="Current")
+        axs[3].set_ylabel("Differential\n entropy")
+        axs[3].legend()
+        axs[-1].set_xlabel("Iteration")
+        fig.tight_layout()
+        if filename:
+            fig.savefig(filename)
+            plt.close(fig)
+            return None
+        return fig
+
+    def produce_plots(self, override: bool = False) -> None:
+        """The periodic plots (with ``plot``, or ``override``)."""
+        if not (self.plot or override):
+            return
+        try:
+            self.plot_state(os.path.join(self.output, "state.png"))
+            if self._plot_trace and self.samples_unit is not None:
+                self.plot_trace(filename=os.path.join(self.output, "trace.png"), **self.trace_plot_kwargs)
+            if self._plot_likelihood_levels and self.samples_unit is not None:
+                self.plot_likelihood_levels(os.path.join(self.output, "likelihood_levels.png"))
+            if self._plot_extra_state:
+                self.plot_extra_state(os.path.join(self.output, "state_extra.png"))
+        except Exception as e:
+            logger.warning("Could not produce INS plots: %s", e)
+
+    def _state_figure(self, h):
+        import matplotlib.pyplot as plt
+
+        fig, axs = plt.subplots(5, 2, figsize=(12, 15), sharex=True)
+        axs = axs.ravel()
+        its = np.arange(len(h["logZ"]))
+        for ci in h.get("checkpoint_iterations", []):
+            for a in axs:
+                a.axvline(ci, ls=":", color="#66ccff")
+        axs[0].plot(its, h["logZ"])
+        axs[0].set_ylabel("logZ")
+        axs[1].plot(its, h["min_log_likelihood"], label="min logL")
+        axs[1].plot(its, h["max_log_likelihood"], label="max logL")
+        axs[1].plot(its, h["logL_threshold"], label="threshold")
+        axs[1].set_ylabel("logL")
+        axs[1].legend()
+        axs[2].plot(its, h["live_points_ess"])
+        axs[2].set_ylabel("live ESS")
+        axs[3].plot(its, h["logX"])
+        axs[3].set_ylabel("logX")
+        axs[4].plot(its, h["gradients"])
+        axs[4].set_ylabel("dlogL/dlogX")
+        axs[5].plot(its, h["leakage_live_points"], label="live")
+        axs[5].plot(its, h["leakage_new_points"][: len(its)], label="new")
+        axs[5].set_ylabel("leakage")
+        axs[5].legend()
+        axs[6].plot(its, h["samples_entropy"], label="samples")
+        axs[6].plot(its, h["proposal_entropy"], label="proposal")
+        axs[6].set_ylabel("entropy")
+        axs[6].legend()
+        for k, v in h["stopping_criteria"].items():
+            axs[7].plot(its, v, label=k)
+        axs[7].set_ylabel("criteria")
+        axs[7].legend()
+        # each level's importance (the prior left out)
+        if self.importance.get("total") is not None:
+            imp_its = np.arange(len(self.importance["total"]) - 1)
+            for key in ("total", "posterior", "evidence"):
+                axs[8].plot(imp_its, self.importance[key][1:], label=key.capitalize())
+            axs[8].set_ylabel("importance")
+            axs[8].legend()
+        if h.get("n_added"):
+            axs[9].plot(np.arange(len(h["n_added"])), h["n_added"], label="added")
+            axs[9].plot(np.arange(len(h["n_removed"])), h["n_removed"], label="removed")
+            axs[9].set_ylabel("# samples")
+            axs[9].legend()
+        axs[8].set_xlabel("iteration")
+        axs[9].set_xlabel("iteration")
+        fig.tight_layout()
+        return fig
+
+    # ------------------------------------------------------------------
+    # Result and resume
+    # ------------------------------------------------------------------
+    def get_result_dictionary(self) -> dict:
+        """The run's result: the evidence of each sample set, the
+        samples, the level weights' importance and the times."""
+        d = super().get_result_dictionary()
+        d.update(
+            dict(
+                log_evidence=self.log_evidence,
+                log_evidence_error=self.log_evidence_error,
+                nested_samples=np.asarray(self.samples_unit),
+                sample_counts=self.sample_counts,
+                iterations=self.iteration,
+                stopping_criteria=self.criterion,
+                effective_n_posterior_samples=self.state.effective_n_posterior_samples,
+                training_time=self.training_time.total_seconds(),
+                draw_samples_time=self.draw_samples_time.total_seconds(),
+                add_and_update_samples_time=self.add_and_update_samples_time.total_seconds(),
+                draw_final_samples_time=self.draw_final_samples_time.total_seconds(),
+                n_levels=self.proposal.n_proposals,
+            )
+        )
+        d["training_samples"] = self.model.from_unit_hypercube(self.training_samples.samples)
+        d["training_log_evidence"] = self.training_samples.state.log_evidence
+        d["training_log_evidence_error"] = self.training_samples.state.log_evidence_error
+        d["training_log_posterior_weights"] = self.training_samples.state.log_posterior_weights
+        d["bootstrap_log_evidence"] = self.bootstrap_log_evidence
+        d["bootstrap_log_evidence_error"] = self.bootstrap_log_evidence_error
+        if self.iid_samples:
+            d["iid_log_evidence"] = self.iid_samples.state.log_evidence
+            d["iid_log_evidence_error"] = self.iid_samples.state.log_evidence_error
+        d["log_posterior_weights"] = (
+            self.final_log_posterior_weights if self.final_state is not None else self.state.log_posterior_weights
+        )
+        d["proposal_importance"] = self.importance
+        if self.final_samples_unit is not None:
+            d["samples"] = self.final_samples
+            d["final_samples"] = self.final_samples_unit
+            d["final_log_evidence"] = self.final_log_evidence
+            d["log_evidence"] = self.final_log_evidence
+            d["log_evidence_error"] = self.final_log_evidence_error
+        return d
+
+    def __getstate__(self):
+        # the sample stores drop their log_q matrices unless save_log_q
+        state = super().__getstate__()
+        for key in ("training_samples", "iid_samples"):
+            if state.get(key) is not None:
+                state[key].save_log_q = self.save_log_q
+        return state
+
+    @classmethod
+    def resume_from_pickled_sampler(
+        cls,
+        sampler,
+        model,
+        flow_config=None,
+        training_config=None,
+        weights_path=None,
+        rng=None,
+        device=None,
+        **kwargs,
+    ):
+        """Rebind ``model``, rebuild the levels on ``device`` from their
+        weight files and, where the pickle holds no log_q matrices,
+        recompute them through the levels."""
+        cls.add_fields()
+        sampler = super().resume_from_pickled_sampler(sampler, model, rng=rng, device=device, **kwargs)
+        sampler.proposal.device = sampler.device
+        sampler.proposal.resume(model, flow_config=flow_config, training_config=training_config,
+                                weights_path=weights_path)
+        for ordered in (sampler.training_samples, sampler.iid_samples):
+            if ordered is not None and ordered.log_q is None:
+                x_prime, log_j = sampler.proposal.rescale(ordered.samples)
+                _, ordered.log_q = sampler.proposal.compute_log_Q(x_prime, log_j)
+        return sampler

@@ -36,17 +36,6 @@ FIXED_OPTIONS = {
     "stopping": (0.1, "6"),
     "stopping_criterion": ("dlogZ", "6"),
     "max_iteration": (None, "6"),
-    "checkpointing": (False, "8"),
-    "checkpoint_interval": (600, "8"),
-    "checkpoint_on_iteration": (False, "8"),
-    "checkpoint_on_training": (False, "8"),
-    "checkpoint_callback": (None, "8"),
-    "resume_file": (None, "8"),
-    "logging_interval": (None, "6"),
-    "log_on_iteration": (True, "6"),
-    "plot": (False, "8"),
-    "trace_parameters": (None, "8"),
-    "proposal_plots": (False, "8"),
     "prior_sampling": (False, "6"),
     "analytic_priors": (False, "6"),
     "maximum_uninformed": (None, "6"),
@@ -69,9 +58,6 @@ FIXED_OPTIONS = {
     "batched_bookkeeping": (True, "6"),
     "device_bookkeeping": (True, "6"),
     "simulated_evidence_error": (True, "6"),
-    "n_pool": (None, "8"),
-    "pool": (None, "8"),
-    "close_pool": (False, "8"),
 }
 
 
@@ -142,23 +128,52 @@ class NestedSampler(BaseNestedSampler):
         model,
         nlive: int = 2000,
         output: Optional[str] = None,
+        checkpointing: bool = True,
+        checkpoint_interval: int = 600,
+        checkpoint_on_iteration: bool = False,
+        checkpoint_on_training: bool = False,
+        checkpoint_callback=None,
+        logging_interval: Optional[int] = None,
+        log_on_iteration: bool = True,
+        resume_file: Optional[str] = None,
         seed: Optional[int] = None,
         rng: Optional[np.random.Generator] = None,
+        plot: bool = True,
+        trace_parameters: Optional[list] = None,
         flow_config: Optional[dict] = None,
         training_config: Optional[dict] = None,
+        proposal_plots: bool = False,
+        n_pool: Optional[int] = None,
+        pool=None,
+        close_pool: bool = False,
         poolsize: Optional[int] = None,
         device=None,
         **options,
     ):
         check_reference_options(options)
+        #: close the model's pool when the sampling loop ends
+        self._close_pool = close_pool
         super().__init__(
             model,
             nlive,
             output=output,
             seed=seed,
             rng=rng,
+            checkpointing=checkpointing,
+            checkpoint_interval=checkpoint_interval,
+            checkpoint_on_iteration=checkpoint_on_iteration,
+            checkpoint_callback=checkpoint_callback,
+            logging_interval=logging_interval,
+            log_on_iteration=log_on_iteration,
+            resume_file=resume_file,
+            plot=plot,
+            n_pool=n_pool,
+            pool=pool,
             device=device,
         )
+        self.checkpoint_on_training = checkpoint_on_training
+        #: parameters of the trace plot (by default every model parameter)
+        self.trace_parameters = list(trace_parameters) if trace_parameters is not None else list(model.names)
         self.log_evidence_error_simulated = None
         self.state = _NSIntegralState(self.nlive)
         self.condition = np.inf
@@ -195,11 +210,14 @@ class NestedSampler(BaseNestedSampler):
             training_config=training_config,
             output=os.path.join(self.output, "proposal", ""),
             poolsize=self.nlive if poolsize is None else poolsize,
+            plot=proposal_plots,
             rng=self.rng,
             device=self.device,
             **{k: options[k] for k in PROPOSAL_OPTIONS if k in options},
         )
-        self._flow_proposal.save_flow_weights = False
+        # the weight files are read only at resume: none without
+        # checkpoints
+        self._flow_proposal.save_flow_weights = bool(self.checkpointing)
         self.proposal = self._uninformed_proposal
 
     # ------------------------------------------------------------------
@@ -210,6 +228,27 @@ class NestedSampler(BaseNestedSampler):
     @property
     def acceptance(self) -> float:
         return self.iteration / max(self.likelihood_calls, 1)
+
+    def check_resume(self) -> None:
+        """After a resume, restore the proposal switch and a populated
+        pool that the proposal marked for resuming."""
+        if getattr(self, "resumed", False):
+            if self.uninformed_sampling is False:
+                self.check_proposal_switch(force=True)
+            if getattr(self._flow_proposal, "resume_populated", False) and getattr(
+                self._flow_proposal, "indices", None
+            ):
+                self._flow_proposal.populated = True
+                logger.info("Resumed with populated pool")
+            self.resumed = False
+
+    def update_output(self, output: str) -> None:
+        """Move the output directory, with the flow proposal's output and
+        its weight files, into ``output``."""
+        super().update_output(output)
+        self._flow_proposal.output = os.path.join(output, "proposal", "")
+        if self._flow_proposal.flow is not None:
+            self._flow_proposal.flow.output = self._flow_proposal.output
 
     @property
     def log_evidence(self) -> float:
@@ -244,7 +283,8 @@ class NestedSampler(BaseNestedSampler):
             self._flow_proposal.initialise()
         if not self._uninformed_proposal.initialised:
             self._uninformed_proposal.initialise()
-        if self.iteration < self.maximum_uninformed:
+        # a resumed run past the switch keeps the flow proposal
+        if self.uninformed_sampling and self.iteration < self.maximum_uninformed:
             self.proposal = self._uninformed_proposal
         else:
             self.proposal = self._flow_proposal
@@ -267,12 +307,13 @@ class NestedSampler(BaseNestedSampler):
         self.live_points = np.sort(live_points, order="logL")
         self.logLmax = float(self.live_points["logL"][-1])
 
-    def check_proposal_switch(self) -> bool:
+    def check_proposal_switch(self, force: bool = False) -> bool:
         """Switch from the uninformed to the flow proposal."""
         if not self.uninformed_sampling:
             return True
         if (
-            self.mean_block_acceptance < self.uninformed_acceptance_threshold
+            force
+            or self.mean_block_acceptance < self.uninformed_acceptance_threshold
             or self.iteration >= self.maximum_uninformed
         ):
             logger.info("Switching to flow proposal at iteration %s", self.iteration)
@@ -286,12 +327,14 @@ class NestedSampler(BaseNestedSampler):
         """Train the flow proposal on the current live points."""
         logger.info("Training flow proposal at iteration %s", self.iteration)
         st = datetime.datetime.now()
-        self._flow_proposal.train(self.live_points.copy())
+        self._flow_proposal.train(self.live_points.copy(), plot=self.plot)
         self.training_time += datetime.datetime.now() - st
         self.training_iterations.append(self.iteration)
         self.block_iteration = 0
         self.block_acceptance = 0.0
         self.train_count += 1
+        if self.checkpoint_on_training:
+            self.checkpoint(periodic=True, force=True)
 
     # ------------------------------------------------------------------
     def yield_sample(self, oldparam):
@@ -571,6 +614,7 @@ class NestedSampler(BaseNestedSampler):
             self._flow_proposal.ns_acceptance = self.mean_block_acceptance
         else:
             self._uninformed_proposal.ns_acceptance = self.mean_block_acceptance
+        self.checkpoint(periodic=True)
         return True
 
     # ------------------------------------------------------------------
@@ -609,7 +653,9 @@ class NestedSampler(BaseNestedSampler):
                 logLmax=[],
                 acceptance=[],
                 mean_acceptance=[],
+                rolling_p=[],
                 population_acceptance=[],
+                training_iterations=[],
             )
         )
 
@@ -634,6 +680,9 @@ class NestedSampler(BaseNestedSampler):
             self.update_history()
         if not (self.iteration % self.nlive):
             self.check_insertion_indices(rolling=True)
+            if self.plot:
+                self.plot_state(filename=os.path.join(self.output, "state.png"))
+        self.checkpoint(periodic=True)
 
     def log_state(self) -> None:
         logger.info(
@@ -688,4 +737,104 @@ class NestedSampler(BaseNestedSampler):
         )
         self.sampling_time += datetime.datetime.now() - self.sampling_start_time
         self.sampling_start_time = datetime.datetime.now()
+        if self.checkpointing:
+            self.checkpoint(force=True)
+        if self._close_pool:
+            self.close_pool()
         return self.state.logZ, self.nested_samples_array
+
+    # ------------------------------------------------------------------
+    # Plots: each logs its failure (no matplotlib, say) and carries on
+    # ------------------------------------------------------------------
+    def plot_state(self, filename: Optional[str] = None):
+        """The history's multi-panel state plot."""
+        try:
+            from ..plot import plot_sampler_state
+
+            return plot_sampler_state(self, filename=filename)
+        except Exception as e:
+            logger.warning("Could not produce state plot: %s", e)
+
+    def plot_trace(self, filename: Optional[str] = None):
+        """The nested samples' trace against log prior volume."""
+        try:
+            from ..plot import plot_trace
+
+            return plot_trace(
+                self.state.log_vols[1:],
+                self.nested_samples_array,
+                parameters=self.trace_parameters,
+                filename=filename,
+            )
+        except Exception as e:
+            logger.warning("Could not produce trace plot: %s", e)
+
+    def plot_insertion_indices(self, filename: Optional[str] = None):
+        """The insertion indices' histogram and cumulative distribution."""
+        try:
+            from ..plot import plot_indices
+
+            return plot_indices(self.insertion_indices, self.nlive, filename=filename)
+        except Exception as e:
+            logger.warning("Could not produce indices plot: %s", e)
+
+    # ------------------------------------------------------------------
+    def get_result_dictionary(self) -> dict:
+        """The run's result: evidence, samples, diagnostics and times."""
+        d = super().get_result_dictionary()
+        d.update(
+            dict(
+                log_evidence=self.state.logZ,
+                log_evidence_error=self.state.log_evidence_error,
+                log_evidence_error_simulated=self.log_evidence_error_simulated,
+                information=self.information,
+                nested_samples=self.nested_samples_array,
+                log_posterior_weights=self.state.log_posterior_weights(),
+                insertion_indices=self.insertion_indices,
+                rolling_p=self.rolling_p,
+                final_p_value=self.final_p_value,
+                final_ks_statistic=self.final_ks_statistic,
+                training_time=self.training_time.total_seconds(),
+                population_time=self._flow_proposal.population_time.total_seconds(),
+                likelihood_evaluations=self.total_likelihood_evaluations,
+                iteration=self.iteration,
+                seed=self.seed,
+            )
+        )
+        return d
+
+    def __getstate__(self):
+        state = super().__getstate__()
+        state.pop("_yield_iter", None)
+        return state
+
+    @classmethod
+    def resume_from_pickled_sampler(
+        cls,
+        sampler,
+        model,
+        flow_config=None,
+        training_config=None,
+        weights_path=None,
+        rng=None,
+        device=None,
+        **kwargs,
+    ):
+        """Rebind ``model`` and rebuild the flow proposal's flow on
+        ``device`` from its last weight file (``weights_path`` overrides
+        it). Its pool is not in the pickle, so the resumed run
+        populates afresh."""
+        sampler = super().resume_from_pickled_sampler(sampler, model, rng=rng, device=device, **kwargs)
+        sampler._uninformed_proposal.resume(model)
+        sampler._flow_proposal.device = sampler.device
+        sampler._flow_proposal.resume(
+            model,
+            flow_config=flow_config,
+            training_config=training_config,
+            weights_file=weights_path,
+        )
+        if sampler.uninformed_sampling:
+            sampler.proposal = sampler._uninformed_proposal
+        else:
+            sampler.proposal = sampler._flow_proposal
+        return sampler

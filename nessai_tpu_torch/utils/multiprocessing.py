@@ -1,0 +1,137 @@
+"""Batched and pooled evaluation of host functions. Counterpart of
+``nessai_tpu/utils/multiprocessing.py``.
+
+A model with a device likelihood (``torch_log_likelihood``) evaluates
+it on the device and never through a pool. The ``multiprocessing.Pool``
+path serves host likelihoods, such as scalar pure-Python ones: its
+workers are forked with the model in a module global
+(:func:`initialise_pool_variables`) and run only host code, so a forked
+worker never touches CUDA.
+"""
+
+import logging
+import multiprocessing
+
+import numpy as np
+
+from .structures import array_split_chunksize
+
+logger = logging.getLogger(__name__)
+
+__all__ = [
+    "initialise_pool_variables",
+    "get_n_pool",
+    "check_multiprocessing_start_method",
+    "log_likelihood_wrapper",
+    "log_prior_wrapper",
+    "log_prior_unit_hypercube_wrapper",
+    "batch_evaluate_function",
+    "check_vectorised_function",
+]
+
+_model = None
+
+
+def initialise_pool_variables(model) -> None:
+    """Store the model in a global for fork-shared pool workers."""
+    global _model
+    _model = model
+
+
+def check_multiprocessing_start_method() -> None:
+    """Warn if the start method is not fork (global-model sharing relies on
+    it)."""
+    method = multiprocessing.get_start_method(allow_none=True)
+    if method not in (None, "fork"):
+        logger.warning(
+            "Multiprocessing start method is '%s', not 'fork'. "
+            "This may lead to high memory usage or errors: the pool "
+            "relies on fork-shared globals — call "
+            "initialise_pool_variables in the initializer.",
+            method,
+        )
+
+
+def get_n_pool(pool):
+    """Determine the number of workers in a pool object."""
+    if pool is None:
+        return None
+    if hasattr(pool, "_processes"):
+        return pool._processes
+    if hasattr(pool, "_max_workers"):
+        return pool._max_workers
+    if hasattr(pool, "_actor_pool"):
+        # ray.util.multiprocessing.Pool
+        return len(pool._actor_pool)
+    logger.warning("Could not determine number of processes in pool")
+    return None
+
+
+def log_likelihood_wrapper(x):
+    """The model's log-likelihood in a pool worker."""
+    return _model.log_likelihood(x)
+
+
+def log_prior_wrapper(x):
+    return _model.log_prior(x)
+
+
+def log_prior_unit_hypercube_wrapper(x):
+    return _model.log_prior_unit_hypercube(x)
+
+
+def batch_evaluate_function(
+    func,
+    x,
+    vectorised: bool,
+    chunksize: int = None,
+    func_wrapper=None,
+    n_pool: int = None,
+    pool=None,
+):
+    """Evaluate ``func`` over the rows of ``x``.
+
+    Four paths: vectorised (optionally in chunks of ``chunksize``),
+    scalar loop, pooled-vectorised, pooled-scalar."""
+    if pool is None or n_pool is None:
+        if vectorised:
+            if chunksize:
+                out = np.concatenate(
+                    [
+                        np.atleast_1d(func(xx))
+                        for xx in array_split_chunksize(x, chunksize)
+                    ]
+                )
+            else:
+                out = func(x)
+        else:
+            out = np.array([func(xx) for xx in x])
+    else:
+        if func_wrapper is None:
+            func_wrapper = func
+        if vectorised:
+            chunks = (
+                array_split_chunksize(x, chunksize)
+                if chunksize
+                else np.array_split(x, n_pool)
+            )
+            out = np.concatenate(
+                [np.atleast_1d(r) for r in pool.map(func_wrapper, chunks)]
+            )
+        else:
+            out = np.array(pool.map(func_wrapper, x))
+    return np.asarray(out).flatten()
+
+
+def check_vectorised_function(func, x, dtype="float64", atol=1e-15, rtol=1e-15):
+    """Check that ``func`` applied to a batch matches per-row application."""
+    if len(x) <= 1:
+        raise ValueError("Input has length <= 1")
+    try:
+        batch = np.asarray(func(x), dtype=dtype).flatten()
+    except (TypeError, ValueError, IndexError, AttributeError):
+        return False
+    if batch.shape != (len(x),):
+        return False
+    single = np.array([func(xx) for xx in x], dtype=dtype).flatten()
+    return np.allclose(batch, single, atol=atol, rtol=rtol, equal_nan=True)

@@ -1,6 +1,9 @@
 """Testing utilities. Counterpart of ``nessai_tpu/utils/testing.py``."""
 
+import contextlib
 import math
+import pickle
+import signal
 
 import numpy as np
 import torch
@@ -16,6 +19,8 @@ __all__ = [
     "REPARAMETERISATION_CASES",
     "reparameterisation_case",
     "assert_structured_arrays_equal",
+    "time_limit",
+    "pickled_types",
 ]
 
 
@@ -264,3 +269,44 @@ def assert_structured_arrays_equal(x, y, atol=0.0, rtol=0.0) -> None:
             np.testing.assert_allclose(
                 xf, yf, atol=atol, rtol=rtol, err_msg=f"field {n}"
             )
+
+
+@contextlib.contextmanager
+def time_limit(seconds: int):
+    """Raise ``TimeoutError`` in the main thread when the block runs
+    longer than ``seconds`` (``signal.alarm``; the SIGALRM handler in
+    place before is restored after the block)."""
+
+    def _expired(signum, frame):
+        raise TimeoutError(f"block took more than {seconds} s")
+
+    previous = signal.signal(signal.SIGALRM, _expired)
+    signal.alarm(int(seconds))
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, previous)
+
+
+class _TypeRecorder(pickle.Pickler):
+    """A pickler that records every object it is asked to pickle."""
+
+    def __init__(self, file):
+        super().__init__(file)
+        self.seen = []
+
+    def persistent_id(self, obj):
+        self.seen.append(obj)
+        return None
+
+
+def pickled_types(obj) -> list:
+    """Every object that pickling ``obj`` reaches (each with its own
+    ``__reduce__`` state), through a ``pickle.Pickler`` whose
+    ``persistent_id`` records them."""
+    import io
+
+    recorder = _TypeRecorder(io.BytesIO())
+    recorder.dump(obj)
+    return recorder.seen

@@ -453,9 +453,11 @@ def _capped_ins(tmp_path, device):
         seed=42,
         max_iteration=2,
         training_config=dict(max_epochs=20, patience=10, batch_size=500),
+        plot=False,
+        checkpointing=False,
         device=device,
     )
-    fs.run()
+    fs.run(plot=False, save=False)
     return fs
 
 
@@ -550,9 +552,11 @@ def test_ins_redraw_on_the_card_repeats_bit_for_bit(cuda, tmp_path):
             seed=11,
             max_iteration=2,
             training_config=dict(max_epochs=30, patience=10),
+            plot=False,
+            checkpointing=False,
             device=cuda,
         )
-        fs.run(redraw_samples=True, n_posterior_samples=300)
+        fs.run(plot=False, save=False, redraw_samples=True, n_posterior_samples=300)
         runs.append(fs)
     a, b = (fs.ns for fs in runs)
     assert np.isfinite(a.final_log_evidence) and a.final_log_evidence == b.final_log_evidence

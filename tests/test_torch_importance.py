@@ -13,6 +13,8 @@
   of the 2-D Gaussian.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,7 +46,7 @@ from nessai_tpu_torch.proposal import ImportanceFlowProposal
 from nessai_tpu_torch.samplers import ImportanceNestedSampler
 from nessai_tpu_torch.stopping_criteria import StoppingCriterionRegistry
 from nessai_tpu_torch.utils import information, rescaling, stats, structures
-from nessai_tpu_torch.utils.testing import IntegrationTestModel
+from nessai_tpu_torch.utils.testing import IntegrationTestModel, time_limit as _time_limit
 
 #: the small flow of the tests: 2 blocks × 1 layer × 16 neurons
 FLOW_CONFIG = dict(n_blocks=2, n_neurons=16, n_layers=1)
@@ -307,7 +309,8 @@ def test_stopping_criteria_registry_equals_jax():
 def _samplers(tmp_path, **kwargs):
     kwargs = dict(nlive=1000, min_samples=200, seed=8, draw_iid_live=False, **kwargs)
     jns = JaxINS(JaxModel(2), output=str(tmp_path / "jax"), checkpointing=False, plot=False, **kwargs)
-    tns = ImportanceNestedSampler(IntegrationTestModel(2), output=str(tmp_path / "torch"), device="cpu", **kwargs)
+    tns = ImportanceNestedSampler(IntegrationTestModel(2), output=str(tmp_path / "torch"), checkpointing=False,
+                                  plot=False, device="cpu", **kwargs)
     for ns in (jns, tns):
         ns.initialise_history()
     return jns, tns
@@ -482,9 +485,11 @@ def test_ins_2d_gaussian(tmp_path):
         flow_config=FLOW_CONFIG,
         training_config=dict(max_epochs=50, patience=10, batch_size=500),
         draw_iid_live=False,
+        plot=False,
+        checkpointing=False,
         device="cpu",
     )
-    logZ, samples = fs.run()
+    logZ, samples = fs.run(plot=False, save=False)
     err = fs.logZ_error
     analytic = model.analytic_log_evidence
     assert np.isfinite(logZ)
@@ -511,9 +516,11 @@ def test_ins_capped_iid_live(tmp_path):
         flow_config=FLOW_CONFIG,
         training_config=dict(max_epochs=50, patience=10, batch_size=500),
         draw_iid_live=True,
+        plot=False,
+        checkpointing=False,
         device="cpu",
     )
-    logZ, samples = fs.run()
+    logZ, samples = fs.run(plot=False, save=False)
     ns = fs.ns
     assert ns.iteration == 3 and ns.proposal.flow.n_models == 3
     assert np.isfinite(logZ) and logZ == ns.iid_samples.state.log_evidence
@@ -530,6 +537,19 @@ def test_ins_capped_iid_live(tmp_path):
     assert ns.history["n_removed"] and len(ns.history["logZ"]) == 3
 
 
+#: a capped INS run that takes a second or two on the CPU
+CAPPED_INS = dict(
+    importance_nested_sampler=True,
+    nlive=100,
+    min_samples=50,
+    seed=4,
+    max_iteration=1,
+    flow_config=dict(n_blocks=2, n_neurons=4, n_layers=1),
+    training_config=dict(max_epochs=5, patience=3, batch_size=100),
+    device="cpu",
+)
+
+
 @pytest.mark.parametrize(
     "kwargs",
     [
@@ -540,22 +560,40 @@ def test_ins_capped_iid_live(tmp_path):
     ],
     ids=lambda k: next(iter(k)),
 )
-def test_options_not_ported_raise_and_name_the_roadmap(tmp_path, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FlowSampler(
-            IntegrationTestModel(2), output=str(tmp_path), importance_nested_sampler=True,
-            nlive=100, min_samples=50, device="cpu", **kwargs,
-        )
+def test_ins_options_of_the_persistence_layer_run(tmp_path, kwargs):
+    """The options that once raised now run: a checkpoint that resumes,
+    the sampler's plots, a pool closed at the end of the run, and a
+    resume that finds nothing and starts afresh."""
+    options = dict(dict(checkpointing=False, plot=False), **kwargs)
+    fs = FlowSampler(IntegrationTestModel(2), output=str(tmp_path), **CAPPED_INS, **options)
+    with _time_limit(120):
+        fs.run(plot=False, save=False)
+    resume_file = tmp_path / "nested_sampler_resume.pkl"
+    assert resume_file.exists() == bool(options["checkpointing"])
+    if options["checkpointing"]:
+        resumed = FlowSampler(IntegrationTestModel(2), output=str(tmp_path), **CAPPED_INS)
+        assert resumed.ns.iteration == fs.ns.iteration and resumed.logZ == fs.logZ
+    if options["plot"]:
+        fs.ns.produce_plots()
+        assert (tmp_path / "state.png").exists() and (tmp_path / "trace.png").exists()
+    assert fs.ns.model.pool is None
+    assert np.isfinite(fs.logZ)
 
 
 @pytest.mark.parametrize("kwargs", [dict(plot=True), dict(save=True)])
-def test_run_options_not_ported_raise(tmp_path, kwargs):
-    fs = FlowSampler(
-        IntegrationTestModel(2), output=str(tmp_path), importance_nested_sampler=True,
-        nlive=100, min_samples=50, device="cpu",
-    )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fs.run(**kwargs)
+def test_run_writes_plots_or_the_result_file(tmp_path, kwargs):
+    """``run(plot=True)`` writes the INS plots (of a sampler made with
+    ``plot=True``) and the posterior plot; ``run(save=True)`` the HDF5
+    result file."""
+    fs = FlowSampler(IntegrationTestModel(2), output=str(tmp_path), checkpointing=False,
+                     plot=kwargs.get("plot", False), **CAPPED_INS)
+    fs.run(**dict(dict(plot=False, save=False), **kwargs))
+    written = set(os.listdir(tmp_path))
+    if kwargs.get("plot"):
+        assert {"state.png", "trace.png", "likelihood_levels.png", "posterior_distribution.png"} <= written
+        assert "result.hdf5" not in written
+    else:
+        assert "result.hdf5" in written and not any(f.endswith(".png") for f in written)
 
 
 @pytest.mark.parametrize("entry", ["flowsampler", "proposal", "flowmodel"])
@@ -585,9 +623,11 @@ def test_draws_from_the_whole_meta_proposal_after_a_run(tmp_path):
         flow_config=FLOW_CONFIG,
         training_config=dict(max_epochs=20, patience=10, batch_size=500),
         draw_iid_live=False,
+        plot=False,
+        checkpointing=False,
         device="cpu",
     )
-    fs.run()
+    fs.run(plot=False, save=False)
     ns, proposal = fs.ns, fs.ns.proposal
     counts = dict(ns.sample_counts)
     ns.update_sample_counts()
@@ -637,10 +677,12 @@ def test_ins_options_run(tmp_path, kwargs):
         max_iteration=2,
         flow_config=FLOW_CONFIG,
         training_config=dict(max_epochs=20, patience=10, batch_size=500),
+        plot=False,
+        checkpointing=False,
         device="cpu",
         **kwargs,
     )
-    logZ, samples = fs.run()
+    logZ, samples = fs.run(plot=False, save=False)
     ns = fs.ns
     # the final flow is one more level, which no sample count weighs
     final_flow = kwargs.get("train_final_flow", False)

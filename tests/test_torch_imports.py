@@ -163,3 +163,69 @@ def test_cpu_tensors_take_the_plain_version():
     y_ref, ld_ref = coupling.affine_coupling_plain(x, s, t)
     assert torch.equal(y, y_ref) and torch.equal(ld, ld_ref)
     assert coupling.affine_coupling.launches == 0
+
+
+@pytest.mark.parametrize(
+    "module",
+    [
+        "plot",
+        "utils.io",
+        "utils.threading",
+        "utils.settings",
+        "utils.multiprocessing",
+        "utils.multirun",
+    ],
+)
+def test_import_walk_reaches_the_persistence_layer(module):
+    """The walk of ``test_import_every_module_without_jax`` imports the
+    result files, plots, pool and multi-seed modules too."""
+    import pkgutil
+
+    import nessai_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(nessai_tpu_torch.__path__, "nessai_tpu_torch.")}
+    assert f"nessai_tpu_torch.{module}" in names
+
+
+def test_samplers_import_without_matplotlib_or_h5py(tmp_path):
+    """Without matplotlib and h5py every module but ``plot`` imports, and
+    a sampler runs with ``plot=False``; ``plot`` and an HDF5 result file
+    raise ``ImportError``, as in the JAX package."""
+    code = (
+        "import importlib, importlib.abc, pkgutil, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in ('matplotlib', 'h5py', 'seaborn'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import nessai_tpu_torch\n"
+        "for m in pkgutil.walk_packages(nessai_tpu_torch.__path__, 'nessai_tpu_torch.'):\n"
+        "    if m.name != 'nessai_tpu_torch.plot':\n"
+        "        importlib.import_module(m.name)\n"
+        "try:\n"
+        "    import nessai_tpu_torch.plot\n"
+        "    raise SystemExit('plot imported')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "from nessai_tpu_torch.flowsampler import FlowSampler\n"
+        "from nessai_tpu_torch.utils.testing import IntegrationTestModel\n"
+        f"out = {str(tmp_path)!r}\n"
+        "fs = FlowSampler(IntegrationTestModel(2), output=out, nlive=50, seed=1, device='cpu',\n"
+        "                 flow_config=dict(n_blocks=2, n_neurons=4, n_layers=1),\n"
+        "                 training_config=dict(max_epochs=3, patience=2), signal_handling=False)\n"
+        "fs.run(plot=False, save=False)\n"
+        "fs.ns.plot_state()\n"
+        "try:\n"
+        "    fs.save_results(out + '/result', extension='hdf5')\n"
+        "    raise SystemExit('hdf5 written')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "fs.save_results(out + '/result', extension='json')\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

@@ -14,6 +14,7 @@ redraw, bootstrap and final flow in the port against the JAX package's.
 
 import copy
 import logging
+import os
 
 import jax
 import jax.numpy as jnp
@@ -43,7 +44,7 @@ from nessai_tpu_torch.proposal import ImportanceFlowProposal
 from nessai_tpu_torch.samplers import ImportanceNestedSampler, NestedSampler
 from nessai_tpu_torch.samplers.importancesampler import OrderedSamples
 from nessai_tpu_torch.utils.optimise import optimise_meta_proposal_weights
-from nessai_tpu_torch.utils.testing import GaussianMixture, IntegrationTestModel
+from nessai_tpu_torch.utils.testing import GaussianMixture, IntegrationTestModel, time_limit
 
 #: module-level tolerance: float32 flows on both sides
 ATOL = RTOL = 1e-5
@@ -396,7 +397,8 @@ def _host_samplers(tmp_path, seed=8, **kwargs):
     samples and 600 samples of one level."""
     kwargs = dict(nlive=600, min_samples=100, seed=seed, draw_iid_live=False, **kwargs)
     jns = JaxINS(JaxGaussianMixture(2), output=str(tmp_path / "jax"), checkpointing=False, plot=False, **kwargs)
-    tns = ImportanceNestedSampler(GaussianMixture(2), output=str(tmp_path / "torch"), device="cpu", **kwargs)
+    tns = ImportanceNestedSampler(GaussianMixture(2), output=str(tmp_path / "torch"), checkpointing=False, plot=False,
+                                  device="cpu", **kwargs)
     rng = np.random.default_rng(21)
     u0, u1 = rng.uniform(size=(1000, 2)), 0.5 + 0.4 * (rng.uniform(size=(600, 2)) - 0.5)
     col = rng.normal(0.0, 1.0, (1600, 1))
@@ -562,9 +564,10 @@ def test_final_flow_then_redraw_or_bootstrap_fails_in_both(tmp_path, follow):
     or in its meta-proposal, the port with its own RuntimeError."""
     options = dict(train_final_flow=True, bootstrap=follow == "bootstrap")
     run = dict(redraw_samples=follow == "redraw", n_posterior_samples=100)
-    fs = FlowSampler(IntegrationTestModel(2), output=str(tmp_path / "torch"), device="cpu", **_capped_kwargs(**options))
+    fs = FlowSampler(IntegrationTestModel(2), output=str(tmp_path / "torch"), device="cpu", plot=False,
+                     checkpointing=False, **_capped_kwargs(**options))
     with pytest.raises(RuntimeError, match="train_final_flow"):
-        fs.run(**run)
+        fs.run(plot=False, save=False, **run)
     assert np.isnan(fs.ns.proposal.weights[fs.ns.proposal.level_count])
     assert fs.ns.proposal.flow.n_models == fs.ns.iteration + 1
     with jax.default_device(jax.devices("cpu")[0]):
@@ -582,8 +585,9 @@ def test_capped_run_returns_model_space_samples_and_final_samples(tmp_path):
     ``nested_samples`` and ``live_points`` map the unit-hypercube
     samples through the model; the redrawn samples likewise."""
     model = IntegrationTestModel(2)
-    fs = FlowSampler(model, output=str(tmp_path), device="cpu", **_capped_kwargs())
-    logZ, samples = fs.run(redraw_samples=True, n_posterior_samples=150, compute_initial_posterior=True)
+    fs = FlowSampler(model, output=str(tmp_path), device="cpu", plot=False, checkpointing=False, **_capped_kwargs())
+    logZ, samples = fs.run(plot=False, save=False, redraw_samples=True, n_posterior_samples=150,
+                           compute_initial_posterior=True)
     ns = fs.ns
     assert samples is fs.nested_samples and len(samples) == len(ns.samples_unit) == 300
     expected = model.from_unit_hypercube(ns.samples_unit)
@@ -623,8 +627,8 @@ def test_ins_whole_runs_agree_with_jax(tmp_path):
         draw_iid_live=False,
     )
     model = IntegrationTestModel(2)
-    fs = FlowSampler(model, output=str(tmp_path / "torch"), device="cpu", **kwargs)
-    t_logz, _ = fs.run()
+    fs = FlowSampler(model, output=str(tmp_path / "torch"), device="cpu", plot=False, checkpointing=False, **kwargs)
+    t_logz, _ = fs.run(plot=False, save=False)
     t_err = fs.logZ_error
     with jax.default_device(jax.devices("cpu")[0]):
         jfs = JaxFlowSampler(JaxModel(2), output=str(tmp_path / "jax"), resume=False, plot=False,
@@ -655,17 +659,84 @@ def test_ins_whole_runs_agree_with_jax(tmp_path):
         (dict(simulated_evidence_error=False), "6"),
         (dict(flow_class="GWFlowProposal"), "6"),
         (dict(drawsize=100), "6"),
-        (dict(checkpointing=True), "8"),
-        (dict(plot=True), "8"),
-        (dict(n_pool=2), "8"),
-        (dict(pool=object()), "8"),
-        (dict(close_pool=True), "8"),
     ],
     ids=lambda v: next(iter(v)) if isinstance(v, dict) else v,
 )
 def test_standard_sampler_reference_options_raise_and_name_the_item(tmp_path, option, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP §1 item {item}\b"):
         FlowSampler(IntegrationTestModel(2), output=str(tmp_path), nlive=50, device="cpu", **option)
+
+
+#: a standard run that takes a few seconds on the CPU
+SMALL_STANDARD = dict(
+    nlive=50,
+    seed=6,
+    flow_config=dict(n_blocks=2, n_neurons=4, n_layers=1),
+    training_config=dict(max_epochs=5, patience=3),
+    device="cpu",
+)
+
+
+class _SerialPool:
+    """A pool with ``map`` that runs in this process."""
+
+    _processes = 1
+
+    def __init__(self):
+        self.calls = 0
+        self.closed = False
+
+    def map(self, func, iterable):
+        self.calls += 1
+        return [func(x) for x in iterable]
+
+    def close(self):
+        self.closed = True
+
+    def join(self):
+        pass
+
+
+@pytest.mark.parametrize(
+    "option",
+    [dict(checkpointing=True), dict(plot=True), dict(n_pool=2), dict(pool="serial"), dict(close_pool=True)],
+    ids=lambda v: next(iter(v)),
+)
+def test_standard_sampler_takes_the_persistence_options(tmp_path, option):
+    """The standard sampler's options of checkpoints, plots and the pool
+    run: a final checkpoint and weight files, the state plot, a pool the
+    host likelihood goes through, closed by the sampler at the end with
+    ``close_pool``."""
+    from nessai_tpu_torch.utils.multiprocessing import initialise_pool_variables
+
+    model = IntegrationTestModel(2)
+    model.torch_log_likelihood = None
+    pool = None
+    if option.get("pool") == "serial":
+        pool = _SerialPool()
+        initialise_pool_variables(model)
+        option = dict(pool=pool)
+    options = dict(dict(checkpointing=False, plot=False), **option)
+    if "close_pool" in options:
+        # the sampler's own option (FlowSampler takes close_pool itself)
+        ns = NestedSampler(model, output=str(tmp_path), n_pool=1, **SMALL_STANDARD, **options)
+        with time_limit(120):
+            ns.nested_sampling_loop()
+        assert ns.model.pool is None and np.isfinite(ns.log_evidence)
+        return
+    fs = FlowSampler(model, output=str(tmp_path), close_pool=False, **SMALL_STANDARD, **options)
+    with time_limit(120):
+        fs.run(plot=False, save=False)
+    written = set(os.listdir(tmp_path))
+    assert ("nested_sampler_resume.pkl" in written) == options["checkpointing"]
+    assert ("model.pt" in os.listdir(tmp_path / "proposal")) == options["checkpointing"]
+    assert ("state.png" in written) == options["plot"]
+    if pool is not None:
+        assert pool.calls > 0 and fs.ns.model.pool is pool
+    if "n_pool" in options:
+        assert fs.ns.model.n_pool == 2 and fs.ns.model.pool is not None
+        fs.ns.model.close_pool()
+    assert np.isfinite(fs.logZ)
 
 
 @pytest.mark.parametrize(
@@ -693,7 +764,7 @@ def test_standard_sampler_takes_reparameterisations(tmp_path, options, stack):
     stack is built, verified, fitted, and a pool drawn through it lies
     in the prior bounds."""
     fs = FlowSampler(IntegrationTestModel(2), output=str(tmp_path), nlive=100, seed=3, device="cpu",
-                     flow_config=FLOW_CONFIG, **options)
+                     plot=False, checkpointing=False, flow_config=FLOW_CONFIG, **options)
     ns = fs.ns
     ns.initialise()
     proposal = ns.flow_proposal
@@ -743,8 +814,8 @@ def test_mixture_with_redraw_on_the_cpu(tmp_path, package):
     returned samples inside the prior bounds."""
     model = GaussianMixture(2)
     if package == "torch":
-        fs = FlowSampler(model, output=str(tmp_path), device="cpu", **MIXTURE_CPU)
-        _, samples = fs.run(redraw_samples=True, n_posterior_samples=400)
+        fs = FlowSampler(model, output=str(tmp_path), device="cpu", plot=False, checkpointing=False, **MIXTURE_CPU)
+        _, samples = fs.run(plot=False, save=False, redraw_samples=True, n_posterior_samples=400)
     else:
         with jax.default_device(jax.devices("cpu")[0]):
             fs = JaxFlowSampler(JaxGaussianMixture(2), output=str(tmp_path), resume=False, plot=False,
@@ -763,8 +834,28 @@ def test_mixture_with_redraw_on_the_cpu(tmp_path, package):
 @pytest.mark.parametrize("ins", [False, True], ids=["standard", "ins"])
 @pytest.mark.parametrize("option", [dict(close_pool=True), dict(plot_posterior=True), dict(plot_indices=True)],
                          ids=lambda v: next(iter(v)))
-def test_run_reference_options_raise_and_name_the_item(tmp_path, ins, option):
-    sampler = dict(importance_nested_sampler=True, nlive=100, min_samples=50) if ins else dict(nlive=50)
-    fs = FlowSampler(IntegrationTestModel(2), output=str(tmp_path), device="cpu", **sampler)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 8\b"):
-        fs.run(**option)
+def test_run_reference_options(tmp_path, ins, option):
+    """``run``'s pool and plot options, as the JAX package takes them:
+    ``close_pool`` closes the model's pool after the run; with
+    ``plot=True`` ``plot_posterior`` writes the posterior plot and
+    ``plot_indices`` the insertion indices' (the importance sampler's
+    run passes it on to the redraw, which does not run here, as in the
+    JAX package)."""
+    if ins:
+        sampler = dict(importance_nested_sampler=True, nlive=100, min_samples=50, max_iteration=1,
+                       flow_config=dict(n_blocks=2, n_neurons=4, n_layers=1),
+                       training_config=dict(max_epochs=5, patience=3, batch_size=100), device="cpu")
+    else:
+        sampler = SMALL_STANDARD
+    fs = FlowSampler(IntegrationTestModel(2), output=str(tmp_path), checkpointing=False, plot=False,
+                     n_pool=1 if "close_pool" in option else None, **sampler)
+    plots = "close_pool" not in option
+    with time_limit(120):
+        fs.run(plot=plots, save=False, **option)
+    written = set(os.listdir(tmp_path))
+    if "close_pool" in option:
+        assert fs.ns.model.pool is None
+    elif "plot_posterior" in option:
+        assert "posterior_distribution.png" in written
+    else:
+        assert ("insertion_indices.png" in written) == (not ins)

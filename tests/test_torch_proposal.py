@@ -133,6 +133,7 @@ def _proposals(tmp_path, dims=2, seed=17):
         output=str(tmp_path / "torch"),
         poolsize=400,
         rng=np.random.default_rng(seed + 1),
+        plot=False,
         device="cpu",
     )
     jprop.initialise()
@@ -199,6 +200,7 @@ def test_populate_without_device_likelihood(tmp_path):
         output=str(tmp_path),
         poolsize=100,
         rng=np.random.default_rng(3),
+        plot=False,
         device="cpu",
     )
     prop.initialise()

@@ -126,7 +126,7 @@ def _proposals(tmp_path, example, seed=31):
     common = dict(flow_config=FLOW_CONFIG, poolsize=200, rng=np.random.default_rng(seed + 1),
                   reparameterisations=SPECS[example])
     jprop = JaxFlowProposal(jmodel, output=str(tmp_path / "jax"), populate_mode="rounds", plot=False, **common)
-    tprop = FlowProposal(tmodel, output=str(tmp_path / "torch"), device="cpu", **common)
+    tprop = FlowProposal(tmodel, output=str(tmp_path / "torch"), plot=False, device="cpu", **common)
     jprop.initialise()
     tprop.initialise()
     rng = np.random.default_rng(seed + 2)

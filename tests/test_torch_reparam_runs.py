@@ -54,8 +54,9 @@ def test_example_runs_agree_with_jax(tmp_path, example):
     torch.set_float32_matmul_precision("highest")
     spec = SPECS[example]
     model = TORCH_MODELS[example]()
-    fs = FlowSampler(model, output=str(tmp_path / "torch"), device="cpu", reparameterisations=spec, **CPU_RUN)
-    t_logz, nested = fs.run()
+    fs = FlowSampler(model, output=str(tmp_path / "torch"), device="cpu", reparameterisations=spec,
+                     plot=False, checkpointing=False, **CPU_RUN)
+    t_logz, nested = fs.run(plot=False, save=False)
     t_err = fs.logZ_error
     with jax.default_device(jax.devices("cpu")[0]):
         jfs = JaxFlowSampler(JAX_MODELS[example](), output=str(tmp_path / "jax"), resume=False, plot=False,

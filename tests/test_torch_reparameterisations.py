@@ -324,6 +324,7 @@ def test_plugin_without_torch_inverse_populates_through_the_host_inverse(tmp_pat
         output=str(tmp_path),
         poolsize=100,
         rng=np.random.default_rng(9),
+        plot=False,
         reparameterisations={"x": {"reparameterisation": HostOnlyRescale}, "y": "default"},
         device="cpu",
     )
