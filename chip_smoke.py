@@ -14,9 +14,12 @@ allowed); the affine-coupling kernel (K1) against its plain PyTorch version
 as the coupling layer with its backward kernel (also bitwise against the
 unfused path of gathers, copies and the bare kernel, and timed against
 it); the rational-quadratic spline
-kernels (K2: forward, inverse and the backward of the forward) against
-theirs; the flagship RealNVP and the neural-spline flow on the GPU
-against the same weights on the CPU; the importance nested sampler's
+kernels (K2: forward, inverse and the backward of the forward, with
+linear tails up to 40 bins and with ``tails=None`` on the unit box)
+against theirs; the flagship RealNVP and the neural-spline flow, and
+the flows the flagships do not build (LU and SVD linear layers, MAF, the
+logit pre-transform, a LARS base, the unit-hypercube spline on a uniform
+base), on the GPU against the same weights on the CPU; the importance nested sampler's
 per-level flows (``log_prob_all`` and single-level passes at 16,384
 rows) on the GPU against the CPU; the flagship nested-sampling run
 (``bench.py``'s configuration) through ``FlowSampler(..., device="cuda")``,
@@ -28,8 +31,11 @@ the weighted flow training and the bootstrap, and with replace_all and
 the final flow (``ins_options``); every registered reparameterisation's
 device inverse against the host's (``reparam_inverse_gpu_vs_cpu``, before the runs) and
 the half-Gaussian and angle examples through the reparameterisations
-(``flagship_reparam_inversion``, ``flagship_reparam_angle``); a
-``kernels`` summary. The
+(``flagship_reparam_inversion``, ``flagship_reparam_angle``); the
+documented RealNVP with LU linear layers (``flagship_lu``) and the
+importance nested sampler with its neural spline flow on the unit
+hypercube (``tails=None``, a uniform base) on the 4-D Rosenbrock
+likelihood (``flagship_ins_hypercube``); a ``kernels`` summary. The
 last line is ``{"ok": true, "device": {...}}``. Any failing phase ends
 the script with a non-zero exit code and without that line. Without a
 GPU the script exits with code 2 at once.
@@ -119,8 +125,25 @@ K2_SHAPES = [
     (4096, 2, 4),
     (2048, 3, 11),
 ]
+#: K2 rows after those (their inputs drawn after the rows above, so those
+#: keep theirs), with their tails: linear tails at more bins than a
+#: 16-lane group holds (24 and 32: one warp an element; 40: chunks of 32
+#: bins), then tails=None (the unit box, K + 1 learned derivatives) at
+#: the unit-hypercube run's shapes: a training batch of 1000 rows with
+#: its two transformed columns (forward and backward), a level's draws of
+#: 10,000 rows (inverse) and 10^6 elements
+K2_SHAPES_MORE = [
+    (2048, 2, 24, "linear"),
+    (2048, 2, 32, "linear"),
+    (2048, 2, 40, "linear"),
+    (1000, 2, 8, None),
+    (10000, 2, 8, None),
+    (500000, 2, 8, None),
+]
 #: shape of the kernels-line numbers: an NSF flagship training step
 K2_MAIN_SHAPE = (900, 1, 8)
+#: and of the tails=None variant's: a training step of the unit-hypercube run
+K2_UNIT_MAIN_SHAPE = (1000, 2, 8)
 TAIL_BOUND = 5.0
 #: The kernels compute in double between float32 loads and stores, so
 #: each output is the float32 rounding of the plain version run in
@@ -208,19 +231,21 @@ def k1_layer_bound_ms(n, D, n_tr, backward=False, inverse=False):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def k2_bound_ms(x, K, backward=False):
+def k2_bound_ms(x, K, backward=False, tails="linear"):
     """Least time for the spline on this data: bytes (x and the outputs
-    for every element, the 3K - 1 parameters only where x is inside the
-    tails) against float32 operations (about 21K + 45 per inside element
-    forward, 31K + 105 backward; none outside)."""
+    for every element, the 3K - 1 parameters (3K + 1 for tails=None) only
+    where x is inside the box) against float32 operations (about 21K + 45
+    per inside element forward, 31K + 105 backward; none outside)."""
     m = x.numel()
-    inside = int(((x >= -TAIL_BOUND) & (x <= TAIL_BOUND)).sum().item())
+    lo, hi = (-TAIL_BOUND, TAIL_BOUND) if tails == "linear" else (0.0, 1.0)
+    n_params = 3 * K - 1 if tails == "linear" else 3 * K + 1
+    inside = int(((x >= lo) & (x <= hi)).sum().item())
     if backward:
         # x, gy, gl read; dx, dw, dh, dd written for every element
-        n_bytes = 4 * (3 * m + (3 * K - 1) * inside + 3 * K * m)
+        n_bytes = 4 * (3 * m + n_params * inside + n_params * m + m)
         n_ops = (31 * K + 105) * inside
     else:
-        n_bytes = 4 * (3 * m + (3 * K - 1) * inside)
+        n_bytes = 4 * (3 * m + n_params * inside)
         n_ops = (21 * K + 45) * inside
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / FP32_OPS_PER_S * 1e3
@@ -527,12 +552,17 @@ def phase_k1_layer():
     return max_err, main
 
 
-def _k2_inputs(gen, n, d, K):
-    """x ~ U(-6, 6) (tails covered), raw parameters ~ N(0, 1), the
-    parameters as the slices of one [n, d, 3K - 1] conditioner output
-    that the coupling passes (strided views, as on the main path)."""
-    x = 12.0 * torch.rand(n, d, device="cuda", generator=gen) - 6.0
-    out = torch.randn(n, d, 3 * K - 1, device="cuda", generator=gen)
+def _k2_inputs(gen, n, d, K, tails="linear"):
+    """x ~ U(-6, 6) (tails covered; U(-0.1, 1.1) for tails=None), raw
+    parameters ~ N(0, 1), the parameters as the slices of one [n, d,
+    3K - 1] (3K + 1) conditioner output that the coupling passes
+    (strided views, as on the main path)."""
+    if tails == "linear":
+        x = 12.0 * torch.rand(n, d, device="cuda", generator=gen) - 6.0
+        out = torch.randn(n, d, 3 * K - 1, device="cuda", generator=gen)
+    else:
+        x = 1.2 * torch.rand(n, d, device="cuda", generator=gen) - 0.1
+        out = torch.randn(n, d, 3 * K + 1, device="cuda", generator=gen)
     return x, out[..., :K], out[..., K : 2 * K], out[..., 2 * K :]
 
 
@@ -546,33 +576,44 @@ def phase_k2():
 
     gen = torch.Generator(device="cuda").manual_seed(20261017)
     rows = []
-    max_err = {"rqs": 0.0, "rqs_backward": 0.0}
+    max_err = {"rqs": 0.0, "rqs_backward": 0.0, "rqs_unit": 0.0, "rqs_unit_backward": 0.0}
     main = {}
-    for n, d, K in K2_SHAPES:
-        x, w, h, dd = _k2_inputs(gen, n, d, K)
+    for n, d, K, tails in [(n, d, K, "linear") for n, d, K in K2_SHAPES] + K2_SHAPES_MORE:
+        row_start = time.perf_counter()
+        x, w, h, dd = _k2_inputs(gen, n, d, K, tails)
         x64 = [a.double() for a in (x, w, h, dd)]
-        row = {"n": n, "d": d, "K": K}
+        row = {"n": n, "d": d, "K": K, "tails": tails}
+        kind = "rqs" if tails == "linear" else "rqs_unit"
+        is_main = (n, d, K) == (K2_MAIN_SHAPE if tails == "linear" else K2_UNIT_MAIN_SHAPE)
         for inverse in (False, True):
             tag = "inverse" if inverse else "forward"
             with torch.no_grad():
-                y, ld = rqs(x, w, h, dd, inverse, TAIL_BOUND)
-                y64, ld64 = rqs_plain(*x64, inverse, TAIL_BOUND)
-                y32, ld32 = rqs_plain(x, w, h, dd, inverse, TAIL_BOUND)
+                before = rqs.launches
+                y, ld = rqs(x, w, h, dd, inverse, TAIL_BOUND, tails)
+                launches = rqs.launches - before
+                y64, ld64 = rqs_plain(*x64, inverse, TAIL_BOUND, tails)
+                y32, ld32 = rqs_plain(x, w, h, dd, inverse, TAIL_BOUND, tails)
             torch.cuda.synchronize()
+            if tails is None:
+                # the outputs of inputs inside the unit box stay inside it
+                box = (x >= 0.0) & (x <= 1.0)
+                if not bool(((y[box] >= 0.0) & (y[box] <= 1.0)).all()):
+                    raise RuntimeError(f"rqs at {(n, d, K, tails)}, inverse={inverse}: y leaves the unit box")
             torch.testing.assert_close(y.double(), y64, atol=K2_F64_ATOL, rtol=K2_F64_RTOL)
             torch.testing.assert_close(ld.double(), ld64, atol=K2_F64_ATOL, rtol=K2_F64_RTOL)
             torch.testing.assert_close(y, y32, atol=K2_F32_Y_ATOL, rtol=0.0)
             torch.testing.assert_close(ld, ld32, atol=K2_F32_LD_ATOL, rtol=0.0)
             err = max(_max_err(y, y64), _max_err(ld, ld64))
-            max_err["rqs"] = max(max_err["rqs"], err)
-            kernel = functools.partial(_launch, x, w, h, dd, inverse, TAIL_BOUND)
-            plain = functools.partial(rqs_plain, x, w, h, dd, inverse, TAIL_BOUND)
+            max_err[kind] = max(max_err[kind], err)
+            kernel = functools.partial(_launch, x, w, h, dd, inverse, TAIL_BOUND, tails)
+            plain = functools.partial(rqs_plain, x, w, h, dd, inverse, TAIL_BOUND, tails)
             ms, _, timer = device_time_ms(kernel)
             plain_ms, plain_kernels, plain_timer = device_time_ms(
                 plain, calls=K2_PLAIN_PROFILE_CALLS
             )
-            bound, bound_by = k2_bound_ms(x, K)
+            bound, bound_by = k2_bound_ms(x, K, tails=tails)
             row[tag] = {
+                "launches_per_call": launches,
                 "max_abs_err": err,
                 "max_abs_err_vs_float32_plain": max(_max_err(y, y32), _max_err(ld, ld32)),
                 "ms": ms,
@@ -585,8 +626,8 @@ def phase_k2():
                 "bound_ms": bound,
                 "bound_by": bound_by,
             }
-            if (n, d, K) == K2_MAIN_SHAPE and not inverse:
-                main["rqs"] = row[tag]
+            if is_main and not inverse:
+                main[kind] = row[tag]
         # backward of the forward: the kernel against autograd of the
         # plain version (float64, and float32 as a share of the largest
         # plain gradient), for a random linear loss of both outputs
@@ -594,17 +635,19 @@ def phase_k2():
         w_ld = torch.randn(n, d, device="cuda", generator=gen)
         grads = {}
         graphs = {}
+        before = rqs.backward_launches
         for name, f, dtype in (
             ("kernel", rqs, torch.float32),
             ("plain64", rqs_plain, torch.float64),
             ("plain32", rqs_plain, torch.float32),
         ):
             args = [a.detach().to(dtype).requires_grad_(True) for a in (x, w, h, dd)]
-            yy, ll = f(*args, False, TAIL_BOUND)
+            yy, ll = f(*args, False, TAIL_BOUND, tails)
             cot = (w_y.to(dtype), w_ld.to(dtype))
             grads[name] = torch.autograd.grad((yy, ll), args, cot, retain_graph=True)
             graphs[name] = (yy, ll, args, cot)
         torch.cuda.synchronize()
+        backward_launches = rqs.backward_launches - before
         share = 0.0
         for g_k, g_64, g_32 in zip(grads["kernel"], grads["plain64"], grads["plain32"]):
             torch.testing.assert_close(g_k.double(), g_64, atol=K2_F64_ATOL, rtol=K2_F64_RTOL)
@@ -613,18 +656,19 @@ def phase_k2():
                 share = max(share, _max_err(g_k, g_32) / max(scale, 1e-30))
         if share > K2_F32_GRAD_SHARE:
             raise RuntimeError(
-                f"rqs_backward at {(n, d, K)} differs from the float32 plain gradient by "
+                f"rqs_backward at {(n, d, K, tails)} differs from the float32 plain gradient by "
                 f"{share} of its largest entry (limit {K2_F32_GRAD_SHARE})"
             )
         err = max(_max_err(a, b) for a, b in zip(grads["kernel"], grads["plain64"]))
-        max_err["rqs_backward"] = max(max_err["rqs_backward"], err)
+        max_err[kind + "_backward"] = max(max_err[kind + "_backward"], err)
         yy, ll, args, cot = graphs["plain32"]
-        kernel = functools.partial(_launch_backward, x, w, h, dd, w_y, w_ld, TAIL_BOUND)
+        kernel = functools.partial(_launch_backward, x, w, h, dd, w_y, w_ld, TAIL_BOUND, tails)
         plain = functools.partial(torch.autograd.grad, (yy, ll), args, cot, retain_graph=True)
         ms, _, timer = device_time_ms(kernel)
         plain_ms, plain_kernels, plain_timer = device_time_ms(plain, calls=K2_PLAIN_PROFILE_CALLS)
-        bound, bound_by = k2_bound_ms(x, K, backward=True)
+        bound, bound_by = k2_bound_ms(x, K, backward=True, tails=tails)
         row["backward"] = {
+            "launches_per_call": backward_launches,
             "max_abs_err": err,
             "max_share_of_largest_float32_plain_gradient": share,
             "ms": ms,
@@ -637,19 +681,19 @@ def phase_k2():
             "bound_ms": bound,
             "bound_by": bound_by,
         }
-        if (n, d, K) == K2_MAIN_SHAPE:
-            main["rqs_backward"] = row["backward"]
+        if is_main:
+            main[kind + "_backward"] = row["backward"]
         del graphs, grads
         # forward -> inverse round trip through the kernel
         with torch.no_grad():
-            z, ld_f = rqs(x, w, h, dd, False, TAIL_BOUND)
-            x_back, ld_i = rqs(z, w, h, dd, True, TAIL_BOUND)
+            z, ld_f = rqs(x, w, h, dd, False, TAIL_BOUND, tails)
+            x_back, ld_i = rqs(z, w, h, dd, True, TAIL_BOUND, tails)
         slope = 1.0 + torch.exp(-ld_f.double())
         rt_x = ((x_back - x).abs() / slope).max().item()
         rt_ld = ((ld_f + ld_i).abs() / slope).max().item()
         if not (rt_x <= K2_RT_X and rt_ld <= K2_RT_LD):
             raise RuntimeError(
-                f"rqs round trip at {(n, d, K)}: x {rt_x} (limit {K2_RT_X}), "
+                f"rqs round trip at {(n, d, K, tails)}: x {rt_x} (limit {K2_RT_X}), "
                 f"log-derivative {rt_ld} (limit {K2_RT_LD}), in units of 1 + exp(-ld)"
             )
         row["round_trip"] = {
@@ -658,6 +702,7 @@ def phase_k2():
             "max_x_err_over_slope": rt_x,
             "max_ld_err_over_slope": rt_ld,
         }
+        row["seconds"] = time.perf_counter() - row_start
         rows.append(row)
     emit(
         "k2_vs_plain",
@@ -683,32 +728,37 @@ def phase_k2():
     return max_err, main
 
 
-def _flagship_flow(device, config, seed=0):
+def _flagship_flow(device, config, seed=0, dims=2):
     from nessai_tpu_torch.flows import configure_model
 
-    flow = configure_model(dict(config["flow_config"], n_inputs=2, seed=seed))
+    flow = configure_model(dict(config["flow_config"], n_inputs=dims, seed=seed))
     return flow.to(device)
 
 
-def phase_flow(config, name, scale, seed=7, reference_dtype=torch.float32):
-    """The flagship's flow (``config``) on the GPU against the same
-    weights on the CPU in ``reference_dtype``, every weight perturbed by
-    ``scale`` so that the couplings are not the identity."""
-    flow_gpu = _flagship_flow("cuda", config)
+def phase_flow(config, name, scale, seed=7, reference_dtype=torch.float32, dims=2, inputs="normal"):
+    """The flagship's flow (``config``, on ``dims`` dimensions) on the GPU
+    against the same weights on the CPU in ``reference_dtype``, every
+    weight perturbed by ``scale`` so that the couplings are not the
+    identity; ``inputs="unit"`` feeds it points of the unit hypercube (the
+    domain of a logit pre-transform or of a flow on the unit box)."""
+    flow_gpu = _flagship_flow("cuda", config, dims=dims)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         # move every weight away from the zero-initialised last layers
         for p in flow_gpu.parameters():
             p.add_(scale * torch.randn(p.shape, generator=gen).to(p.device))
-    flow_cpu = _flagship_flow("cpu", config)
+    flow_cpu = _flagship_flow("cpu", config, dims=dims)
     flow_cpu.load_state_dict({k: v.cpu() for k, v in flow_gpu.state_dict().items()})
     flow_cpu.to(reference_dtype)
-    # inputs in the range the flagship feeds the flow: z-scored live
-    # points and latents truncated at a radius of a few sigma. (The
-    # float32 error of log q grows with |z| · error(z): at |z| ~ 8 it
-    # reaches 1e-5 on either device.)
-    x = np.random.default_rng(seed + 4).normal(0, 1, (6000, 2))
-    x = torch.as_tensor(x[np.linalg.norm(x, axis=1) <= 3.0][:4096], dtype=torch.float32)
+    if inputs == "unit":
+        x = torch.as_tensor(np.random.default_rng(seed + 4).uniform(0.001, 0.999, (4096, dims)), dtype=torch.float32)
+    else:
+        # inputs in the range the flagship feeds the flow: z-scored live
+        # points and latents truncated at a radius of a few sigma. (The
+        # float32 error of log q grows with |z| · error(z): at |z| ~ 8 it
+        # reaches 1e-5 on either device.)
+        x = np.random.default_rng(seed + 4).normal(0, 1, (6000, dims))
+        x = torch.as_tensor(x[np.linalg.norm(x, axis=1) <= 3.0][:4096], dtype=torch.float32)
     errs = {}
     shares = {}
     largest = {}
@@ -739,7 +789,10 @@ def phase_flow(config, name, scale, seed=7, reference_dtype=torch.float32):
     emit(
         "flow_gpu_vs_cpu",
         flow=name,
-        n=4096,
+        n=len(x),
+        dims=dims,
+        inputs=inputs,
+        flow_config=config["flow_config"],
         weight_perturbation=scale,
         reference_dtype=str(reference_dtype),
         atol=FLOW_ATOL,
@@ -959,6 +1012,7 @@ def phase_flagship():
             "k1_backward_launches": (coupling.affine_coupling, "backward_launches"),
             "rqs_launches": (rqs, "launches"),
             "rqs_backward_launches": (rqs, "backward_launches"),
+            **_rqs_unit_counters(),
         },
     )
     emit("flagship", **result)
@@ -985,6 +1039,7 @@ def phase_flagship_nsf():
             "rqs_backward_launches": (rqs, "backward_launches"),
             "k1_launches": (coupling.affine_coupling, "launches"),
             "k1_backward_launches": (coupling.affine_coupling, "backward_launches"),
+            **_rqs_unit_counters(),
         },
     )
     emit("flagship_nsf", **result)
@@ -1008,7 +1063,113 @@ def _k1_counters():
         "k1_backward_launches": (coupling.affine_coupling, "backward_launches"),
         "rqs_launches": (rqs, "launches"),
         "rqs_backward_launches": (rqs, "backward_launches"),
+        **_rqs_unit_counters(),
     }
+
+
+def _rqs_unit_counters():
+    """The counts of K2's tails=None variant (forward and inverse, the
+    inverse among them, backward)."""
+    from nessai_tpu_torch.ops import rqs
+
+    return {
+        "rqs_unit_launches": (rqs, "unit_launches"),
+        "rqs_unit_inverse_launches": (rqs, "unit_inverse_launches"),
+        "rqs_unit_backward_launches": (rqs, "unit_backward_launches"),
+    }
+
+
+#: the flow constructions that the flagships do not build, each held GPU
+#: vs CPU at the flagship's width (the unit-hypercube flow at its run's):
+#: name, flow config, dimensions, inputs, reference dtype (float64 where a
+#: spline runs: its float32 plain version strays more than the kernel,
+#: which computes in double) and weight perturbation
+NEW_FLOWS = (
+    ("realnvp_lu", dict(n_blocks=4, n_layers=2, n_neurons=16, linear_transform="lu"), 2, "normal", torch.float32, 0.05),
+    ("realnvp_svd", dict(n_blocks=4, n_neurons="auto", n_layers=2, linear_transform="svd"), 2, "normal",
+     torch.float32, 0.05),
+    ("maf", dict(ftype="maf", n_blocks=4, n_neurons="auto", n_layers=2), 2, "normal", torch.float32, 0.05),
+    ("nsf_logit", dict(ftype="nsf", n_blocks=4, n_neurons="auto", n_layers=2, pre_transform="logit"), 2, "unit",
+     torch.float64, NSF_FLOW_PERTURBATION),
+    ("realnvp_lars", dict(n_blocks=4, n_neurons="auto", n_layers=2, distribution="lars"), 2, "normal",
+     torch.float32, 0.05),
+    ("nsf_unit_hypercube", None, 4, "unit", torch.float64, NSF_FLOW_PERTURBATION),
+)
+
+
+def phase_new_flows(seconds):
+    """Every construction of ``NEW_FLOWS`` GPU vs CPU (``phase_flow``);
+    the unit-hypercube flow is ``FLAGSHIP_INS_HYPERCUBE``'s."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_INS_HYPERCUBE
+
+    for name, flow_config, dims, inputs, dtype, scale in NEW_FLOWS:
+        config = dict(flow_config=flow_config or FLAGSHIP_INS_HYPERCUBE["flow_config"])
+        timed(seconds, f"flow_{name}", phase_flow, config, name, scale=scale, reference_dtype=dtype, dims=dims,
+              inputs=inputs)
+
+
+def phase_flagship_lu():
+    """``FLAGSHIP_LU``, the documented flow configuration
+    (``docs/normalising-flows-configuration.md:52-66``: LU linear layers)
+    on the standard sampler, in full."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_LU
+
+    result, nested, fs = _flagship_run(FLAGSHIP_LU, _k1_counters())
+    emit("flagship_lu", **result)
+    if result["k1_launches"] == 0 or result["k1_backward_launches"] == 0:
+        raise RuntimeError(f"the LU run launched K1 {result['k1_launches']} / {result['k1_backward_launches']} times")
+    _check_run(result, nested, fs)
+    return result
+
+
+def phase_flagship_ins_hypercube():
+    """``FLAGSHIP_INS_HYPERCUBE``, the example
+    ``examples/importance_nested_sampler/nsf_unit_hypercube.py`` as
+    written (nlive 10,000, the 4-D Rosenbrock likelihood, a neural spline
+    flow with tails=None on a uniform base), in full. Fails unless
+    |pull| < 3 against the quadrature's log-evidence with the sampler's
+    own error, the samples lie in [-5, 5]^4, and K2's tails=None variant
+    launched forward, inverse and backward."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_INS_HYPERCUBE, phase_times
+    from nessai_tpu_torch.utils.testing import RosenbrockModel, rosenbrock_log_evidence
+
+    # the transfer-matrix quadrature: -15.1016907 at 4001, 8001 and 16001 points
+    analytic = rosenbrock_log_evidence(4, n=8001)
+    fs, model, samples, wall, launches = _drive(FLAGSHIP_INS_HYPERCUBE, _k1_counters(), model=RosenbrockModel(4))
+    ns = fs.ns
+    err = float(fs.logZ_error)
+    pull = (fs.logZ - analytic) / err
+    times = phase_times(fs)
+    result = dict(
+        levels=times.pop("levels"),
+        logZ=fs.logZ,
+        logZ_err=err,
+        analytic=analytic,
+        pull=pull,
+        samples=int(len(samples)),
+        final_ess=float(ns.state.effective_n_posterior_samples),
+        likelihood_evaluations=int(model.likelihood_evaluations),
+        wall_s=wall,
+        sampling_time_s=ns.sampling_time.total_seconds(),
+        **times,
+        training_share_of_wall=times["training_time_s"] / wall,
+        rqs_unit_forward_launches=launches["rqs_unit_launches"] - launches["rqs_unit_inverse_launches"],
+        **launches,
+        max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
+        posterior_samples=int(fs.posterior_samples.size),
+    )
+    emit("flagship_ins_hypercube", **result)
+    checks = {
+        "|pull| < 3": math.isfinite(pull) and abs(pull) < PULL_LIMIT,
+        "nested samples in [-5, 5]^4": _in_bounds(samples, model),
+        "posterior samples in [-5, 5]^4": _in_bounds(fs.posterior_samples, model),
+        "tails=None forward launched": result["rqs_unit_forward_launches"] > 0,
+        "tails=None inverse launched": launches["rqs_unit_inverse_launches"] > 0,
+        "tails=None backward launched": launches["rqs_unit_backward_launches"] > 0,
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"flagship_ins_hypercube: failed {[k for k, v in checks.items() if not v]}")
+    return result
 
 
 def phase_flagship_ins():
@@ -1797,6 +1958,7 @@ def main():
         # in double (PERF.md, Findings)
         timed(seconds, "flow_nsf", phase_flow, FLAGSHIP_NSF, "nsf",
               scale=NSF_FLOW_PERTURBATION, reference_dtype=torch.float64)
+        phase_new_flows(seconds)
         timed(seconds, "ins_flow", phase_ins_flow)
         timed(seconds, "reparam_inverse", phase_reparam_inverse)
         flagship = timed(seconds, "flagship", phase_flagship)
@@ -1806,6 +1968,8 @@ def main():
         options = timed(seconds, "ins_options", phase_ins_options)
         inversion = timed(seconds, "flagship_reparam_inversion", phase_flagship_reparam_inversion)
         angle = timed(seconds, "flagship_reparam_angle", phase_flagship_reparam_angle)
+        lu = timed(seconds, "flagship_lu", phase_flagship_lu)
+        hypercube = timed(seconds, "flagship_ins_hypercube", phase_flagship_ins_hypercube)
         checkpointing = timed(seconds, "flagship_checkpointing", phase_flagship_checkpointing, flagship)
         pool = timed(seconds, "pool_reparam_angle", phase_pool_reparam_angle, angle)
         resumed = phase_resume(seconds)
@@ -1822,6 +1986,8 @@ def main():
         **options,
         "flagship_reparam_inversion": inversion,
         "flagship_reparam_angle": angle,
+        "flagship_lu": lu,
+        "flagship_ins_hypercube": hypercube,
         "flagship_checkpointing": checkpointing,
         "pool_reparam_angle": pool,
         # the resumed processes' runs
@@ -1881,6 +2047,33 @@ def main():
                 "timer": row["timer"],
                 "plain_timer": row["plain_timer"],
                 "shape": list(K2_MAIN_SHAPE),
+                "card": smi,
+            }
+        )
+    for name, replaces, key in (
+        ("rqs_unit", "nessai_tpu/ops/rqs_pallas.py:180", "rqs_unit_launches"),
+        ("rqs_unit_backward", "nessai_tpu/ops/rqs_pallas.py:228", "rqs_unit_backward_launches"),
+    ):
+        row = main_k2[name]
+        kernels.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": "nessai_tpu_torch/csrc/rqs.cu",
+                "replaces": replaces,
+                # the JAX package computes tails=None with its jnp spline
+                "variant": "tails=None: the unit box, K + 1 learned derivatives (nessai_tpu/flows/rqs.py:28)",
+                "launches": hypercube[key],
+                "launches_by_run": {run: r[key] for run, r in runs.items()},
+                "max_abs_err": max_err_k2[name],
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": None,
+                "timer": row["timer"],
+                "plain_timer": row["plain_timer"],
+                "shape": list(K2_UNIT_MAIN_SHAPE),
                 "card": smi,
             }
         )

@@ -4,8 +4,13 @@ Counterpart of ``nessai_tpu/flowmodel/base.py``.
 Training is a plain eager loop: the batches are shuffled and split once
 per call, every epoch steps AdamW with optax's global-norm clipping over
 them, a held-out validation split drives patience-based early stopping,
-and the best weights are restored at the end. Host arrays come in and
-go out as numpy; the flow and its data live on ``device``.
+and the best weights are restored at the end. The flow is in training
+mode (conditioner dropout) for the optimiser steps alone. A LARS base
+distribution moves its normalisation estimate after every epoch and
+takes a final one after training, where the JAX package's per-epoch
+loop does (``nessai_tpu/flowmodel/base.py:991-1035, 1108-1113``). Host
+arrays come in and go out as numpy; the flow and its data live on
+``device``.
 """
 
 import copy
@@ -18,6 +23,7 @@ import torch
 
 from ..flows import configure_model
 from ..flows.bijectors import ActNorm, Chain
+from ..flows.distributions import ResampledGaussian
 from ..utils.device import get_device
 from .config import (
     FlowConfig,
@@ -54,6 +60,9 @@ def _clip_by_global_norm(params, max_norm: float) -> None:
 class FlowModel:
     """Normalising-flow training and inference engine."""
 
+    #: ``torch.Generator`` attributes, pickled as their states
+    _generators = ("_device_generator",)
+
     def __init__(self, flow_config=None, training_config=None, output=None, rng=None, device=None):
         self.device = get_device(device)
         self.output = os.getcwd() if output is None else output
@@ -67,6 +76,9 @@ class FlowModel:
         self.weights_file = None
         self.history = {"loss": [], "val_loss": []}
         self._actnorm_done = False
+        #: the device draws of a LARS base's normalisation and of a latent
+        #: distribution other than the unit Gaussian, made at first use
+        self._device_generator = None
 
     @property
     def dims(self):
@@ -152,6 +164,31 @@ class FlowModel:
             return -log_p.mean()
         return -(w * log_p).sum() / w.sum().clamp_min(1e-12)
 
+    def device_generator(self) -> torch.Generator:
+        """The generator of a LARS base's normalisation draws and of the
+        draws from a base other than the unit Gaussian, on the device,
+        seeded from ``rng`` at its first use (a run on a unit-Gaussian base
+        without LARS draws nothing from ``rng`` for it)."""
+        if getattr(self, "_device_generator", None) is None:
+            self._device_generator = torch.Generator(device=self.device).manual_seed(
+                int(self.rng.integers(0, 2**63 - 1))
+            )
+        return self._device_generator
+
+    def end_iteration(self) -> None:
+        """The per-epoch update of a LARS base's normalisation estimate
+        (``nessai_tpu/flowmodel/base.py:1293-1299``); nothing for other
+        bases."""
+        if isinstance(self.flow.base, ResampledGaussian):
+            self.flow.end_iteration(self.device_generator())
+
+    def finalise(self) -> None:
+        """A LARS base's final normalisation estimate
+        (``nessai_tpu/flowmodel/base.py:1301-1305``); nothing for other
+        bases."""
+        if isinstance(self.flow.base, ResampledGaussian):
+            self.flow.finalise(self.device_generator())
+
     def _train_step(self, x, w=None) -> torch.Tensor:
         """One optimiser step on the batch ``x`` (with weights ``w``);
         returns its loss (a device scalar, no host synchronisation)."""
@@ -205,7 +242,10 @@ class FlowModel:
         best_val = np.inf
         best_it = 0
         for epoch in range(int(max_epochs)):
+            self.flow.train()
             loss = torch.stack([self._train_step(x, w) for x, w in zip(batches, w_batches)]).mean()
+            self.flow.eval()
+            self.end_iteration()
             if val is not None:
                 with torch.no_grad():
                     metric = self._loss(val, w_val)
@@ -226,6 +266,9 @@ class FlowModel:
             if epoch - best_it > patience:
                 break
         self.flow.load_state_dict(best_state)
+        if isinstance(self.flow.base, ResampledGaussian):
+            # a larger estimate from scratch, as the JAX package's
+            self.flow.base.update_log_z(50_000, decay=0.0, generator=self.device_generator())
         logger.debug("Trained %d epochs (best %d)", len(history["loss"]), best_it)
         self.history["loss"].extend(history["loss"])
         self.history["val_loss"].extend(history["val_loss"])
@@ -296,11 +339,16 @@ class FlowModel:
         state["flow"] = None
         state["optimiser"] = None
         state["initialised"] = False
+        for name in self._generators:
+            gen = state.pop(name, None)
+            state[name + "_state"] = None if gen is None else (gen.get_state(), str(gen.device))
         return state
 
     def __setstate__(self, state):
+        generators = {name: state.pop(name + "_state", None) for name in self._generators}
         saved = state.pop("_state_dict", None)
         self.__dict__.update(state)
+        self._device_generator = None
         if saved is not None:
             # the new flow's seed is not drawn from the run's generator:
             # its weights are the saved ones
@@ -309,6 +357,11 @@ class FlowModel:
             self.rng.bit_generator.state = rng_state
             self.flow.load_state_dict(saved)
             self._actnorm_done = True
+        for name, gen_state in generators.items():
+            if gen_state is not None:
+                gen = torch.Generator(device=gen_state[1])
+                gen.set_state(gen_state[0])
+                setattr(self, name, gen)
 
 
 def _cpu_state_dict(flow) -> dict:

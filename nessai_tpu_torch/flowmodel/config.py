@@ -21,6 +21,7 @@ class FlowConfig:
     n_layers: int = 2
     n_neurons: Union[int, str, None] = None
     distribution: Optional[str] = None
+    distribution_kwargs: Optional[dict] = None
     seed: int = 0
     kwargs: dict = field(default_factory=dict)
 

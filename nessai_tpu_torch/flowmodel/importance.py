@@ -41,6 +41,8 @@ class ImportanceFlowModel(FlowModel):
     holds no level, and :meth:`resume` reloads them from those files.
     """
 
+    _generators = FlowModel._generators + ("_weights_generator", "_sample_generator")
+
     def __init__(self, flow_config=None, training_config=None, output=None, rng=None, device=None):
         super().__init__(
             flow_config=flow_config,
@@ -156,22 +158,7 @@ class ImportanceFlowModel(FlowModel):
         generators' states go in as CPU byte tensors with their devices."""
         state = super().__getstate__()
         state["models"] = []
-        for name in ("_weights_generator", "_sample_generator"):
-            gen = state.pop(name)
-            state[name + "_state"] = None if gen is None else (gen.get_state(), str(gen.device))
         return state
-
-    def __setstate__(self, state):
-        generators = {
-            name: state.pop(name + "_state", None) for name in ("_weights_generator", "_sample_generator")
-        }
-        super().__setstate__(state)
-        for name, saved in generators.items():
-            if saved is not None:
-                gen_state, device = saved
-                gen = torch.Generator(device=device)
-                gen.set_state(gen_state)
-                setattr(self, name, gen)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -196,12 +183,10 @@ class ImportanceFlowModel(FlowModel):
     @torch.no_grad()
     def sample_and_log_prob_ith(self, i: int, N: int = 1):
         """``N`` draws from level ``i`` and their log-density, as float64
-        host arrays: latent normals from the device generator, mapped
-        through the level's inverse on the device."""
-        z = torch.randn(
-            int(N), self.dims, generator=self._sample_generator, device=self.device
-        )
-        x, log_prob = self.models[i].inverse_and_log_prob(z)
+        host arrays: latent draws from the level's base distribution (one
+        ``torch.randn`` for a unit Gaussian) on the device generator,
+        mapped through the level's inverse on the device."""
+        x, log_prob = self.models[i].sample_and_log_prob(int(N), self._sample_generator)
         return x.double().cpu().numpy(), log_prob.double().cpu().numpy()
 
     def sample_ith(self, i: int, N: int = 1) -> np.ndarray:

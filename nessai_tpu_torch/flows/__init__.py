@@ -2,13 +2,24 @@
 ``nessai_tpu/flows``."""
 
 from .base import Flow
-from .bijectors import ActNorm, AffineCoupling, Chain, Permutation, RQSCoupling
+from .bijectors import (
+    ActNorm,
+    AffineCoupling,
+    Chain,
+    Logit,
+    LULinear,
+    MaskedAffineAutoregressive,
+    Permutation,
+    RQSCoupling,
+    SVDLinear,
+)
 from .convert import params_from_jax, params_to_jax
-from .distributions import StandardNormal
+from .distributions import MultivariateNormal, MultivariateUniform, ResampledGaussian, StandardNormal
+from .maf import build_maf_bijector
 from .nsf import build_nsf_bijector
 from .realnvp import build_realnvp_bijector
 from .rqs import rational_quadratic_spline
-from .utils import configure_model, get_flow_builder, get_n_neurons
+from .utils import configure_model, get_base_distribution, get_flow_builder, get_n_neurons
 
 __all__ = [
     "Flow",
@@ -17,11 +28,20 @@ __all__ = [
     "RQSCoupling",
     "Permutation",
     "ActNorm",
+    "LULinear",
+    "SVDLinear",
+    "Logit",
+    "MaskedAffineAutoregressive",
     "StandardNormal",
+    "MultivariateNormal",
+    "MultivariateUniform",
+    "ResampledGaussian",
     "configure_model",
     "get_flow_builder",
+    "get_base_distribution",
     "build_realnvp_bijector",
     "build_nsf_bijector",
+    "build_maf_bijector",
     "rational_quadratic_spline",
     "get_n_neurons",
     "params_from_jax",

@@ -40,3 +40,29 @@ class Flow(nn.Module):
 
     def base_log_prob(self, z):
         return self.base.log_prob(z)
+
+    # the JAX package's ``nessai_tpu/flows/base.py:73-105``
+    def end_iteration(self, generator=None) -> None:
+        """After each training epoch: a LARS base moves its normalisation
+        estimate (:meth:`ResampledGaussian.update_log_z`); other bases
+        have none."""
+        if hasattr(self.base, "update_log_z"):
+            self.base.update_log_z(generator=generator)
+
+    def finalise(self, generator=None) -> None:
+        """After training: a LARS base's final estimate of its
+        normalisation (:meth:`ResampledGaussian.finalise`)."""
+        if hasattr(self.base, "finalise"):
+            self.base.finalise(generator=generator)
+
+    def sample_base(self, n: int, generator=None):
+        """``n`` latent draws from the base distribution."""
+        return self.base.sample(n, generator)
+
+    def sample(self, n: int, generator=None):
+        """``n`` draws from the flow: base draws through the inverse."""
+        return self.bijector.inverse(self.sample_base(n, generator))[0]
+
+    def sample_and_log_prob(self, n: int, generator=None):
+        """``n`` draws from the flow and their log-density."""
+        return self.inverse_and_log_prob(self.sample_base(n, generator))

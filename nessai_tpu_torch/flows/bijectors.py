@@ -1,22 +1,36 @@
 """Bijectors as ``nn.Module``s. Counterpart of
-``nessai_tpu/flows/bijectors.py`` (the RealNVP and neural-spline subset:
-``Chain``, ``Permutation``, ``AffineCoupling``, ``RQSCoupling``,
-``ActNorm``).
+``nessai_tpu/flows/bijectors.py``: ``Chain``, ``Permutation``,
+``AffineCoupling``, ``RQSCoupling``, ``ActNorm``, the linear layers
+``LULinear`` and ``SVDLinear``, the ``Logit`` pre-transform and the
+masked autoregressive ``MaskedAffineAutoregressive``.
 
 ``forward(x)`` maps data to latent and ``inverse(z)`` latent to data;
 both return ``(output, log_det)`` with ``log_det`` the per-row log of
 the Jacobian determinant of the applied direction.
 """
 
+import math
+
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..ops.coupling import affine_coupling_layer
-from .nets import MLP, ResNet
-from .rqs import rational_quadratic_spline
+from .nets import ACTIVATIONS, MLP, ResNet, make_dropout
+from .rqs import n_derivatives
 
-__all__ = ["Chain", "Permutation", "AffineCoupling", "RQSCoupling", "ActNorm"]
+__all__ = [
+    "Chain",
+    "Permutation",
+    "AffineCoupling",
+    "RQSCoupling",
+    "ActNorm",
+    "LULinear",
+    "SVDLinear",
+    "Logit",
+    "MaskedAffineAutoregressive",
+]
 
 
 class Chain(nn.Module):
@@ -66,7 +80,9 @@ class _Coupling(nn.Module):
     feeds a conditioner net with ``n_out`` outputs, which parameterise
     the transform of the other half."""
 
-    def __init__(self, mask, n_out_per_dim, n_neurons, n_layers, net, activation, generator):
+    def __init__(
+        self, mask, n_out_per_dim, n_neurons, n_layers, net, activation, generator, dropout_probability=0.0
+    ):
         super().__init__()
         mask = np.asarray(mask)
         identity_idx = np.flatnonzero(mask > 0)
@@ -86,9 +102,9 @@ class _Coupling(nn.Module):
         n_out = self.n_tr * n_out_per_dim
         n_id = len(identity_idx)
         if net == "mlp":
-            self.net = MLP(n_id, n_out, n_neurons, n_layers, activation, generator)
+            self.net = MLP(n_id, n_out, n_neurons, n_layers, activation, generator, dropout_probability)
         elif net == "resnet":
-            self.net = ResNet(n_id, n_out, n_neurons, n_layers, activation, generator)
+            self.net = ResNet(n_id, n_out, n_neurons, n_layers, activation, generator, dropout_probability)
         else:
             raise ValueError(f"Unknown net: {net}")
 
@@ -129,10 +145,18 @@ class AffineCoupling(_Coupling):
         activation: str = "relu",
         volume_preserving: bool = False,
         scale_limit: float = 5.0,
+        dropout_probability: float = 0.0,
         generator=None,
     ):
         super().__init__(
-            mask, 1 if volume_preserving else 2, n_neurons, n_layers, net, activation, generator
+            mask,
+            1 if volume_preserving else 2,
+            n_neurons,
+            n_layers,
+            net,
+            activation,
+            generator,
+            dropout_probability,
         )
         self.volume_preserving = volume_preserving
         self.scale_limit = float(scale_limit)
@@ -162,9 +186,10 @@ class RQSCoupling(_Coupling):
     ``K`` raw widths, ``K`` raw heights and the raw knot derivatives
     (``K - 1`` interior ones for linear tails, all ``K + 1`` for
     ``tails=None``). Its last layer starts at zero, so a new coupling is
-    the identity spline. Linear tails go through the spline kernel
-    (:func:`~nessai_tpu_torch.ops.rqs.rqs`); the log-derivative is
-    summed over the columns.
+    the identity spline. Both go through the spline kernel
+    (:func:`~nessai_tpu_torch.ops.rqs.rqs`): linear tails on
+    ``[-tail_bound, tail_bound]``, or ``tails=None`` on the unit box; the
+    log-derivative is summed over the columns.
     """
 
     def __init__(
@@ -177,14 +202,19 @@ class RQSCoupling(_Coupling):
         net: str = "resnet",
         activation: str = "relu",
         tails="linear",
+        dropout_probability: float = 0.0,
         generator=None,
     ):
-        if tails not in ("linear", None):
-            raise ValueError(f"Unknown tails: {tails}")
         self.num_bins = int(num_bins)
-        n_deriv = self.num_bins - 1 if tails == "linear" else self.num_bins + 1
         super().__init__(
-            mask, 2 * self.num_bins + n_deriv, n_neurons, n_layers, net, activation, generator
+            mask,
+            2 * self.num_bins + n_derivatives(self.num_bins, tails),
+            n_neurons,
+            n_layers,
+            net,
+            activation,
+            generator,
+            dropout_probability,
         )
         self.tail_bound = float(tail_bound)
         self.tails = tails
@@ -192,22 +222,12 @@ class RQSCoupling(_Coupling):
     def _transform_half(self, x_tr, out, inverse: bool):
         # imported here: ops.rqs imports flows.rqs, whose package imports
         # this module
-        from ..ops.rqs import on_card, rqs
+        from ..ops.rqs import rqs
 
         K = self.num_bins
         out = out.reshape(x_tr.shape[0], self.n_tr, -1)
         w, h, d = out[..., :K], out[..., K : 2 * K], out[..., 2 * K :]
-        if self.tails == "linear":
-            y_tr, log_det = rqs(x_tr, w, h, d, inverse, self.tail_bound)
-        elif on_card(x_tr):
-            raise NotImplementedError(
-                "RQSCoupling: tails=None has no GPU kernel yet; it comes with the "
-                "unit-hypercube flows of the importance nested sampler (ROADMAP §1 item 3g)"
-            )
-        else:
-            y_tr, log_det = rational_quadratic_spline(
-                x_tr, w, h, d, inverse=inverse, tail_bound=self.tail_bound, tails=None
-            )
+        y_tr, log_det = rqs(x_tr, w, h, d, inverse, self.tail_bound, self.tails)
         return y_tr, torch.sum(log_det, dim=-1)
 
 
@@ -237,3 +257,197 @@ class ActNorm(nn.Module):
         std = torch.std(x, dim=0, correction=0) + 1e-6
         self.log_scale.copy_(-torch.log(std))
         self.shift.copy_(-mean)
+
+
+def _row_constant(value, x):
+    """``value`` (a 0-d tensor) repeated for every row of ``x``."""
+    return value * torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+
+
+class LULinear(nn.Module):
+    """Invertible linear layer ``z = x W^T + b`` with ``W = L U``: ``L``
+    unit lower triangular, ``U`` upper triangular with diagonal
+    ``exp(log_diag)`` (``nessai_tpu/flows/bijectors.py:346-404``; the
+    permutation of its ``P L U`` is the :class:`Permutation` before it).
+    The forward is a matrix product, the inverse two triangular solves,
+    the log-determinant ``sum(log_diag)``. Starts at the identity unless
+    ``identity_init`` is False (then 1e-3 N(0, 1) entries)."""
+
+    def __init__(self, dim: int, identity_init: bool = True, generator=None):
+        super().__init__()
+        self.dim = dim
+        if identity_init:
+            lower, upper, log_diag = torch.zeros(dim, dim), torch.zeros(dim, dim), torch.zeros(dim)
+        else:
+            lower = 1e-3 * torch.randn(dim, dim, generator=generator)
+            upper = 1e-3 * torch.randn(dim, dim, generator=generator)
+            log_diag = 1e-3 * torch.randn(dim, generator=generator)
+        self.lower = nn.Parameter(lower)
+        self.upper = nn.Parameter(upper)
+        self.log_diag = nn.Parameter(log_diag)
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def _lu(self):
+        eye = torch.eye(self.dim, dtype=self.lower.dtype, device=self.lower.device)
+        L = torch.tril(self.lower, -1) + eye
+        U = torch.triu(self.upper, 1) + torch.diag(torch.exp(self.log_diag))
+        return L, U
+
+    def forward(self, x):
+        L, U = self._lu()
+        z = x @ (L @ U).T + self.bias
+        return z, _row_constant(torch.sum(self.log_diag), x)
+
+    def inverse(self, z):
+        L, U = self._lu()
+        # W x^T = (z - b)^T, by two triangular solves
+        t = torch.linalg.solve_triangular(L, (z - self.bias).T, upper=False)
+        x = torch.linalg.solve_triangular(U, t, upper=True).T
+        return x, _row_constant(-torch.sum(self.log_diag), z)
+
+
+class SVDLinear(nn.Module):
+    """Invertible linear layer ``z = x W^T + b`` with ``W = U diag(exp(
+    log_s)) V^T``, ``U`` and ``V`` products of ``num_householder``
+    Householder reflections (``nessai_tpu/flows/bijectors.py:406-485``).
+    The inverse is exact and solve-free, ``W^-1 = V diag(exp(-log_s))
+    U^T``; the log-determinant is ``sum(log_s)``."""
+
+    def __init__(self, dim: int, num_householder=None, identity_init: bool = True, generator=None):
+        super().__init__()
+        self.dim = dim
+        # an even count keeps det(U) = det(V) = +1
+        self.num_householder = int(num_householder or max(2, dim - dim % 2))
+        self.vs_u = nn.Parameter(torch.randn(self.num_householder, dim, generator=generator))
+        self.vs_v = nn.Parameter(torch.randn(self.num_householder, dim, generator=generator))
+        log_s = torch.zeros(dim) if identity_init else 1e-3 * torch.randn(dim, generator=generator)
+        self.log_s = nn.Parameter(log_s)
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    @staticmethod
+    def _householder_product(vs):
+        """``H(v_1) ... H(v_k)`` with ``H(v) = I - 2 v v^T / (v.v)``."""
+        q = torch.eye(vs.shape[-1], dtype=vs.dtype, device=vs.device)
+        for v in vs:
+            coeff = 2.0 / torch.clamp_min(torch.dot(v, v), 1e-12)
+            q = q - coeff * torch.outer(v, v @ q)
+        return q
+
+    def forward(self, x):
+        u = self._householder_product(self.vs_u)
+        v = self._householder_product(self.vs_v)
+        z = ((x @ v) * torch.exp(self.log_s)) @ u.T + self.bias
+        return z, _row_constant(torch.sum(self.log_s), x)
+
+    def inverse(self, z):
+        u = self._householder_product(self.vs_u)
+        v = self._householder_product(self.vs_v)
+        x = (((z - self.bias) @ u) * torch.exp(-self.log_s)) @ v.T
+        return x, _row_constant(-torch.sum(self.log_s), z)
+
+
+class Logit(nn.Module):
+    """Forward the logit of ``[0, 1]`` (inputs clipped to ``[eps, 1 -
+    eps]``), inverse the sigmoid (``nessai_tpu/flows/bijectors.py:
+    545-562``): the pre-transform of flows on unit-interval data."""
+
+    def __init__(self, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x):
+        x = torch.clamp(x, self.eps, 1 - self.eps)
+        z = torch.log(x) - torch.log1p(-x)
+        return z, torch.sum(-torch.log(x) - torch.log1p(-x), dim=-1)
+
+    def inverse(self, z):
+        x = torch.sigmoid(z)
+        return x, torch.sum(torch.log(x) + torch.log1p(-x), dim=-1)
+
+
+def made_masks(dim: int, n_neurons: int, n_layers: int):
+    """The MADE masks ``[n_in, n_out]`` of each layer, built as
+    ``nessai_tpu/flows/bijectors.py:593-609`` builds them: input degrees
+    1..dim, hidden degrees cycling through 1..dim-1, and each output (log
+    scale, then shift) of dimension i seeing the inputs before it."""
+    degrees_in = np.arange(1, dim + 1)
+    masks = []
+    prev = degrees_in
+    for _ in range(n_layers):
+        hidden = (np.arange(n_neurons) % max(dim - 1, 1)) + 1
+        masks.append((hidden[None, :] >= prev[:, None]).astype(np.float32))
+        prev = hidden
+    out_degrees = np.tile(degrees_in, 2)
+    masks.append((out_degrees[None, :] > prev[:, None]).astype(np.float32))
+    return masks
+
+
+class MaskedAffineAutoregressive(nn.Module):
+    """Masked affine autoregressive transform (MAF, arXiv:1705.07057; a
+    MADE conditioner; ``nessai_tpu/flows/bijectors.py:564-657``).
+
+    ``z = x exp(s) + t`` with ``s = c tanh(raw_s / c)`` and ``(raw_s,
+    t)`` the masked net of ``x``: one parallel pass forward; the inverse
+    is a loop over the dimensions, dimension i from the net of the
+    dimensions before it. Dropout (``dropout_probability``) follows each
+    hidden activation, in training mode only."""
+
+    def __init__(
+        self,
+        dim: int,
+        n_neurons: int,
+        n_layers: int = 2,
+        activation: str = "relu",
+        scale_limit: float = 5.0,
+        dropout_probability: float = 0.0,
+        generator=None,
+    ):
+        super().__init__()
+        self.dim = dim
+        self.activation = activation
+        self.scale_limit = float(scale_limit)
+        masks = made_masks(dim, n_neurons, n_layers)
+        self.layers = nn.ModuleList()
+        for i, m in enumerate(masks):
+            n_in, n_out = m.shape
+            layer = nn.Linear(n_in, n_out)
+            with torch.no_grad():
+                if i == len(masks) - 1:
+                    layer.weight.zero_()
+                else:
+                    bound = 1.0 / math.sqrt(max(n_in, 1))
+                    layer.weight.uniform_(-bound, bound, generator=generator)
+                layer.bias.zero_()
+            self.layers.append(layer)
+            # [n_out, n_in], as nn.Linear keeps its weight; fixed by the
+            # configuration, so left out of the state dict
+            self.register_buffer(f"mask_{i}", torch.as_tensor(m.T.copy()), persistent=False)
+        self.dropout = make_dropout(dropout_probability)
+
+    def _net(self, x):
+        act = ACTIVATIONS[self.activation]
+        h = x
+        last = len(self.layers) - 1
+        for i, layer in enumerate(self.layers):
+            h = F.linear(h, layer.weight * getattr(self, f"mask_{i}"), layer.bias)
+            if i < last:
+                h = act(h)
+                if self.dropout is not None:
+                    h = self.dropout(h)
+        raw_s, t = h[..., : self.dim], h[..., self.dim :]
+        s = self.scale_limit * torch.tanh(raw_s / self.scale_limit)
+        return s, t
+
+    def forward(self, x):
+        s, t = self._net(x)
+        return x * torch.exp(s) + t, torch.sum(s, dim=-1)
+
+    def inverse(self, z):
+        x = torch.zeros_like(z)
+        log_det = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
+        for i in range(self.dim):
+            s, t = self._net(x)
+            x_i = (z[:, i] - t[:, i]) * torch.exp(-s[:, i])
+            x = torch.cat([x[:, :i], x_i[:, None], x[:, i + 1 :]], dim=1)
+            log_det = log_det - s[:, i]
+        return x, log_det

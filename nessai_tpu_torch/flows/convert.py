@@ -6,8 +6,12 @@ The JAX package keeps a flow's parameters as a pytree
 and returned as numpy arrays. A dense layer is ``{"w": [n_in, n_out],
 "b": [n_out]}`` there and ``nn.Linear`` (weight ``[n_out, n_in]``) here,
 so weights are transposed. Permutations become buffers. A coupling
-(affine or spline) is ``{"net": ...}``; a chain without ActNorm simply
-has no such entries. :func:`levels_from_jax` carries the per-level
+(affine or spline, either tails) is ``{"net": ...}``; a chain without
+ActNorm simply has no such entries. ``LULinear`` is ``{"lower", "upper",
+"log_diag", "bias"}``, ``SVDLinear`` ``{"vs_u", "vs_v", "log_s",
+"bias"}``, ``MaskedAffineAutoregressive`` ``{"layers": [dense, ...]}``
+(the unmasked weights) and ``Logit`` ``{}``. The base distribution is
+``{}`` but for LARS, ``{"net": MLP, "log_Z": scalar}``. :func:`levels_from_jax` carries the per-level
 parameters of the JAX package's ``ImportanceFlowModel`` into the port's.
 :func:`state_dict_from_jax_file` and :func:`level_state_dicts_from_jax`
 read the JAX package's weight files (a pickled pytree of numpy arrays:
@@ -22,7 +26,17 @@ import pickle
 import numpy as np
 import torch
 
-from .bijectors import ActNorm, AffineCoupling, Permutation, RQSCoupling
+from .bijectors import (
+    ActNorm,
+    AffineCoupling,
+    Logit,
+    LULinear,
+    MaskedAffineAutoregressive,
+    Permutation,
+    RQSCoupling,
+    SVDLinear,
+)
+from .distributions import ResampledGaussian
 from .nets import MLP, ResNet
 
 __all__ = [
@@ -76,6 +90,19 @@ def _net_to(net):
     }
 
 
+#: the parameters, by their JAX names, of the bijectors that are plain
+#: tensors
+_TENSORS = {
+    ActNorm: ("log_scale", "shift"),
+    LULinear: ("lower", "upper", "log_diag", "bias"),
+    SVDLinear: ("vs_u", "vs_v", "log_s", "bias"),
+}
+
+
+def _copy_into(param, value) -> None:
+    param.copy_(torch.tensor(np.asarray(value, np.float32)))
+
+
 @torch.no_grad()
 def params_from_jax(flow, params) -> None:
     """Load the JAX package's flow parameters (numpy pytree) into
@@ -88,11 +115,17 @@ def params_from_jax(flow, params) -> None:
             b.inv = torch.tensor(np.asarray(p["inv"]), dtype=torch.long, device=device)
         elif isinstance(b, (AffineCoupling, RQSCoupling)):
             _net_from(b.net, p["net"])
-        elif isinstance(b, ActNorm):
-            b.log_scale.copy_(torch.tensor(np.asarray(p["log_scale"], np.float32)))
-            b.shift.copy_(torch.tensor(np.asarray(p["shift"], np.float32)))
-        else:
+        elif type(b) in _TENSORS:
+            for name in _TENSORS[type(b)]:
+                _copy_into(getattr(b, name), p[name])
+        elif isinstance(b, MaskedAffineAutoregressive):
+            for layer, lp in zip(b.layers, p["layers"], strict=True):
+                _dense_from(layer, lp)
+        elif not isinstance(b, Logit):
             raise TypeError(f"Unknown bijector: {type(b).__name__}")
+    if isinstance(flow.base, ResampledGaussian):
+        _net_from(flow.base.net, params["base"]["net"])
+        _copy_into(flow.base.log_Z, params["base"]["log_Z"])
 
 
 def params_to_jax(flow) -> dict:
@@ -108,16 +141,18 @@ def params_to_jax(flow) -> dict:
             )
         elif isinstance(b, (AffineCoupling, RQSCoupling)):
             out.append({"net": _net_to(b.net)})
-        elif isinstance(b, ActNorm):
-            out.append(
-                {
-                    "log_scale": b.log_scale.detach().cpu().numpy().copy(),
-                    "shift": b.shift.detach().cpu().numpy().copy(),
-                }
-            )
+        elif type(b) in _TENSORS:
+            out.append({name: getattr(b, name).detach().cpu().numpy().copy() for name in _TENSORS[type(b)]})
+        elif isinstance(b, MaskedAffineAutoregressive):
+            out.append({"layers": [_dense_to(layer) for layer in b.layers]})
+        elif isinstance(b, Logit):
+            out.append({})
         else:
             raise TypeError(f"Unknown bijector: {type(b).__name__}")
-    return {"bijector": out, "base": {}}
+    base = {}
+    if isinstance(flow.base, ResampledGaussian):
+        base = {"net": _net_to(flow.base.net), "log_Z": flow.base.log_Z.detach().cpu().numpy().copy()}
+    return {"bijector": out, "base": base}
 
 
 def levels_from_jax(flow_model, params_list) -> None:

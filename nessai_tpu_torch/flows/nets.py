@@ -5,6 +5,10 @@ Dense layers are ``nn.Linear`` (weight ``[out, in]``; the JAX package
 stores ``w`` as ``[in, out]``, see ``convert.py``). Hidden layers start
 uniform in ±1/sqrt(n_in) with zero biases, as in the JAX package; the
 final layer starts at zero so every coupling starts as the identity.
+A ``dropout_probability`` above 0 adds inverted dropout where the JAX
+package's ``apply_mlp``/``apply_resnet`` drop (``nets.py:55-62,
+113-131``); it is active only in training mode (``module.train()``),
+which the flow model sets for its optimiser steps alone.
 """
 
 import math
@@ -13,7 +17,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-__all__ = ["ACTIVATIONS", "MLP", "ResNet"]
+__all__ = ["ACTIVATIONS", "MLP", "ResNet", "make_dropout"]
 
 ACTIVATIONS = {
     "relu": F.relu,
@@ -38,10 +42,19 @@ def _dense(n_in: int, n_out: int, generator=None, zero: bool = False) -> nn.Line
     return layer
 
 
-class MLP(nn.Module):
-    """``n_layers`` hidden layers of width ``n_neurons``."""
+def make_dropout(p: float):
+    """An ``nn.Dropout`` for ``p > 0``, else None (no module, so a net
+    without dropout runs as before)."""
+    return nn.Dropout(float(p)) if p and p > 0.0 else None
 
-    def __init__(self, n_in, n_out, n_neurons, n_layers, activation="relu", generator=None):
+
+class MLP(nn.Module):
+    """``n_layers`` hidden layers of width ``n_neurons``, dropout after
+    each hidden activation."""
+
+    def __init__(
+        self, n_in, n_out, n_neurons, n_layers, activation="relu", generator=None, dropout_probability=0.0
+    ):
         super().__init__()
         self.activation = activation
         dims = [n_in] + [n_neurons] * n_layers
@@ -49,11 +62,14 @@ class MLP(nn.Module):
             _dense(a, b, generator) for a, b in zip(dims[:-1], dims[1:])
         )
         self.out = _dense(dims[-1], n_out, zero=True)
+        self.dropout = make_dropout(dropout_probability)
 
     def forward(self, x):
         act = ACTIVATIONS[self.activation]
         for layer in self.layers:
             x = act(layer(x))
+            if self.dropout is not None:
+                x = self.dropout(x)
         return self.out(x)
 
 
@@ -66,9 +82,12 @@ class ResBlock(nn.Module):
 
 class ResNet(nn.Module):
     """Pre-activation residual net: an input layer, ``n_blocks`` blocks of
-    two dense layers, and a zero-initialised output layer."""
+    two dense layers (dropout between them), and a zero-initialised
+    output layer."""
 
-    def __init__(self, n_in, n_out, n_neurons, n_blocks=2, activation="relu", generator=None):
+    def __init__(
+        self, n_in, n_out, n_neurons, n_blocks=2, activation="relu", generator=None, dropout_probability=0.0
+    ):
         super().__init__()
         self.activation = activation
         self.initial = _dense(n_in, n_neurons, generator)
@@ -76,10 +95,14 @@ class ResNet(nn.Module):
             ResBlock(n_neurons, generator) for _ in range(n_blocks)
         )
         self.final = _dense(n_neurons, n_out, zero=True)
+        self.dropout = make_dropout(dropout_probability)
 
     def forward(self, x):
         act = ACTIVATIONS[self.activation]
         h = self.initial(x)
         for block in self.blocks:
-            h = h + block.l2(act(block.l1(act(h))))
+            t = act(block.l1(act(h)))
+            if self.dropout is not None:
+                t = self.dropout(t)
+            h = h + block.l2(t)
         return self.final(act(h))

@@ -1,10 +1,10 @@
 """Neural spline flow builder (arXiv:1906.04032). Counterpart of
-``nessai_tpu/flows/nsf.py``: ``n_blocks`` × [linear transform →
+``nessai_tpu/flows/nsf.py``: (Logit →) ``n_blocks`` × [linear transform →
 RQSCoupling (→ ActNorm)], with 8 bins and linear tails on [-5, 5] by
 default."""
 
 from .bijectors import ActNorm, Chain, RQSCoupling
-from .realnvp import block_masks, make_linear_transform
+from .realnvp import block_masks, make_linear_transform, make_pre_transform
 
 __all__ = ["build_nsf_bijector"]
 
@@ -23,16 +23,13 @@ def build_nsf_bijector(
     linear_transform="permutation",
     batch_norm_between_layers: bool = False,
     pre_transform=None,
+    dropout_probability: float = 0.0,
     generator=None,
+    **kwargs,
 ):
-    if pre_transform == "logit":
-        raise NotImplementedError(
-            "pre_transform='logit' needs the Logit bijector, which is not in "
-            "the PyTorch port yet (ROADMAP §1 item 1)"
-        )
-    if pre_transform is not None:
-        raise ValueError(f"Unknown pre-transform: {pre_transform}")
-    bijectors = []
+    """The neural-spline chain; keys of other builders are accepted and
+    ignored, as in the JAX package."""
+    bijectors = make_pre_transform(pre_transform)
     for m in block_masks(dim, n_blocks, mask):
         bijectors += make_linear_transform(linear_transform, dim, generator)
         bijectors.append(
@@ -45,6 +42,7 @@ def build_nsf_bijector(
                 tails=tails,
                 net=net,
                 activation=activation,
+                dropout_probability=dropout_probability,
                 generator=generator,
             )
         )

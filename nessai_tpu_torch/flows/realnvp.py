@@ -1,11 +1,17 @@
 """RealNVP builder. Counterpart of ``nessai_tpu/flows/realnvp.py``:
-``n_blocks`` × [linear transform → AffineCoupling → ActNorm]."""
+(Logit →) ``n_blocks`` × [linear transform → AffineCoupling → ActNorm]."""
 
 import numpy as np
 
-from .bijectors import ActNorm, AffineCoupling, Chain, Permutation
+from .bijectors import ActNorm, AffineCoupling, Chain, Logit, LULinear, Permutation, SVDLinear
 
-__all__ = ["build_realnvp_bijector", "alternating_masks", "block_masks", "make_linear_transform"]
+__all__ = [
+    "build_realnvp_bijector",
+    "alternating_masks",
+    "block_masks",
+    "make_linear_transform",
+    "make_pre_transform",
+]
 
 
 def alternating_masks(dim: int, n_blocks: int):
@@ -28,18 +34,28 @@ def block_masks(dim: int, n_blocks: int, mask=None):
 
 def make_linear_transform(kind, dim: int, generator=None):
     """The linear transform between coupling blocks
-    (``nessai_tpu/flows/realnvp.py:36-50``): a random permutation, or
-    nothing for ``None``/``"none"``."""
+    (``nessai_tpu/flows/realnvp.py:36-56``): a random permutation, a
+    permutation and an LU- or SVD-parameterised linear layer, or nothing
+    for ``None``/``"none"``."""
     if kind is None or kind == "none":
         return []
     if kind == "permutation":
         return [Permutation(dim, generator=generator)]
-    if kind in ("lu", "svd"):
-        raise NotImplementedError(
-            f"linear_transform={kind!r} needs LULinear/SVDLinear, which are not "
-            "in the PyTorch port yet (ROADMAP §1 item 1)"
-        )
+    if kind == "lu":
+        return [Permutation(dim, generator=generator), LULinear(dim, generator=generator)]
+    if kind == "svd":
+        return [Permutation(dim, generator=generator), SVDLinear(dim, generator=generator)]
     raise ValueError(f"Unknown linear transform: {kind}")
+
+
+def make_pre_transform(pre_transform):
+    """The bijectors before the first block: a :class:`Logit` for
+    ``"logit"`` (``nessai_tpu/flows/realnvp.py:81``), none for None."""
+    if pre_transform == "logit":
+        return [Logit()]
+    if pre_transform is not None:
+        raise ValueError(f"Unknown pre-transform: {pre_transform}")
+    return []
 
 
 def build_realnvp_bijector(
@@ -53,9 +69,14 @@ def build_realnvp_bijector(
     linear_transform="permutation",
     batch_norm_between_layers: bool = True,
     volume_preserving: bool = False,
+    pre_transform=None,
+    dropout_probability: float = 0.0,
     generator=None,
+    **kwargs,
 ):
-    bijectors = []
+    """The RealNVP chain; keys of other builders (``tails``, ``num_bins``,
+    ...) are accepted and ignored, as in the JAX package."""
+    bijectors = make_pre_transform(pre_transform)
     for m in block_masks(dim, n_blocks, mask):
         bijectors += make_linear_transform(linear_transform, dim, generator)
         bijectors.append(
@@ -66,6 +87,7 @@ def build_realnvp_bijector(
                 net=net,
                 activation=activation,
                 volume_preserving=volume_preserving,
+                dropout_probability=dropout_probability,
                 generator=generator,
             )
         )

@@ -17,6 +17,7 @@ __all__ = [
     "DEFAULT_MIN_BIN_HEIGHT",
     "DEFAULT_MIN_DERIVATIVE",
     "derivative_shift",
+    "n_derivatives",
 ]
 
 DEFAULT_MIN_BIN_WIDTH = 1e-3
@@ -29,6 +30,16 @@ def derivative_shift(min_derivative: float = DEFAULT_MIN_DERIVATIVE) -> float:
     that a raw value of zero gives a derivative of exactly 1 (the
     identity spline at a zero-initialised conditioner)."""
     return math.log(math.expm1(1.0 - min_derivative))
+
+
+def n_derivatives(num_bins: int, tails="linear") -> int:
+    """Raw knot derivatives per element: ``K - 1`` interior ones for
+    linear tails, all ``K + 1`` for ``tails=None``."""
+    if tails == "linear":
+        return num_bins - 1
+    if tails is None:
+        return num_bins + 1
+    raise ValueError(f"Unknown tails: {tails}")
 
 
 def _normalise_bins(unnorm, num_bins, total, min_size):

@@ -18,6 +18,7 @@ import logging
 import numpy as np
 import torch
 
+from ...flows.distributions import StandardNormal
 from ...livepoint import empty_structured_array
 from .base import BaseFlowProposal
 from .truncation import LatentRadiusTruncation
@@ -54,6 +55,20 @@ class FlowProposal(BaseFlowProposal):
         if acc is not None and np.isfinite(acc) and 0 < acc < 1:
             n = int(n * min(max(1.0 / acc, 1.0), self._max_draw_scale))
         return n
+
+    @torch.no_grad()
+    def sample_latent_distribution(self, n: int) -> np.ndarray:
+        """The latent draws of a populate round, before the radius cut: for
+        a unit-Gaussian base the truncated Gaussian of the latent radius,
+        drawn on the host from ``rng``; for any other base (LARS, a scaled
+        Gaussian, the uniform box) draws from the base on the device, as
+        the JAX package's device populate loop draws them
+        (``nessai_tpu/proposal/flowproposal/flowproposal.py:773``); the
+        radius then cuts both."""
+        base = self.flow.flow.base
+        if type(base) is StandardNormal:
+            return self._truncation.sample_latent(n)
+        return base.sample(n, self.flow.device_generator()).double().cpu().numpy()
 
     @torch.no_grad()
     def _fused_backward(self, z, with_likelihood: bool = True):
@@ -122,7 +137,7 @@ class FlowProposal(BaseFlowProposal):
         with_ll = self.model.has_torch_likelihood
         ll_in_pool = with_ll
         while n_accepted < n_samples:
-            z = self._truncation.sample_latent(self._draw_n)
+            z = self.sample_latent_distribution(self._draw_n)
             n_proposed += len(z)
             z = self._truncation.apply_latent(z)
             if not len(z):

@@ -6,12 +6,16 @@ the launch overhead; the profiler's kernel records give the time the
 GPU spent. Run as a script on a GPU machine to trace the flagship runs::
 
     python -m nessai_tpu_torch.utils.profiling [realnvp] [nsf] [ins] [ins_mixture] \
-        [reparam_inversion] [reparam_angle]
+        [reparam_inversion] [reparam_angle] [ins_hypercube] [lu]
 
-It profiles the named runs, by default all six: the RealNVP flagship,
+It profiles the named runs, by default all eight: the RealNVP flagship,
 the neural-spline flagship, the importance nested sampler's flagship,
-its Gaussian-mixture configuration (with the final redraw), and the
-half-Gaussian and angle examples through the reparameterisations. Each runs
+its Gaussian-mixture configuration (with the final redraw), the
+half-Gaussian and angle examples through the reparameterisations, the
+importance nested sampler with its neural spline flow on the unit
+hypercube (``tails=None``, the Rosenbrock likelihood in 4 dimensions;
+its trace holds the GPU alone) and the documented RealNVP with LU
+linear layers. Each runs
 three times in one process: a first run (which also pays for the CUDA
 context, the kernel build or load and the library handles), a run
 without tracing and a run under the profiler (the mixture's traces the
@@ -45,6 +49,8 @@ __all__ = [
     "FLAGSHIP_INS_MIXTURE_RUN",
     "FLAGSHIP_REPARAM_INVERSION",
     "FLAGSHIP_REPARAM_ANGLE",
+    "FLAGSHIP_INS_HYPERCUBE",
+    "FLAGSHIP_LU",
     "OWN_KERNELS",
     "gpu_kernel_events",
     "event_time_ms",
@@ -131,6 +137,54 @@ FLAGSHIP_REPARAM_INVERSION = dict(
 FLAGSHIP_REPARAM_ANGLE = dict(
     FLAGSHIP_REPARAM_INVERSION,
     reparameterisations={"theta": {"reparameterisation": "angle-2pi"}, "amp": "default"},
+)
+
+
+#: The importance nested sampler with a flow on the unit hypercube, as
+#: ``examples/importance_nested_sampler/nsf_unit_hypercube.py:77-103``
+#: runs it (on ``utils.testing.RosenbrockModel(4)``): nlive 10,000, seed
+#: 1234, draws of nlive at every level, no logit map (the flow sees the
+#: unit hypercube), a quantile threshold at 0.66, fresh weights every 4
+#: levels, and a neural spline flow of 4 × [RQSCoupling (resnet, 2
+#: layers of 32 neurons, 8 bins, ``tails=None`` on [0, 1])] with no linear
+#: transform and no ActNorm on a uniform base.
+FLAGSHIP_INS_HYPERCUBE = dict(
+    importance_nested_sampler=True,
+    nlive=10000,
+    seed=1234,
+    resume=False,
+    plot=False,
+    checkpointing=False,
+    draw_constant=True,
+    reparameterisation=None,
+    threshold_kwargs={"q": 0.66},
+    reset_flow=4,
+    flow_config=dict(
+        n_blocks=4,
+        n_neurons=32,
+        ftype="nsf",
+        distribution="uniform",
+        linear_transform=None,
+        batch_norm_between_layers=False,
+        tail_bound=1.0,
+        tails=None,
+        num_bins=8,
+    ),
+)
+
+#: The documented flow configuration of
+#: ``docs/normalising-flows-configuration.md:52-66`` (a RealNVP of 4 ×
+#: [Permutation, LULinear, AffineCoupling (resnet, 2 layers of 16
+#: neurons), ActNorm], lr 3e-3, batches of 1000, 500 epochs at most,
+#: patience 20) on ``IntegrationTestModel(2)``, nlive 1000, seed 1234.
+FLAGSHIP_LU = dict(
+    nlive=1000,
+    seed=1234,
+    resume=False,
+    plot=False,
+    checkpointing=False,
+    flow_config=dict(n_blocks=4, n_layers=2, n_neurons=16, linear_transform="lu"),
+    training_config=dict(lr=3e-3, batch_size=1000, max_epochs=500, patience=20),
 )
 
 
@@ -306,11 +360,11 @@ def profile_flagship(
 
 
 def _main(names) -> None:
-    """Profile the named runs (all six by default) and print one JSON
+    """Profile the named runs (all eight by default) and print one JSON
     object for each."""
     from ..ops.coupling import affine_coupling
     from ..ops.rqs import rqs
-    from .testing import AngleModel, GaussianMixture, HalfGaussianModel
+    from .testing import AngleModel, GaussianMixture, HalfGaussianModel, RosenbrockModel
 
     k1, k2 = (affine_coupling, "k1"), (rqs, "rqs")
     runs = {
@@ -326,6 +380,11 @@ def _main(names) -> None:
         ),
         "reparam_inversion": (dict(config=FLAGSHIP_REPARAM_INVERSION, model=HalfGaussianModel), k1),
         "reparam_angle": (dict(config=FLAGSHIP_REPARAM_ANGLE, model=AngleModel), k1),
+        "ins_hypercube": (
+            dict(config=FLAGSHIP_INS_HYPERCUBE, model=functools.partial(RosenbrockModel, 4), trace_cpu=False),
+            k2,
+        ),
+        "lu": (dict(config=FLAGSHIP_LU), k1),
     }
     for name in names or runs:
         kwargs, (wrapper, prefix) = runs[name]

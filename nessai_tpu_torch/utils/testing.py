@@ -14,6 +14,8 @@ from ..model import Model
 __all__ = [
     "IntegrationTestModel",
     "GaussianMixture",
+    "RosenbrockModel",
+    "rosenbrock_log_evidence",
     "HalfGaussianModel",
     "AngleModel",
     "REPARAMETERISATION_CASES",
@@ -90,6 +92,57 @@ class GaussianMixture(IntegrationTestModel):
         b = -0.5 * np.sum((x + 4) ** 2, axis=-1)
         norm_const = x.shape[-1] * 0.5 * np.log(2 * np.pi)
         return np.logaddexp(a, b) - np.log(2) - norm_const
+
+
+def rosenbrock_log_evidence(dims: int = 4, n: int = 4001, low: float = -5.0, high: float = 5.0) -> float:
+    """log Z of the Rosenbrock likelihood of :class:`RosenbrockModel` on
+    the uniform prior ``[low, high]^dims``, by quadrature: the likelihood
+    is a chain, ``prod_i exp(-100 (x_{i+1} - x_i^2)^2 - (1 - x_i)^2)``, so
+    its integral is a product of ``dims - 1`` transfer matrices on a
+    trapezoid grid of ``n`` points. For 4 dimensions, 4001, 8001 and
+    16001 points all give -15.1016907 (to 1e-8)."""
+    x = np.linspace(low, high, n)
+    w = np.full(n, x[1] - x[0])
+    w[0] = w[-1] = 0.5 * (x[1] - x[0])
+    v = np.ones(n)
+    for _ in range(dims - 1):
+        a = v * w * np.exp(-((1.0 - x) ** 2))
+        # the transfer matrix exp(-100 (y - x^2)^2) a block of rows at a time
+        v = np.concatenate(
+            [np.exp(-100.0 * (x[s : s + 1000, None] - x[None, :] ** 2) ** 2) @ a for s in range(0, n, 1000)]
+        )
+    return float(np.log(np.sum(w * v)) - dims * np.log(high - low))
+
+
+class RosenbrockModel(IntegrationTestModel):
+    """The model of ``examples/importance_nested_sampler/
+    nsf_unit_hypercube.py``: the Rosenbrock likelihood
+    ``-sum_i [100 (x_{i+1} - x_i^2)^2 + (1 - x_i)^2]`` on a uniform prior
+    on ``[-5, 5]^dims``, with the analytic unit-hypercube maps and the
+    likelihood on the device as well (``torch_log_likelihood``).
+
+    Log-evidence: :func:`rosenbrock_log_evidence` (-15.1016907 in 4
+    dimensions).
+    """
+
+    def __init__(self, dims: int = 4):
+        self.names = [f"x_{d}" for d in range(dims)]
+        self.bounds = {n: [-5.0, 5.0] for n in self.names}
+
+    def log_likelihood(self, x):
+        x = self.unstructured_view(x)
+        return -(
+            np.sum(100.0 * (x[..., 1:] - x[..., :-1] ** 2.0) ** 2.0 + (1.0 - x[..., :-1]) ** 2.0, axis=-1)
+        )
+
+    def torch_log_likelihood(self, x: torch.Tensor) -> torch.Tensor:
+        return -(
+            torch.sum(100.0 * (x[..., 1:] - x[..., :-1] ** 2.0) ** 2.0 + (1.0 - x[..., :-1]) ** 2.0, dim=-1)
+        )
+
+    @property
+    def analytic_log_evidence(self) -> float:
+        return rosenbrock_log_evidence(len(self.names))
 
 
 class _UniformBoxModel(Model):

@@ -219,6 +219,126 @@ def _f64(*tensors):
     return [t.double() for t in tensors]
 
 
+def _unit_inputs(cuda, n, d, K, seed):
+    """x ~ U(-0.1, 1.1) (the unit box and beyond) and raw parameters ~
+    N(0, 1), K + 1 derivatives: tails=None's inputs as slices of one
+    conditioner-shaped output."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = 1.2 * torch.rand(n, d, device=cuda, generator=gen) - 0.1
+    out = torch.randn(n, d, 3 * K + 1, device=cuda, generator=gen)
+    return x, out[..., :K], out[..., K : 2 * K], out[..., 2 * K :]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tails", ["linear", None])
+@pytest.mark.parametrize("m", [1, 31, 257, 70000])
+@pytest.mark.parametrize("K", [1, 7, 8, 15, 17, 24, 31, 32, 33, 40, 64, 100])
+def test_rqs_kernel_any_bins_and_tails(cuda, K, m, tails):
+    """Every lane-group width (2 to 32 lanes; K + 1 items for tails=None)
+    and the chunked path above 32 items, with partial warps, and at
+    70,000 elements the path that spreads a warp's bins over its lanes:
+    forward, inverse and the backward of the forward against the plain
+    version in float64 (atol 1e-6 + rtol 1e-6), the unit box's outputs
+    inside it, and one launch a call counted by tails."""
+    from nessai_tpu_torch.ops.rqs import rqs, rqs_plain
+
+    inputs = (_spline_inputs if tails == "linear" else _unit_inputs)(cuda, m, 1, K, seed=10 * K + m)
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    w_y, w_ld = (torch.randn(m, 1, device=cuda, generator=gen) for _ in range(2))
+    rqs.launches = rqs.unit_launches = rqs.unit_inverse_launches = 0
+    for inverse in (False, True):
+        with torch.no_grad():
+            out = rqs(*inputs, inverse, 5.0, tails)
+            ref = rqs_plain(*_f64(*inputs), inverse, 5.0, tails)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a.double(), b, atol=1e-6, rtol=1e-6)
+        if tails is None:
+            x, y = inputs[0], out[0]
+            box = (x >= 0) & (x <= 1)
+            assert bool(((y[box] >= 0) & (y[box] <= 1)).all())
+    assert rqs.launches == 2
+    assert (rqs.unit_launches, rqs.unit_inverse_launches) == ((2, 1) if tails is None else (0, 0))
+    rqs.unit_backward_launches = 0
+
+    def grads(f, dtype):
+        args = [a.detach().to(dtype).requires_grad_(True) for a in inputs]
+        y, ld = f(*args, False, 5.0, tails)
+        return torch.autograd.grad((y, ld), args, (w_y.to(dtype), w_ld.to(dtype)))
+
+    for g_k, g_p in zip(grads(rqs, torch.float32), grads(rqs_plain, torch.float64)):
+        torch.testing.assert_close(g_k.double(), g_p, atol=1e-6, rtol=1e-6)
+    assert rqs.unit_backward_launches == (1 if tails is None else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 40])
+def test_rqs_unit_box_kernel_is_bitwise_deterministic(cuda, K):
+    from nessai_tpu_torch.ops.rqs import _launch, _launch_backward
+
+    x, w, h, dd = _unit_inputs(cuda, 4096, 2, K, seed=6)
+    gy, gl = (torch.randn(4096, 2, device=cuda) for _ in range(2))
+    for run in (
+        lambda: _launch(x, w, h, dd, False, 5.0, None),
+        lambda: _launch(x, w, h, dd, True, 5.0, None),
+        lambda: _launch_backward(x, w, h, dd, gy, gl, 5.0, None),
+    ):
+        first, second = run(), run()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+#: the new flow constructions, held GPU vs CPU: flow config, dimensions
+#: and whether the inputs are points of the unit hypercube
+NEW_FLOW_CONFIGS = {
+    "realnvp_lu": (dict(n_blocks=4, n_layers=2, n_neurons=16, linear_transform="lu"), 2, False),
+    "realnvp_svd": (dict(n_blocks=4, n_neurons="auto", linear_transform="svd"), 2, False),
+    "maf": (dict(ftype="maf", n_blocks=4, n_neurons="auto"), 3, False),
+    "nsf_logit": (dict(ftype="nsf", n_blocks=4, n_neurons="auto", pre_transform="logit"), 2, True),
+    "realnvp_lars": (dict(n_blocks=4, n_neurons="auto", distribution="lars"), 2, False),
+    "realnvp_mvn": (dict(n_blocks=4, n_neurons="auto", distribution="mvn", distribution_kwargs=dict(var=2.0)), 2,
+                    False),
+    "nsf_unit_hypercube": (
+        dict(ftype="nsf", n_blocks=4, n_neurons=32, distribution="uniform", linear_transform=None,
+             batch_norm_between_layers=False, tail_bound=1.0, tails=None, num_bins=8),
+        4,
+        True,
+    ),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(NEW_FLOW_CONFIGS))
+def test_new_flows_gpu_match_cpu(cuda, name):
+    """Each new construction's log_prob, forward and inverse on the GPU
+    against the same (perturbed) weights on the CPU, in float64 where the
+    flow has no affine coupling (whose plain version is float32 only):
+    within 1e-4 of 1 + |CPU value| (the float32 flow's error)."""
+    import numpy as np
+
+    from nessai_tpu_torch.flows import configure_model
+    from nessai_tpu_torch.flows.bijectors import AffineCoupling
+
+    config, dims, unit = NEW_FLOW_CONFIGS[name]
+    cpu = configure_model(dict(config, n_inputs=dims, seed=3))
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    gpu = configure_model(dict(config, n_inputs=dims, seed=3)).to(cuda)
+    gpu.load_state_dict({k: v.to(cuda) for k, v in cpu.state_dict().items()})
+    dtype = torch.float32 if any(isinstance(m, AffineCoupling) for m in cpu.modules()) else torch.float64
+    cpu.to(dtype)
+    rng = np.random.default_rng(5)
+    x = rng.uniform(0.001, 0.999, (2048, dims)) if unit else rng.normal(0, 1, (2048, dims))
+    x = torch.as_tensor(x, dtype=torch.float32)
+    with torch.no_grad():
+        for f in (lambda fl, a: (fl.log_prob(a),), lambda fl, a: fl(a), lambda fl, a: fl.inverse(a)):
+            for a, b in zip(f(gpu, x.to(cuda)), f(cpu, x.to(dtype))):
+                b = b.double()
+                assert torch.isfinite(b).all()
+                assert float(((a.cpu().double() - b).abs() / (1 + b.abs())).max()) <= 1e-4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("n,d,K", [(0, 1, 8), (13, 3, 8), (900, 1, 8), (4096, 4, 4), (257, 2, 16)])
@@ -373,9 +493,8 @@ def test_rqs_kernel_rejects_bad_input(cuda):
         rqs(x, w.cpu(), h, dd)
     with pytest.raises(ValueError, match="shape"):
         rqs(x, w, h, w)
-    with pytest.raises(ValueError, match="at most 16"):
-        big = torch.zeros(8, 2, 17, device=cuda)
-        rqs(x, big, big, big[..., :16])
+    with pytest.raises(ValueError, match="shape"):
+        rqs(x, w, h, dd, tails=None)  # K - 1 derivatives for the unit box
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rqs(x, w.detach().requires_grad_(True), h, dd, inverse=True)
 

@@ -243,16 +243,17 @@ def test_nsf_names_build_the_jax_layout(ftype):
     assert coupling.net.final.out_features == 1 * (3 * 8 - 1)
 
 
-def test_unported_flow_options_raise():
-    with pytest.raises(NotImplementedError, match="maf"):
-        configure_model(dict(n_inputs=2, ftype="maf"))
-    for kind in ("lu", "svd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            configure_model(dict(n_inputs=2, ftype="nsf", linear_transform=kind))
-    with pytest.raises(NotImplementedError, match="Logit"):
-        configure_model(dict(n_inputs=2, ftype="nsf", pre_transform="logit"))
+def test_unknown_flow_options_raise():
     with pytest.raises(ValueError, match="Unknown flow"):
         configure_model(dict(n_inputs=2, ftype="nope"))
+    with pytest.raises(ValueError, match="Unknown linear transform"):
+        configure_model(dict(n_inputs=2, ftype="nsf", linear_transform="householder"))
+    with pytest.raises(ValueError, match="Unknown pre-transform"):
+        configure_model(dict(n_inputs=2, ftype="nsf", pre_transform="tanh"))
+    with pytest.raises(ValueError, match="Unknown distribution"):
+        configure_model(dict(n_inputs=2, distribution="cauchy"))
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 2"):
+        configure_model(dict(n_inputs=2, context_features=3))
 
 
 def test_realnvp_options_match_jax_layout():

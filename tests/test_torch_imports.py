@@ -229,3 +229,15 @@ def test_samplers_import_without_matplotlib_or_h5py(tmp_path):
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("module", ["flows.maf", "flows.distributions", "flows.bijectors", "flows.convert"])
+def test_import_walk_reaches_the_flows_layer(module):
+    """The walk of ``test_import_every_module_without_jax`` imports the
+    masked autoregressive flow and the base distributions too."""
+    import pkgutil
+
+    import nessai_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(nessai_tpu_torch.__path__, "nessai_tpu_torch.")}
+    assert f"nessai_tpu_torch.{module}" in names

@@ -3,6 +3,7 @@ dictionaries' keys, the JSON encoder, JSON and HDF5 result files, the
 ``.old`` rotation of ``safe_file_dump``, ``config.json`` and the
 multi-seed evidence."""
 
+import copy
 import json
 import os
 import pickle
@@ -12,10 +13,12 @@ import numpy as np
 import pytest
 
 import nessai_tpu.utils.multirun as jax_multirun
+from nessai_tpu import config as jax_config
 from nessai_tpu.flowsampler import FlowSampler as JaxFlowSampler
 from nessai_tpu.utils import io as jax_io
 from nessai_tpu.utils.testing import IntegrationTestModel as JaxModel
 import nessai_tpu_torch.utils.multirun as multirun
+from nessai_tpu_torch import config
 from nessai_tpu_torch.flowsampler import FlowSampler
 from nessai_tpu_torch.utils import io
 from nessai_tpu_torch.utils.testing import IntegrationTestModel
@@ -40,8 +43,25 @@ def _run(package, output, sampler, **kwargs):
 
 @pytest.fixture(scope="module", params=["standard", "ins"])
 def runs(request, tmp_path_factory):
-    """Both packages' runs of one sampler on the same seed."""
-    return request.param, {p: _run(p, str(tmp_path_factory.mktemp(p)), request.param) for p in ("torch", "jax")}
+    """Both packages' runs of one sampler on the same seed.
+
+    The extra live-point fields (the importance nested sampler's logW,
+    logQ and logU) are global in each package, and an importance nested
+    sampler run earlier in the process leaves them registered: the
+    standard runs then write them in one package and not in the other.
+    Both packages start these runs without them, and get back what they
+    held before."""
+    saved = [copy.deepcopy(c.livepoints.__dict__) for c in (config, jax_config)]
+    for c in (config, jax_config):
+        c.livepoints.reset()
+    try:
+        out = {p: _run(p, str(tmp_path_factory.mktemp(p)), request.param) for p in ("torch", "jax")}
+    finally:
+        for c, state in zip((config, jax_config), saved):
+            c.livepoints.__dict__.update(state)
+            if hasattr(c.livepoints, "reset_properties"):
+                c.livepoints.reset_properties()
+    return request.param, out
 
 
 def test_result_dictionary_keys(runs):

@@ -84,6 +84,24 @@ def test_plain_matches_jax_reference(shape, K, inverse, tails):
     _close(ours, ref)
 
 
+@pytest.mark.parametrize("tails", ["linear", None])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape,K", [((200, 2), 24), ((100,), 40), ((64,), 33)])
+def test_plain_matches_jax_reference_at_many_bins(shape, K, inverse, tails):
+    """More bins than the first kernels took, both tails, in float64 in
+    both packages (to 1e-9): at 24 bins a bin is narrow enough that the
+    two float32 versions part by 5e-4 in the log-derivative of one
+    element in 400, each as far from the float64 spline."""
+    x, w, h, d = _inputs(shape, K, tails, seed=K + len(shape))
+    with jax.enable_x64(True):
+        ref = jax_spline(*(a.astype(np.float64) for a in (x, w, h, d)), inverse=inverse, tails=tails)
+        ref = [np.asarray(r) for r in ref]
+    ours = rational_quadratic_spline(*(t.double() for t in _t(x, w, h, d)), inverse=inverse, tails=tails)
+    for a, r in zip(ours, ref):
+        assert r.dtype == np.float64
+        np.testing.assert_allclose(a.numpy(), r, atol=1e-9, rtol=1e-9)
+
+
 @pytest.mark.parametrize("inverse", [False, True])
 def test_plain_matches_pallas_interpret(inverse):
     x, w, h, d = _inputs((300, 3), 8, seed=11)
@@ -206,21 +224,98 @@ def pretend_cuda(monkeypatch):
 
 
 def test_inverse_gradient_on_cuda_raises(pretend_cuda):
+    """The gradient through the inverse direction and float64 are
+    refused on the card; more than 16 bins (the limit of the first
+    kernels) go to the kernel."""
     x, w, h, d = _t(*_inputs((6, 1), 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §2 \\(b\\)"):
         rqs_ops.rqs(x, w.requires_grad_(True), h, d, inverse=True)
-    with pytest.raises(ValueError, match="at most 16"):
+    with pytest.raises(AssertionError, match="the kernel was launched"):
         rqs_ops.rqs(*_t(*_inputs((6, 1), 17)))
     with pytest.raises(TypeError, match="CUDA kernel takes float32"):
         rqs_ops.rqs(x.double(), w.double(), h.double(), d.double())
 
 
-def test_tails_none_on_cuda_raises(pretend_cuda):
+@pytest.mark.parametrize("K", [1, 8, 17, 24, 32, 40, 100])
+@pytest.mark.parametrize("tails", ["linear", None])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_any_bins_and_tails_go_to_the_kernel_on_cuda(pretend_cuda, monkeypatch, tails, inverse, K):
+    """On a CUDA tensor every bin count and both tails reach the kernel's
+    launch, with the derivatives' K - 1 or K + 1 columns and the tails
+    passed on (the launch is a stand-in that records its arguments)."""
+    calls = []
+
+    def launch(x, w, h, d, inv, bound, tails_):
+        calls.append((d.shape[-1], inv, tails_))
+        return x, torch.zeros_like(x)
+
+    monkeypatch.setattr(rqs_ops, "_launch", launch)
+    x, w, h, d = _t(*_inputs((6, 2), K, tails))
+    rqs_ops.rqs(x, w, h, d, inverse, 5.0, tails)
+    assert calls == [(K - 1 if tails == "linear" else K + 1, inverse, tails)]
+
+
+@pytest.mark.parametrize("tails", ["linear", None])
+def test_coupling_goes_to_the_kernel_on_cuda_with_its_tails(pretend_cuda, monkeypatch, tails):
+    """``RQSCoupling`` sends both tails to the kernel wrapper on the card
+    (``tails=None`` raised there before the kernel took it)."""
     from nessai_tpu_torch.flows.bijectors import RQSCoupling
 
-    coupling = RQSCoupling([1, 0], n_neurons=4, tails=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
+    seen = []
+    monkeypatch.setattr(rqs_ops, "_launch", lambda x, w, h, d, inv, bound, t: seen.append((t, d.shape[-1])) or
+                        (x, torch.zeros_like(x)))
+    coupling = RQSCoupling([1, 0], n_neurons=4, num_bins=8, tails=tails)
+    with torch.no_grad():
         coupling(torch.rand(5, 2))
+        coupling.inverse(torch.rand(5, 2))
+    assert seen == [(tails, 7 if tails == "linear" else 9)] * 2
+
+
+@pytest.mark.parametrize("K", [8, 24, 40])
+def test_unit_box_plain_spline(K):
+    """tails=None on the CPU: the plain version against the jnp spline at
+    any bin count, gradients against ``jax.grad`` of it, the round trip,
+    inputs outside [0, 1] passed through, and outputs inside the box."""
+    x, w, h, d = _inputs((120, 2), K, None, seed=K)
+    for inverse in (False, True):
+        ref = jax_spline(x, w, h, d, inverse=inverse, tails=None)
+        ours = rqs_ops.rqs(*_t(x, w, h, d), inverse=inverse, tails=None)
+        _close(ours, ref)
+        inside = (x >= 0) & (x <= 1)
+        assert np.all((ours[0].numpy()[inside] >= 0) & (ours[0].numpy()[inside] <= 1))
+        assert np.array_equal(ours[0].numpy()[~inside], x[~inside])
+        assert np.all(ours[1].numpy()[~inside] == 0)
+    rng = np.random.default_rng(K)
+    w_y, w_ld = rng.standard_normal((2, 120, 2)).astype(np.float32)
+
+    def loss_jax(a, b, c, e):
+        y, ld = jax_spline(a, b, c, e, tails=None)
+        return jnp.sum(y * w_y) + jnp.sum(ld * w_ld)
+
+    g_jax = jax.grad(loss_jax, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in (x, w, h, d)))
+    args = [a.requires_grad_(True) for a in _t(x, w, h, d)]
+    y, ld = rqs_ops.rqs(*args, tails=None)
+    (torch.sum(y * torch.as_tensor(w_y)) + torch.sum(ld * torch.as_tensor(w_ld))).backward()
+    for a, g in zip(args, g_jax):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(g), atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    xt, wt, ht, dt = _t(x, w, h, d)
+    z, ld_f = rqs_ops.rqs(xt, wt, ht, dt, tails=None)
+    x_back, ld_i = rqs_ops.rqs(z, wt, ht, dt, inverse=True, tails=None)
+    np.testing.assert_allclose(x_back.numpy(), x, atol=5e-4)
+    np.testing.assert_allclose((ld_f + ld_i).numpy(), 0.0, atol=5e-3)
+
+
+def test_wrapper_checks_the_derivatives_of_its_tails():
+    from nessai_tpu_torch.flows.bijectors import RQSCoupling
+
+    x, w, h, d = _t(*_inputs((5, 2), 8, None))
+    with pytest.raises(ValueError, match="shape"):
+        rqs_ops.rqs(x, w, h, d)  # K + 1 derivatives with linear tails
+    with pytest.raises(ValueError, match="Unknown tails"):
+        rqs_ops.rqs(x, w, h, d, tails="quadratic")
+    assert rqs_ops.n_derivatives(8) == 7 and rqs_ops.n_derivatives(8, None) == 9
+    with pytest.raises(ValueError, match="Unknown tails"):
+        RQSCoupling([1, 0], n_neurons=4, tails="quadratic")
 
 
 def test_ptxas_report_parses_registers_and_spills():
