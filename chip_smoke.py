@@ -35,10 +35,19 @@ the half-Gaussian and angle examples through the reparameterisations
 documented RealNVP with LU linear layers (``flagship_lu``) and the
 importance nested sampler with its neural spline flow on the unit
 hypercube (``tails=None``, a uniform base) on the 4-D Rosenbrock
-likelihood (``flagship_ins_hypercube``); a ``kernels`` summary. The
+likelihood (``flagship_ins_hypercube``); the egg-box example
+(``flagship_eggbox``, to ``EGGBOX_SMOKE_ITERATIONS``: the reset every
+8th training, the 18 modes) and the augmented-proposal example in full
+(``flagship_augmented``); short runs of the standard sampler's options
+(``standard_options_*``: the truncation rules, the likelihood split,
+the iteration cap, the training schedule, the uninformed proposal, the
+shrinkage, the optimisers and training options, the augmented marginal,
+the unit hypercube); a ``kernels`` summary. The
 last line is ``{"ok": true, "device": {...}}``. Any failing phase ends
 the script with a non-zero exit code and without that line. Without a
-GPU the script exits with code 2 at once.
+GPU the script exits with code 2 at once. ``python3 chip_smoke.py
+--eggbox-in-full`` builds the kernels and runs the egg-box example to
+its end (about 40 minutes), with the pull's gate.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -65,6 +74,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
+#: samples of the bare K1's CUDA-event timings (30 until the egg-box and
+#: option runs joined the script)
+K1_EVENT_REPEATS = 10
 #: K1 check shapes [n, d_tr]: the flagship's training batch (900 rows
 #: after the 10% validation split), its validation pass (100 rows) and
 #: pool draws (1000 and more, d_tr = 1), and wider layers.
@@ -85,8 +97,10 @@ K1_SHAPES = [
 #: importance nested sampler's pass over every stored sample (16,384
 #: rows) and its final redraw's ``log_prob_all`` batches (20,000 rows),
 #: then the reparameterisation runs' training batches of 1000 rows at
-#: D = 2 and D = 3 (the angle run's alternating masks); new rows go
-#: last, so that the rows before them keep their inputs
+#: D = 2 and D = 3 (the angle run's alternating masks), then the
+#: augmented proposal's 4-D flow (two real and two augment columns, the
+#: fixed mask) at 2000 rows; new rows go last, so that the rows before
+#: them keep their inputs
 K1_LAYER_SHAPES = [
     (900, 2, (1, 0)),
     (900, 2, (0, 1)),
@@ -99,10 +113,19 @@ K1_LAYER_SHAPES = [
     (1000, 2, (1, 0)),
     (1000, 3, (0, 1, 0)),
     (1000, 3, (1, 0, 1)),
+    (2000, 4, (1, 1, 0, 0)),
 ]
 #: shape of the kernels-line numbers of both K1 kernels: a flagship
 #: training step's coupling
 K1_LAYER_MAIN_SHAPE = (900, 2, (1, 0))
+#: calls in each profile of the plain and unfused paths of the coupling
+#: layer (11-39 GPU records a call); the fused kernels keep 200
+K1_LAYER_OTHER_PROFILE_CALLS = 50
+#: the rows whose plain and unfused paths are timed too (the flagship's
+#: training step and the augmented flow's); every row times the fused
+#: kernels and checks all three paths (profiler sessions cut for the time
+#: limit when the egg-box and option runs joined the script)
+K1_LAYER_TIMED_SHAPES = (K1_LAYER_MAIN_SHAPE, (2000, 4, (1, 1, 0, 0)))
 Y_ATOL, Y_RTOL, LD_ATOL = 1e-6, 1e-5, 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
 FLOW_ATOL, FLOW_RTOL = 1e-5, 1e-5
@@ -158,9 +181,12 @@ K2_F32_Y_ATOL, K2_F32_LD_ATOL, K2_F32_GRAD_SHARE = 2e-3, 1e-2, 1e-3
 #: Round trip: the float32 rounding of y, stretched by the inverse's slope
 #: 1 + exp(-ld): x to 1e-6, the log-derivatives' sum to 1e-3 of it.
 K2_RT_X, K2_RT_LD = 1e-6, 1e-3
-#: K2's timing runs: the plain version launches 90-184 kernels a call,
-#: and profiling 200 of them at eight shapes would take minutes
-K2_PLAIN_PROFILE_CALLS = 50
+#: K2's timing runs: the plain version launches 90-184 kernels a call, so
+#: its profiles take 20 calls, and only at the two main shapes (the
+#: kernels are timed at every shape with 200 calls; the plain version
+#: was timed at every shape with 50 until the egg-box and option runs
+#: joined the script)
+K2_PLAIN_PROFILE_CALLS = 20
 K2_EVENT_TIMING = dict(inner=10, repeats=10)
 #: weight perturbation of the NSF in the flow check: the splines move
 #: away from the identity (log-derivatives of order 1)
@@ -354,8 +380,8 @@ def phase_k1():
                 "timer": timer,
                 "plain_timer": plain_timer,
                 "plain_kernels_per_call": plain_kernels,
-                "call_ms": time_ms(kernel),
-                "plain_call_ms": time_ms(plain),
+                "call_ms": time_ms(kernel, repeats=K1_EVENT_REPEATS),
+                "plain_call_ms": time_ms(plain, repeats=K1_EVENT_REPEATS),
                 "bound_ms": bound,
                 "bound_by": bound_by,
             }
@@ -373,7 +399,7 @@ def phase_k1():
         timing=(
             "ms, plain_ms: GPU kernel time per call from torch.profiler over "
             f"200 calls, or {EVENT_FALLBACK} (timer, plain_timer); call_ms, "
-            "plain_call_ms: CUDA-event time per call, median of 30 samples "
+            f"plain_call_ms: CUDA-event time per call, median of {K1_EVENT_REPEATS} samples "
             "of 50 back-to-back calls"
         ),
         shapes=rows,
@@ -501,7 +527,12 @@ def phase_k1_layer():
                 ),
             }
             with torch.no_grad():
-                times = {name: device_time_ms(call) for name, call in timed_calls.items()}
+                times = {
+                    name: device_time_ms(call) if name in ("forward_fused", "backward_fused")
+                    else device_time_ms(call, calls=K1_LAYER_OTHER_PROFILE_CALLS)
+                    if (n, D, mask) in K1_LAYER_TIMED_SHAPES else (None, None, None)
+                    for name, call in timed_calls.items()
+                }
             del graph, timed_calls
             fwd_bound, fwd_by = k1_layer_bound_ms(n, D, n_tr)
             bwd_bound, bwd_by = k1_layer_bound_ms(n, D, n_tr, backward=True, inverse=inverse)
@@ -514,7 +545,7 @@ def phase_k1_layer():
                 "backward_max_abs_diff_from_unfused_ops": max(_max_err(a, b) for a, b in zip(g_k, g_u)),
                 **{f"{k}_ms": v[0] for k, v in times.items()},
                 **{f"{k}_records_per_call": v[1] for k, v in times.items()},
-                "timers": sorted({v[2] for v in times.values()}),
+                "timers": sorted({v[2] for v in times.values() if v[2]}),
                 "bound_ms": fwd_bound,
                 "bound_by": fwd_by,
                 "backward_bound_ms": bwd_bound,
@@ -540,7 +571,9 @@ def phase_k1_layer():
                    "forward_vs_unfused_path": "bitwise"},
         timing=(
             "*_ms, *_records_per_call: GPU time and GPU records per call from "
-            f"torch.profiler over 200 calls, or {EVENT_FALLBACK} (timers); fused: "
+            f"torch.profiler over 200 calls (fused) or {K1_LAYER_OTHER_PROFILE_CALLS} "
+            f"(plain, unfused; None outside {list(K1_LAYER_TIMED_SHAPES)}), or {EVENT_FALLBACK} "
+            "(timers); fused: "
             "the layer kernels; plain: affine_coupling_layer_plain and "
             "affine_coupling_layer_backward_plain; unfused: the path the fused "
             "kernels replace (gathers, "
@@ -608,8 +641,8 @@ def phase_k2():
             kernel = functools.partial(_launch, x, w, h, dd, inverse, TAIL_BOUND, tails)
             plain = functools.partial(rqs_plain, x, w, h, dd, inverse, TAIL_BOUND, tails)
             ms, _, timer = device_time_ms(kernel)
-            plain_ms, plain_kernels, plain_timer = device_time_ms(
-                plain, calls=K2_PLAIN_PROFILE_CALLS
+            plain_ms, plain_kernels, plain_timer = (
+                device_time_ms(plain, calls=K2_PLAIN_PROFILE_CALLS) if is_main else (None, None, None)
             )
             bound, bound_by = k2_bound_ms(x, K, tails=tails)
             row[tag] = {
@@ -622,7 +655,7 @@ def phase_k2():
                 "plain_timer": plain_timer,
                 "plain_kernels_per_call": plain_kernels,
                 "call_ms": time_ms(kernel, **K2_EVENT_TIMING),
-                "plain_call_ms": time_ms(plain, **K2_EVENT_TIMING),
+                "plain_call_ms": time_ms(plain, **K2_EVENT_TIMING) if is_main else None,
                 "bound_ms": bound,
                 "bound_by": bound_by,
             }
@@ -665,7 +698,9 @@ def phase_k2():
         kernel = functools.partial(_launch_backward, x, w, h, dd, w_y, w_ld, TAIL_BOUND, tails)
         plain = functools.partial(torch.autograd.grad, (yy, ll), args, cot, retain_graph=True)
         ms, _, timer = device_time_ms(kernel)
-        plain_ms, plain_kernels, plain_timer = device_time_ms(plain, calls=K2_PLAIN_PROFILE_CALLS)
+        plain_ms, plain_kernels, plain_timer = (
+            device_time_ms(plain, calls=K2_PLAIN_PROFILE_CALLS) if is_main else (None, None, None)
+        )
         bound, bound_by = k2_bound_ms(x, K, backward=True, tails=tails)
         row["backward"] = {
             "launches_per_call": backward_launches,
@@ -677,7 +712,7 @@ def phase_k2():
             "plain_timer": plain_timer,
             "plain_kernels_per_call": plain_kernels,
             "call_ms": time_ms(kernel, **K2_EVENT_TIMING),
-            "plain_call_ms": time_ms(plain, **K2_EVENT_TIMING),
+            "plain_call_ms": time_ms(plain, **K2_EVENT_TIMING) if is_main else None,
             "bound_ms": bound,
             "bound_by": bound_by,
         }
@@ -718,7 +753,8 @@ def phase_k2():
         timing=(
             "ms, plain_ms: GPU time per call from torch.profiler over 200 kernel "
             f"calls and {K2_PLAIN_PROFILE_CALLS} plain calls (plain: float32, "
-            f"backward = autograd of the plain graph), or {EVENT_FALLBACK} "
+            f"backward = autograd of the plain graph; at {K2_MAIN_SHAPE} and "
+            f"{K2_UNIT_MAIN_SHAPE} only, None elsewhere), or {EVENT_FALLBACK} "
             "(timer, plain_timer); call_ms, plain_call_ms: "
             f"CUDA-event time per call, median of {K2_EVENT_TIMING['repeats']} "
             f"samples of {K2_EVENT_TIMING['inner']} back-to-back calls"
@@ -1022,6 +1058,25 @@ def phase_flagship():
             f"{result['k1_launches']} (forward/inverse) and "
             f"{result['k1_backward_launches']} (backward) times"
         )
+    _check_run(result, nested, fs)
+    return result
+
+
+def phase_flagship_fuse_likelihood_false(flagship):
+    """``FLAGSHIP`` with ``fuse_likelihood=False``: the likelihood only on
+    the accepted pools. Fails unless the run gives the flagship's bits
+    (the same float32 device likelihood, on fewer rows) with fewer
+    likelihood evaluations and K1 launched."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP
+
+    result, nested, fs = _flagship_run(dict(FLAGSHIP, fuse_likelihood=False), _k1_counters())
+    result["fused_likelihood_evaluations"] = flagship["likelihood_evaluations"]
+    result["same_logZ_bits_as_the_flagship"] = result["logZ"] == flagship["logZ"]
+    emit("flagship_fuse_likelihood_false", **result)
+    if not result["same_logZ_bits_as_the_flagship"] or result["iterations"] != flagship["iterations"]:
+        raise RuntimeError(f"the split likelihood changed the flagship's run: {result['logZ']} {flagship['logZ']}")
+    if not result["likelihood_evaluations"] < flagship["likelihood_evaluations"] or result["k1_launches"] == 0:
+        raise RuntimeError(f"the split likelihood evaluated {result['likelihood_evaluations']} points")
     _check_run(result, nested, fs)
     return result
 
@@ -1402,6 +1457,267 @@ def phase_flagship_reparam_angle():
     if "theta_radial" in fs.nested_samples.dtype.names:
         raise RuntimeError("the auxiliary radius reached the returned samples")
     return result
+
+
+def _standard_result(fs, model, wall, launches, analytic):
+    """The summary of a standard-sampler run: logZ and its pull against
+    ``analytic`` (None where the run was capped), iterations, trainings,
+    times, likelihood evaluations and the kernel launches."""
+    ns = fs.ns
+    proposal = ns.flow_proposal
+    err = float(fs.logZ_error)
+    training = ns.training_time.total_seconds()
+    return dict(
+        logZ=fs.logZ,
+        logZ_err=err,
+        logZ_err_simulated=ns.log_evidence_error_simulated,
+        analytic=analytic,
+        pull=None if analytic is None else (fs.logZ - analytic) / err,
+        iterations=int(ns.iteration),
+        trainings=int(ns.train_count),
+        wall_s=wall,
+        training_time_s=training,
+        training_share_of_wall=training / wall,
+        training_epochs=len(proposal.flow.history["loss"]),
+        population_time_s=proposal.population_time.total_seconds(),
+        populates=int(proposal.populated_count),
+        population_acceptance=proposal.population_acceptance,
+        acceptance=ns.acceptance,
+        likelihood_evaluations=int(model.likelihood_evaluations),
+        likelihood_time_s=model.likelihood_evaluation_time.total_seconds(),
+        **launches,
+        max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
+        posterior_samples=int(fs.posterior_samples.size),
+    )
+
+
+def _check_standard(name, result, nested, fs, model, kernels=("k1_launches", "k1_backward_launches")):
+    """Fails unless the run launched ``kernels``, its nested and posterior
+    samples lie in the prior bounds and, where it ran to its end, |pull|
+    < 3."""
+    if any(result[k] == 0 for k in kernels):
+        raise RuntimeError(f"{name} launched {({k: result[k] for k in kernels})}")
+    if result["pull"] is not None and (not math.isfinite(result["pull"]) or abs(result["pull"]) >= PULL_LIMIT):
+        raise RuntimeError(f"{name} logZ pull {result['pull']} is not within {PULL_LIMIT} sigma")
+    if len(nested) != fs.ns.iteration + fs.ns.nlive:
+        raise RuntimeError(f"{name}: nested samples do not match iterations + nlive")
+    if not _in_bounds(nested, model) or not _in_bounds(fs.posterior_samples, model):
+        raise RuntimeError(f"{name}: samples are empty, not finite or outside the prior bounds")
+
+
+#: a posterior sample belongs to an egg-box mode within this distance of
+#: its peak (the peaks are 0.1 wide and 2 pi apart)
+EGGBOX_MODE_RADIUS = 1.0
+#: The egg-box example in full takes about 40 minutes on the H100 (its
+#: last 5,000 of about 19,000 iterations retrain the flow every few
+#: iterations, each training an eager step of 10-20 ms an epoch; PERF.md),
+#: past this script's time limit. Here it stops at this iteration (dlogZ
+#: about 4, some 110 s); ``python3 chip_smoke.py --eggbox-in-full`` runs
+#: it to its end with the same checks and the pull's gate.
+EGGBOX_SMOKE_ITERATIONS = 12_000
+
+
+def phase_flagship_eggbox(max_iteration=EGGBOX_SMOKE_ITERATIONS):
+    """``FLAGSHIP_EGGBOX``, ``examples/eggbox.py`` as written (nlive 2000,
+    seed 170817, ``reset_flow=8``), to ``max_iteration`` (None: to its
+    end). Fails unless the flow was reset (weights and permutations)
+    before every 8th training and at no other, K1 launched forward and
+    backward, each of the 18 modes holds posterior samples
+    (``every_mode_holds_posterior_samples``) and, where the run ended by
+    itself, |pull| < 3 against the quadrature's log-evidence."""
+    from scipy.spatial.distance import cdist
+
+    from nessai_tpu_torch.flowmodel import FlowModel
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_EGGBOX
+    from nessai_tpu_torch.utils.testing import EggboxModel, eggbox_log_evidence
+
+    resets, sampler = [], []
+    real = FlowModel.reset_model
+
+    def recording(self, weights=True, permutations=False):
+        resets.append(dict(before_training=sampler[0].train_count + 1, weights=weights, permutations=permutations))
+        return real(self, weights=weights, permutations=permutations)
+
+    FlowModel.reset_model = recording
+    try:
+        fs, model, nested, wall, launches = _drive(
+            dict(FLAGSHIP_EGGBOX, max_iteration=max_iteration), _k1_counters(), model=EggboxModel(2),
+            before_run=lambda fs: sampler.append(fs.ns),
+        )
+    finally:
+        FlowModel.reset_model = real
+    analytic = eggbox_log_evidence()
+    result = _standard_result(fs, model, wall, launches, analytic)
+    if max_iteration is not None and fs.ns.iteration >= max_iteration:
+        # a pull is reported, not gated, where the run was stopped
+        result["pull_of_the_stopped_run"] = result.pop("pull")
+        result["pull"] = None
+    post = fs.posterior_samples
+    xy = np.stack([post["x_0"], post["x_1"]], axis=1)
+    d = cdist(xy, model.modes())
+    near = d.min(axis=1) < EGGBOX_MODE_RADIUS
+    counts = np.bincount(d.argmin(axis=1)[near], minlength=len(model.modes()))
+    expected_resets = list(range(9, result["trainings"] + 1, 8))
+    result.update(
+        max_iteration=max_iteration,
+        dlogZ_at_the_end_of_the_loop=fs.ns.history["dlogZ"][-1] if fs.ns.history["dlogZ"] else None,
+        analytic_from="utils.testing.eggbox_log_evidence (4001-point trapezoid quadrature)",
+        resets=resets,
+        expected_reset_before_trainings=expected_resets,
+        posterior_samples_by_mode=counts.tolist(),
+        posterior_samples_near_no_mode=int((~near).sum()),
+        every_mode_holds_posterior_samples=bool((counts > 0).all()),
+    )
+    emit("flagship_eggbox", **result)
+    _check_standard("flagship_eggbox", result, nested, fs, model)
+    if [r["before_training"] for r in resets] != expected_resets or not all(
+        r["weights"] and r["permutations"] for r in resets
+    ):
+        raise RuntimeError(f"the egg-box run's resets {resets} are not a full reset at every 8th training")
+    if not result["every_mode_holds_posterior_samples"]:
+        raise RuntimeError(f"an egg-box mode holds no posterior sample: {counts.tolist()}")
+    return result
+
+
+def phase_flagship_augmented():
+    """``FLAGSHIP_AUGMENTED``, ``examples/augmented_example.py`` as written
+    (the augmented flow proposal with two augment dimensions, nlive
+    2000), in full. Fails unless |pull| < 3 against -log 400, K1 launched
+    forward and backward (a 4-D flow with the fixed mask), the flow saw
+    the augment columns and the returned samples do not hold them."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_AUGMENTED
+    from nessai_tpu_torch.utils.testing import BimodalGaussianModel
+
+    model = BimodalGaussianModel()
+    fs, model, nested, wall, launches = _drive(FLAGSHIP_AUGMENTED, _k1_counters(), model=model)
+    result = _standard_result(fs, model, wall, launches, float(model.analytic_log_evidence))
+    proposal = fs.ns.flow_proposal
+    dropped = not any(
+        n.startswith("e_") for n in (*fs.posterior_samples.dtype.names, *nested.dtype.names)
+    )
+    result.update(
+        proposal=type(proposal).__name__,
+        prime_parameters=list(proposal.prime_parameters),
+        mask=np.asarray(proposal.flow.flow_config.kwargs.get("mask")).tolist(),
+        augment_columns_dropped=dropped,
+        modes=[int((fs.posterior_samples["x"] < 0).sum()), int((fs.posterior_samples["x"] > 0).sum())],
+    )
+    emit("flagship_augmented", **result)
+    _check_standard("flagship_augmented", result, nested, fs, model)
+    if result["prime_parameters"][-2:] != ["e_0", "e_1"] or not dropped:
+        raise RuntimeError(f"augment columns: flow saw {result['prime_parameters']}, dropped {dropped}")
+    if min(result["modes"]) == 0:
+        raise RuntimeError(f"a mode of the bimodal posterior holds no sample: {result['modes']}")
+    return result
+
+
+#: short runs of the standard sampler's options on ``IntegrationTestModel(2)``
+#: at nlive 500 (seed 1234): name, options and the kernels the run must
+#: launch; each also has its own check in ``phase_standard_options``
+#: (options that do not interact share a run, for the time limit)
+STANDARD_OPTIONS_BASE = dict(nlive=500, seed=1234, resume=False, plot=False, checkpointing=False)
+K1_RUN = ("k1_launches", "k1_backward_launches")
+STANDARD_OPTION_RUNS = (
+    ("default", {}, K1_RUN),
+    ("adaptive_radius", dict(constant_volume_mode=False), K1_RUN),
+    ("fixed_radius", dict(fixed_radius=2.5), K1_RUN),
+    ("truncation_rules", dict(truncation=["latent_radius", "min_log_q", "likelihood_threshold"]), K1_RUN),
+    ("fuse_likelihood_false", dict(fuse_likelihood=False), K1_RUN),
+    ("max_iteration", dict(max_iteration=2000), K1_RUN),
+    ("training_frequency", dict(training_frequency=500, cooldown=100, train_on_empty=False), K1_RUN),
+    ("reset_acceptance_shrinkage_t", dict(reset_acceptance=True, shrinkage_expectation="t"), K1_RUN),
+    ("analytic_priors_batch_size_all", dict(analytic_priors=True, training_config=dict(batch_size="all")), K1_RUN),
+    ("adam_annealing", dict(training_config=dict(optimiser="adam", annealing=True)), K1_RUN),
+    ("sgd_noise_constant", dict(training_config=dict(optimiser="sgd", optimiser_kwargs=dict(momentum=0.9),
+                                                     noise_type="constant", noise_scale=0.01)), K1_RUN),
+    ("marginalise_augment", dict(flow_class="augmentedflowproposal", augment_dims=2, marginalise_augment=True),
+     K1_RUN),
+    ("nsf_unit_hypercube", dict(map_to_unit_hypercube=True, flow_config=dict(ftype="nsf")),
+     ("rqs_launches", "rqs_backward_launches")),
+)
+
+
+def _option_check(name, fs, result, results):
+    """Each option run's own check: the option is held and did what it
+    says. Returns the facts checked."""
+    ns = fs.ns
+    proposal = ns.flow_proposal
+    flow = proposal.flow
+    if name == "adaptive_radius":
+        rule = proposal.get_truncation_rule("latent_radius")
+        facts = dict(mode=rule.mode, last_radius=rule.r, fuzz=rule.fuzz)
+        ok = rule.mode == "adaptive" and math.isfinite(rule.r) and rule.fuzz > 1.0
+    elif name == "fixed_radius":
+        facts = dict(last_radius=proposal.r)
+        ok = proposal.r == 2.5
+    elif name == "truncation_rules":
+        facts = dict(rules=proposal.truncation_methods, fused=proposal._fuse_likelihood_resolved)
+        ok = facts["rules"] == ["latent_radius", "min_log_q", "likelihood_threshold"] and facts["fused"]
+    elif name == "fuse_likelihood_false":
+        fused = results["default"]
+        facts = dict(
+            likelihood_evaluations=result["likelihood_evaluations"],
+            fused_likelihood_evaluations=fused["likelihood_evaluations"],
+            fused_iterations=fused["iterations"],
+        )
+        ok = result["likelihood_evaluations"] < fused["likelihood_evaluations"]
+    elif name == "max_iteration":
+        facts = dict(iteration=int(ns.iteration))
+        ok = ns.iteration == 2000
+    elif name == "training_frequency":
+        gaps = np.diff(ns.training_iterations).tolist()
+        facts = dict(training_iterations=list(ns.training_iterations))
+        ok = all(g >= 100 for g in gaps)
+    elif name == "reset_acceptance_shrinkage_t":
+        facts = dict(reset_acceptance=ns.reset_acceptance, expectation=ns.state.expectation,
+                     logZ_logt=results["default"]["logZ"])
+        ok = ns.reset_acceptance is True and ns.state.expectation == "t"
+    elif name == "analytic_priors_batch_size_all":
+        facts = dict(uninformed_proposal=type(ns._uninformed_proposal).__name__,
+                     batch_size=flow.training_config.batch_size)
+        ok = facts["uninformed_proposal"] == "AnalyticProposal" and facts["batch_size"] == "all"
+    elif name == "adam_annealing":
+        facts = dict(optimiser=type(flow.optimiser).__name__, last_lr=flow.optimiser.param_groups[0]["lr"],
+                     lr=flow.training_config.lr)
+        ok = facts["optimiser"] == "Adam" and facts["last_lr"] < facts["lr"]
+    elif name == "sgd_noise_constant":
+        facts = dict(optimiser=type(flow.optimiser).__name__, noise_generator=flow._device_generator is not None)
+        ok = facts["optimiser"] == "SGD" and facts["noise_generator"]
+    elif name == "marginalise_augment":
+        facts = dict(prime_parameters=list(proposal.prime_parameters), n_marg=proposal.n_marg)
+        ok = proposal.marginalise_augment and facts["prime_parameters"][-2:] == ["e_0", "e_1"]
+    elif name == "nsf_unit_hypercube":
+        facts = dict(map_to_unit_hypercube=proposal.map_to_unit_hypercube, k1_launches=result["k1_launches"])
+        ok = proposal.map_to_unit_hypercube and result["k1_launches"] == 0
+    else:
+        facts, ok = {}, True
+    return facts, ok
+
+
+def phase_standard_options():
+    """``STANDARD_OPTION_RUNS``: short runs of the standard sampler's
+    options (truncation rules, the likelihood split, the iteration cap,
+    the training schedule, the uninformed proposal, the shrinkage, the
+    optimisers and training options, the augmented marginal, the unit
+    hypercube with the spline flow) on the GPU, each with its kernels,
+    its own check and, where it ran to its end, |pull| < 3."""
+    from nessai_tpu_torch.utils.testing import IntegrationTestModel
+
+    results = {}
+    for name, options, kernels in STANDARD_OPTION_RUNS:
+        model = IntegrationTestModel(2)
+        fs, model, nested, wall, launches = _drive(dict(STANDARD_OPTIONS_BASE, **options), _k1_counters(),
+                                                   model=model)
+        capped = "max_iteration" in options
+        result = _standard_result(fs, model, wall, launches, None if capped else float(model.analytic_log_evidence))
+        facts, ok = _option_check(name, fs, result, results)
+        result.update(options=repr(options), **facts)
+        emit(f"standard_options_{name}", **result)
+        _check_standard(name, result, nested, fs, model, kernels=kernels)
+        if not ok:
+            raise RuntimeError(f"standard_options_{name}: its check failed: {facts}")
+        results[name] = result
+    return {f"standard_options_{name}": r for name, r in results.items()}
 
 
 #: the capped option runs of ``ins_options``: name and sampler options
@@ -1943,6 +2259,20 @@ def main():
     if sys.argv[1:2] == ["--child"]:
         CHILDREN[sys.argv[2]](sys.argv[3])
         return 0
+    if sys.argv[1:2] == ["--eggbox-in-full"]:
+        # the sampler's progress (its trainings) on stderr
+        logging.getLogger("nessai_tpu_torch").setLevel(logging.INFO)
+        logging.getLogger("nessai_tpu_torch").addHandler(logging.StreamHandler())
+        seconds = {}
+        try:
+            timed(seconds, "environment", phase_environment)
+            timed(seconds, "build", phase_build)
+            timed(seconds, "flagship_eggbox", phase_flagship_eggbox, max_iteration=None)
+            emit("seconds", **seconds, total=sum(seconds.values()))
+        except Exception:
+            traceback.print_exc()
+            return 1
+        return 0
     try:
         from nessai_tpu_torch.utils.profiling import FLAGSHIP, FLAGSHIP_NSF
 
@@ -1963,6 +2293,7 @@ def main():
         timed(seconds, "reparam_inverse", phase_reparam_inverse)
         flagship = timed(seconds, "flagship", phase_flagship)
         flagship_nsf = timed(seconds, "flagship_nsf", phase_flagship_nsf)
+        split = timed(seconds, "flagship_fuse_likelihood_false", phase_flagship_fuse_likelihood_false, flagship)
         flagship_ins = timed(seconds, "flagship_ins", phase_flagship_ins)
         mixture = timed(seconds, "flagship_ins_mixture", phase_flagship_ins_mixture)
         options = timed(seconds, "ins_options", phase_ins_options)
@@ -1970,6 +2301,9 @@ def main():
         angle = timed(seconds, "flagship_reparam_angle", phase_flagship_reparam_angle)
         lu = timed(seconds, "flagship_lu", phase_flagship_lu)
         hypercube = timed(seconds, "flagship_ins_hypercube", phase_flagship_ins_hypercube)
+        eggbox = timed(seconds, "flagship_eggbox", phase_flagship_eggbox)
+        augmented = timed(seconds, "flagship_augmented", phase_flagship_augmented)
+        standard_options = timed(seconds, "standard_options", phase_standard_options)
         checkpointing = timed(seconds, "flagship_checkpointing", phase_flagship_checkpointing, flagship)
         pool = timed(seconds, "pool_reparam_angle", phase_pool_reparam_angle, angle)
         resumed = phase_resume(seconds)
@@ -1981,6 +2315,7 @@ def main():
     runs = {
         "flagship": flagship,
         "flagship_nsf": flagship_nsf,
+        "flagship_fuse_likelihood_false": split,
         "flagship_ins": flagship_ins,
         "flagship_ins_mixture": mixture,
         **options,
@@ -1988,6 +2323,9 @@ def main():
         "flagship_reparam_angle": angle,
         "flagship_lu": lu,
         "flagship_ins_hypercube": hypercube,
+        "flagship_eggbox": eggbox,
+        "flagship_augmented": augmented,
+        **standard_options,
         "flagship_checkpointing": checkpointing,
         "pool_reparam_angle": pool,
         # the resumed processes' runs

@@ -44,11 +44,15 @@ def log_integrate_log_trap(log_func, log_support):
 
 class _NSIntegralState:
     """Streaming nested-sampling evidence: logsumexp rectangle rule with
-    shrinkage ``logt = -1/nlive`` and a trapezoid re-integration at
-    :meth:`finalise`."""
+    the shrinkage ``expectation`` ``"logt"`` (<log t> = -1/nlive, the
+    default) or ``"t"`` (<t> = nlive / (nlive + 1)) and a trapezoid
+    re-integration at :meth:`finalise`."""
 
-    def __init__(self, nlive: int):
+    def __init__(self, nlive: int, expectation: str = "logt"):
         self.base_nlive = int(nlive)
+        if expectation.lower() not in ("t", "logt"):
+            raise ValueError(f"Expectation must be t or logt, got: {expectation}")
+        self.expectation = expectation.lower()
         self.reset()
 
     def reset(self) -> None:
@@ -81,7 +85,7 @@ class _NSIntegralState:
                     "far (ties are expected with float32 device likelihoods)",
                     self.nonmonotonic_count,
                 )
-        logt = -1.0 / nlive
+        logt = self.log_shrinkage(nlive)
         Wt = self.logw + logL + math.log(-math.expm1(logt))
         if Wt > self.logZ:
             self.logZ = Wt + math.log1p(math.exp(self.logZ - Wt))
@@ -103,6 +107,12 @@ class _NSIntegralState:
         self.logLs.append(logL)
         self.log_vols.append(self.logw)
         self.nlives.append(int(nlive))
+
+    def log_shrinkage(self, nlive) -> float:
+        """The expected log-shrinkage of one iteration at ``nlive``."""
+        if self.expectation == "logt":
+            return -1.0 / nlive
+        return -math.log1p(1.0 / nlive)
 
     @property
     def log_evidence(self) -> float:

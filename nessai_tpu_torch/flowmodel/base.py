@@ -2,9 +2,11 @@
 Counterpart of ``nessai_tpu/flowmodel/base.py``.
 
 Training is a plain eager loop: the batches are shuffled and split once
-per call, every epoch steps AdamW with optax's global-norm clipping over
-them, a held-out validation split drives patience-based early stopping,
-and the best weights are restored at the end. The flow is in training
+per call, every epoch steps the optimiser (AdamW by default, or Adam or
+SGD, as optax defines them) with optax's global-norm clipping over them,
+optionally with a cosine-annealed learning rate and Gaussian noise added
+to the inputs, a held-out validation split drives patience-based early
+stopping, and the best weights are restored at the end. The flow is in training
 mode (conditioner dropout) for the optimiser steps alone. A LARS base
 distribution moves its normalisation estimate after every epoch and
 takes a final one after training, where the JAX package's per-epoch
@@ -15,6 +17,7 @@ arrays come in and go out as numpy; the flow and its data live on
 
 import copy
 import logging
+import math
 import os
 import shutil
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from ..flows import configure_model
+from ..flows.utils import reset_permutations, reset_weights
 from ..flows.bijectors import ActNorm, Chain
 from ..flows.distributions import ResampledGaussian
 from ..utils.device import get_device
@@ -42,6 +46,39 @@ WEIGHTS_FILE = "model.pt"
 
 
 @torch.no_grad()
+def _get_optimiser(name: str, params, lr: float, **kwargs):
+    """``adam``, ``adamw`` or ``sgd`` with optax's defaults and keyword
+    names (``b1``, ``b2``, ``eps``, ``weight_decay``, ``momentum``,
+    ``nesterov``): AdamW decays the weights by 1e-4 where torch's default
+    is 1e-2, and SGD has no momentum unless asked."""
+    name = name.lower()
+    kwargs = dict(kwargs)
+    if name in ("adam", "adamw"):
+        options = dict(
+            lr=lr,
+            betas=(kwargs.pop("b1", 0.9), kwargs.pop("b2", 0.999)),
+            eps=kwargs.pop("eps", 1e-8),
+        )
+        if name == "adamw":
+            options["weight_decay"] = kwargs.pop("weight_decay", 1e-4)
+        optimiser = torch.optim.AdamW if name == "adamw" else torch.optim.Adam
+    elif name == "sgd":
+        momentum = kwargs.pop("momentum", None)
+        options = dict(lr=lr, momentum=momentum or 0.0, nesterov=bool(kwargs.pop("nesterov", False)))
+        optimiser = torch.optim.SGD
+    else:
+        raise ValueError(f"Unknown optimiser: {name}")
+    if kwargs:
+        raise ValueError(f"Unknown keyword arguments for the {name} optimiser: {sorted(kwargs)}")
+    return optimiser(params, **options)
+
+
+def _cosine_decay(lr: float, step: int, decay_steps: int) -> float:
+    """``optax.cosine_decay_schedule(lr, decay_steps)`` at ``step``."""
+    step = min(step, decay_steps)
+    return lr * 0.5 * (1.0 + math.cos(math.pi * step / decay_steps))
+
+
 def _clip_by_global_norm(params, max_norm: float) -> None:
     """``optax.clip_by_global_norm``: scale every gradient by
     ``max_norm / norm`` when the global norm is at least ``max_norm``
@@ -96,16 +133,30 @@ class FlowModel:
         self.reset_optimiser()
         self.initialised = True
 
-    def reset_optimiser(self) -> None:
-        # optax.adamw's defaults: a weight decay of 1e-4 where torch's
-        # default is 1e-2
-        self.optimiser = torch.optim.AdamW(
-            self.flow.parameters(),
-            lr=self.training_config.lr,
-            betas=(0.9, 0.999),
-            eps=1e-8,
-            weight_decay=1e-4,
+    def reset_optimiser(self, lr=None) -> None:
+        """A fresh optimiser of ``training_config.optimiser`` (with its
+        ``optimiser_kwargs``) at ``lr``, by default the configured one."""
+        tc = self.training_config
+        self.optimiser = _get_optimiser(
+            tc.optimiser, self.flow.parameters(), tc.lr if lr is None else lr, **tc.optimiser_kwargs
         )
+
+    def reset_model(self, weights: bool = True, permutations: bool = False) -> None:
+        """Fresh weights (and the ActNorm data initialisation at the next
+        training) and/or fresh permutations, each from a seed drawn from
+        ``rng``, then a fresh optimiser. An uninitialised model is only
+        initialised."""
+        if not self.initialised:
+            self.initialise()
+            return
+        config = flow_config_to_dict(self.flow_config)
+        generator = torch.Generator().manual_seed(int(self.rng.integers(0, 2**31 - 1)))
+        if weights:
+            reset_weights(self.flow, config, generator)
+            self._actnorm_done = False
+        if permutations:
+            reset_permutations(self.flow, config, generator)
+        self.reset_optimiser()
 
     # ------------------------------------------------------------------
     # Training
@@ -136,6 +187,10 @@ class FlowModel:
             raise ValueError(f"Too few training samples: {n_train}")
         if batch_size is None:
             batch_size = self.training_config.batch_size
+        if batch_size == "all":
+            batch_size = n_train
+        elif not isinstance(batch_size, int) or isinstance(batch_size, bool):
+            raise RuntimeError(f"Unknown batch size: {batch_size}")
         if batch_size == 1:
             raise ValueError("Cannot use a batch size of 1!")
         batch_size = min(int(batch_size), n_train)
@@ -200,11 +255,32 @@ class FlowModel:
         self.optimiser.step()
         return loss.detach()
 
+    def _noise_sigma(self, batches):
+        """The scale of the Gaussian noise added to each training row
+        (one tensor per batch), or None without noise: ``noise_scale``
+        (constant), or ``noise_scale`` times the row's distance to its
+        nearest other training row (adaptive)."""
+        tc = self.training_config
+        if tc.noise_type is None or not tc.noise_scale:
+            return None
+        if tc.noise_type == "constant":
+            return [torch.full((len(b), 1), float(tc.noise_scale), device=b.device) for b in batches]
+        if tc.noise_type == "adaptive":
+            from scipy.spatial.distance import cdist
+
+            x = torch.cat(batches).cpu().numpy()
+            d = cdist(x, x)
+            np.fill_diagonal(d, np.inf)
+            sigma = self._to_device(tc.noise_scale * d.min(axis=1))[:, None]
+            return list(torch.split(sigma, [len(b) for b in batches]))
+        raise ValueError(f"Unknown noise type: {tc.noise_type}")
+
     @torch.no_grad()
     def _maybe_init_actnorm(self, x) -> None:
         """Data-dependent actnorm initialisation: walk the chain once,
-        whitening the activations at each ActNorm."""
-        if self._actnorm_done:
+        whitening the activations at each ActNorm (not with
+        ``use_actnorm_init=False``)."""
+        if self._actnorm_done or not self.training_config.use_actnorm_init:
             return
         if isinstance(self.flow.bijector, Chain):
             h = self._to_device(x)
@@ -234,6 +310,14 @@ class FlowModel:
         batches, val, w_batches, w_val = self.prep_data(samples, val_size, weights=weights)
         if w_batches is None:
             w_batches = [None] * len(batches)
+        sigma = self._noise_sigma(batches)
+        decay_steps = None
+        if tc.annealing:
+            # a fresh optimiser whose learning rate decays over the most
+            # steps this call can take, as the JAX package anneals it
+            self.reset_optimiser()
+            decay_steps = max(int(max_epochs) * len(batches), 1)
+        steps = 0
         history = {"loss": [], "val_loss": []}
         # as in the JAX package, the starting weights stand until an
         # epoch improves on them (a run that goes non-finite at once
@@ -243,7 +327,16 @@ class FlowModel:
         best_it = 0
         for epoch in range(int(max_epochs)):
             self.flow.train()
-            loss = torch.stack([self._train_step(x, w) for x, w in zip(batches, w_batches)]).mean()
+            losses = []
+            for i, (x, w) in enumerate(zip(batches, w_batches)):
+                if decay_steps is not None:
+                    for group in self.optimiser.param_groups:
+                        group["lr"] = _cosine_decay(tc.lr, steps, decay_steps)
+                if sigma is not None:
+                    x = x + sigma[i] * torch.randn(x.shape, generator=self.device_generator(), device=x.device)
+                losses.append(self._train_step(x, w))
+                steps += 1
+            loss = torch.stack(losses).mean()
             self.flow.eval()
             self.end_iteration()
             if val is not None:

@@ -29,11 +29,18 @@ class FlowConfig:
 @dataclass
 class TrainingConfig:
     lr: float = 1e-3
+    annealing: bool = False
     clip_grad_norm: float = 5.0
-    batch_size: int = 1000
+    batch_size: Union[int, str] = 1000
     max_epochs: int = 500
     patience: int = 20
     val_size: Optional[float] = 0.1
+    optimiser: str = "adamw"
+    optimiser_kwargs: dict = field(default_factory=dict)
+    noise_type: Optional[str] = None
+    noise_scale: float = 0.0
+    #: the data-dependent ActNorm initialisation at the first training
+    use_actnorm_init: bool = True
 
 
 def _update(cls, config):
@@ -66,9 +73,25 @@ def update_flow_config(config) -> FlowConfig:
 
 
 def update_training_config(config) -> TrainingConfig:
+    """Merge a user dict onto the defaults. ``noise_type`` needs a
+    ``noise_scale``; a float ``noise_scale`` alone means constant
+    noise."""
     if config is not None and not isinstance(config, (dict, TrainingConfig)):
         raise TypeError("Must pass a dictionary to update the default model config")
-    return _update(TrainingConfig, config)
+    if isinstance(config, dict):
+        if config.get("noise_type") is not None and config.get("noise_scale") is None:
+            raise RuntimeError("`noise_scale` must be specified when `noise_type` is given.")
+        ns = config.get("noise_scale")
+        if ns is not None and not isinstance(ns, float):
+            raise TypeError(f"`noise_scale` must be a float. Got type: {type(ns)}")
+        if isinstance(ns, float) and config.get("noise_type") is None:
+            config = dict(config, noise_type="constant")
+    cfg = _update(TrainingConfig, config)
+    if cfg.noise_type is not None and cfg.noise_type not in ("constant", "adaptive"):
+        raise ValueError(f"Unknown noise_type: {cfg.noise_type}")
+    if isinstance(cfg.batch_size, str) and cfg.batch_size != "all":
+        raise ValueError(f"Unknown batch_size: {cfg.batch_size}")
+    return cfg
 
 
 def flow_config_to_dict(cfg: FlowConfig) -> dict:

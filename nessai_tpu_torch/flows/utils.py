@@ -1,7 +1,7 @@
 """Flow construction. Counterpart of ``nessai_tpu/flows/utils.py``
 (``get_n_neurons``, the builder registry, the base distributions by
 name, ``create_linear_transform``, ``create_pre_transform``,
-``configure_model``, ``reset_weights``) for the RealNVP, neural-spline
+``configure_model``, ``reset_weights``, ``reset_permutations``) for the RealNVP, neural-spline
 and masked autoregressive families."""
 
 import copy
@@ -23,6 +23,7 @@ __all__ = [
     "create_pre_transform",
     "configure_model",
     "reset_weights",
+    "reset_permutations",
 ]
 
 #: ``ftype`` names and their builders (``nessai_tpu/flows/utils.py:42-52``);
@@ -56,10 +57,15 @@ _BUILDER_KEYS = (
 
 
 def get_n_neurons(n_neurons, n_inputs: int) -> int:
-    """Resolve the conditioner width: ``None`` and ``"auto"`` are
-    ``2 * n_inputs``."""
-    if n_neurons is None or n_neurons == "auto":
+    """Resolve the conditioner width: ``None``, ``"auto"`` and
+    ``"double"`` are ``2 * n_inputs``, ``"equal"`` is ``n_inputs`` and
+    ``"half"`` is ``n_inputs // 2`` (at least 1)."""
+    if n_neurons is None or n_neurons in ("auto", "double"):
         return 2 * n_inputs
+    if n_neurons == "equal":
+        return n_inputs
+    if n_neurons == "half":
+        return max(n_inputs // 2, 1)
     if isinstance(n_neurons, str):
         raise ValueError(f"Could not get number of neurons: unknown value {n_neurons!r}")
     return int(n_neurons)
@@ -171,3 +177,16 @@ def reset_weights(flow: Flow, config: dict, generator: torch.Generator) -> None:
         if not isinstance(b, Permutation):
             b.load_state_dict(new.state_dict())
     flow.base.load_state_dict(fresh.base.state_dict())
+
+
+@torch.no_grad()
+def reset_permutations(flow: Flow, config: dict, generator: torch.Generator) -> None:
+    """Give ``flow`` (built from ``config``) fresh permutations in place,
+    those of a new flow from ``config`` with its seed drawn from
+    ``generator``; every other weight stays
+    (``nessai_tpu/flows/utils.py:reset_permutations``)."""
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+    fresh = configure_model(dict(config, seed=seed))
+    for b, new in zip(flow.bijector.bijectors, fresh.bijector.bijectors, strict=True):
+        if isinstance(b, Permutation):
+            b.load_state_dict(new.state_dict())

@@ -3,6 +3,20 @@
 
 from .base import BaseFlowProposal
 from .flowproposal import FlowProposal
-from .truncation import LatentRadiusTruncation
+from .truncation import (
+    TRUNCATION_REGISTRY,
+    LatentRadiusTruncation,
+    LikelihoodThresholdTruncation,
+    MinLogQTruncation,
+    TruncationScheme,
+)
 
-__all__ = ["BaseFlowProposal", "FlowProposal", "LatentRadiusTruncation"]
+__all__ = [
+    "BaseFlowProposal",
+    "FlowProposal",
+    "TruncationScheme",
+    "LatentRadiusTruncation",
+    "MinLogQTruncation",
+    "LikelihoodThresholdTruncation",
+    "TRUNCATION_REGISTRY",
+]

@@ -1,8 +1,8 @@
 """Shared machinery for flow-based proposals. Counterpart of
 ``nessai_tpu/proposal/flowproposal/base.py``: owns the FlowModel and the
 reparameterisation stack (built from the user's spec), rescales between
-x and x', trains the flow and keeps the pool with an adaptive pool
-size."""
+x and x' (on the prior's unit hypercube with ``map_to_unit_hypercube``),
+trains the flow and keeps the pool with an adaptive pool size."""
 
 import inspect
 import logging
@@ -31,10 +31,17 @@ __all__ = ["BaseFlowProposal"]
 
 class BaseFlowProposal(RejectionProposal):
     """Base class for proposals that sample from a normalising flow
-    trained on the current live points."""
+    trained on the current live points.
 
-    #: cap on the pool-size scale of 1/acceptance
-    max_poolsize_scale: float = 10.0
+    ``check_acceptance`` records, after each populate, the share of the
+    pool above the worst point's likelihood; the pool size is scaled by
+    the sampler's 1/acceptance up to ``max_poolsize_scale`` where
+    ``update_poolsize``; ``save_training_data`` saves each training set;
+    ``map_to_unit_hypercube`` runs the reparameterisations and the flow
+    on the prior's unit hypercube; ``accept_all`` keeps every draw that
+    survives the truncation (no rejection sampling).
+    """
+
     #: whether :meth:`add_default_reparameterisations` is applied;
     #: subclasses may flip this
     use_default_reparameterisations = False
@@ -47,21 +54,30 @@ class BaseFlowProposal(RejectionProposal):
         output: str = "./",
         poolsize: Optional[int] = None,
         rng=None,
+        check_acceptance: bool = False,
+        max_poolsize_scale: int = 10,
+        update_poolsize: bool = True,
+        save_training_data: bool = False,
         reparameterisations=None,
         fallback_reparameterisation: Optional[str] = "zscore",
         use_default_reparameterisations: Optional[bool] = None,
         reverse_reparameterisations: bool = False,
+        map_to_unit_hypercube: bool = False,
+        accept_all: bool = False,
         plot="min",
         device=None,
     ):
         super().__init__(model, rng=rng)
         self.device = get_device(device)
-        self._poolsize = int(poolsize if poolsize is not None else 1000)
-        self._poolsize_scale = 1.0
+        self.configure_poolsize(poolsize if poolsize is not None else 1000, update_poolsize, max_poolsize_scale)
         self.ns_acceptance = 1.0
         self.output = output
         self.flow_config = dict(flow_config or {})
         self.training_config = training_config
+        self.check_acceptance = check_acceptance
+        self.save_training_data = save_training_data
+        self.map_to_unit_hypercube = map_to_unit_hypercube
+        self.accept_all = accept_all
         self.reparameterisations = reparameterisations
         if use_default_reparameterisations is not None:
             self.use_default_reparameterisations = use_default_reparameterisations
@@ -78,9 +94,23 @@ class BaseFlowProposal(RejectionProposal):
         self._reparameterisation: Optional[CombinedReparameterisation] = None
         self.parameters = None
         self.prime_parameters = None
+        self.acceptance = []
         self.populated = False
         self.populated_count = 0
+        self.training_data = None
+        #: the training data's forward images and their log q, kept where
+        #: a truncation rule reads them
+        self.training_latent = None
+        self.training_log_q = None
         self.x = None
+
+    def configure_poolsize(self, poolsize, update_poolsize, max_poolsize_scale) -> None:
+        if poolsize is None:
+            raise RuntimeError("Must specify `poolsize`")
+        self._poolsize = int(poolsize)
+        self._poolsize_scale = 1.0
+        self.update_poolsize = update_poolsize
+        self.max_poolsize_scale = max_poolsize_scale
 
     @property
     def poolsize(self) -> int:
@@ -137,6 +167,7 @@ class BaseFlowProposal(RejectionProposal):
             self.verify_rescaling()
         flow_config = dict(self.flow_config)
         flow_config["n_inputs"] = self.prime_dims
+        flow_config = self.update_flow_config(flow_config)
         self.flow = FlowModel(
             flow_config=flow_config,
             training_config=self.training_config,
@@ -147,6 +178,11 @@ class BaseFlowProposal(RejectionProposal):
         self.flow.initialise()
         self.initialised = True
 
+    def update_flow_config(self, flow_config: dict) -> dict:
+        """Hook for subclasses to adjust the flow config (the augmented
+        proposal's fixed coupling mask)."""
+        return flow_config
+
     def add_default_reparameterisations(self) -> None:
         """Hook for subclasses to add reparameterisations that are assumed
         by default; applied after the user's specs when
@@ -155,6 +191,8 @@ class BaseFlowProposal(RejectionProposal):
 
     @property
     def prior_bounds(self):
+        if self.map_to_unit_hypercube:
+            return {n: np.array([0.0, 1.0]) for n in self.model.names}
         return {n: np.asarray(self.model.bounds[n], float) for n in self.model.names}
 
     def get_reparameterisation(self, name):
@@ -279,11 +317,14 @@ class BaseFlowProposal(RejectionProposal):
         if not self._reparameterisation.one_to_one:
             logger.warning("Could not check if reparameterisation is invertible")
             return
-        x = self._convert_to_x(self.model.new_point(N=100))
+        x = self.model.new_point(N=100)
+        if self.map_to_unit_hypercube:
+            x = self.model.to_unit_hypercube(x)
+        x = self._convert_to_x(x)
         for compute_radius in (False, True):
             self._reparameterisation.update(x)
             x_prime, log_j = self.rescale(x, compute_radius=compute_radius)
-            x_out, log_j_inv = self.inverse_rescale(x_prime)
+            x_out, log_j_inv = self.inverse_rescale(x_prime, return_unit_hypercube=True)
             k = len(x_out) // len(x)
             if k * len(x) != len(x_out):
                 raise RuntimeError("Rescaling changed the number of samples by a non-integer factor")
@@ -315,15 +356,25 @@ class BaseFlowProposal(RejectionProposal):
         )
         return x_prime, log_j
 
-    def inverse_rescale(self, x_prime):
-        """x' -> (x, log|dx/dx'|)."""
+    def inverse_rescale(self, x_prime, return_unit_hypercube: bool = False, **kwargs):
+        """x' -> (x, log|dx/dx'|). With ``map_to_unit_hypercube`` the
+        stack's x is the unit hypercube, mapped to the model's space
+        unless ``return_unit_hypercube``."""
         x = empty_structured_array(len(x_prime), dtype=self.x_dtype)
         log_j = np.zeros(len(x_prime))
-        x, x_prime, log_j = self._reparameterisation.inverse_reparameterise(x, x_prime, log_j)
+        x, x_prime, log_j = self._reparameterisation.inverse_reparameterise(x, x_prime, log_j, **kwargs)
         for p in global_config.livepoints.non_sampling_parameters:
             if p in x_prime.dtype.names and p in x.dtype.names:
                 x[p] = x_prime[p]
+        if self.map_to_unit_hypercube and not return_unit_hypercube:
+            x = self.model.from_unit_hypercube(x)
         return x, log_j
+
+    def check_state(self, x) -> None:
+        """Fit the reparameterisations to the live points ``x``."""
+        if self.map_to_unit_hypercube:
+            x = self.model.to_unit_hypercube(x)
+        self._reparameterisation.update(x)
 
     # ------------------------------------------------------------------
     def train(self, x, plot: bool = True) -> None:
@@ -332,11 +383,20 @@ class BaseFlowProposal(RejectionProposal):
         proposal's plotting allow)."""
         if not self.initialised:
             raise RuntimeError("Proposal must be initialised before training")
-        x = self._convert_to_x(np.asarray(x).copy())
+        x = np.asarray(x).copy()
+        if self.map_to_unit_hypercube:
+            x = self.model.to_unit_hypercube(x)
+        x = self._convert_to_x(x)
+        self.training_data = x.copy()
+        if self.save_training_data:
+            np.save(os.path.join(self.output, f"training_data_{self.training_count}.npy"), x)
         self._reparameterisation.update(x)
         x_prime, _ = self.rescale(x)
         x_prime = live_points_to_array(x_prime, self.prime_parameters)
         history = self.flow.train(x_prime, save=self.save_flow_weights)
+        self.training_latent = self.training_log_q = None
+        if self.requires_training_latent:
+            self.training_latent, self.training_log_q = self.flow.forward_and_log_prob(x_prime)
         if self._plot_training and plot and history["loss"]:
             try:
                 from ...plot import plot_loss
@@ -350,6 +410,10 @@ class BaseFlowProposal(RejectionProposal):
                 logger.warning("Could not plot loss: %s", e)
         self.training_count += 1
         self.populated = False
+
+    #: whether :meth:`train` keeps the training data's forward images
+    #: (a subclass whose truncation reads them says so)
+    requires_training_latent = False
 
     def plot_pool(self, x) -> None:
         """Plot the pool's 1-D distributions to ``pool_<n>.png`` (logged
@@ -374,6 +438,8 @@ class BaseFlowProposal(RejectionProposal):
         in. The flow is rebuilt from its last weight file at
         :meth:`resume`."""
         state = super().__getstate__()
+        state["training_latent"] = None
+        state["training_log_q"] = None
         state["x"] = None
         state["samples"] = []
         state["indices"] = []
@@ -402,8 +468,16 @@ class BaseFlowProposal(RejectionProposal):
 
     # ------------------------------------------------------------------
     def log_prior(self, x):
-        """x-space log-prior, with the auxiliary parameters' priors."""
-        return self.model.batch_evaluate_log_prior(x) + self._reparameterisation.log_prior(x)
+        """x-space log-prior (on the unit hypercube with
+        ``map_to_unit_hypercube``), with the auxiliary parameters'
+        priors."""
+        log_p = self.model.batch_evaluate_log_prior(x, unit_hypercube=self.map_to_unit_hypercube)
+        return log_p + self._reparameterisation.log_prior(x)
+
+    def unit_hypercube_log_prior(self, x):
+        """The log-prior of ``x`` given in the unit hypercube, with the
+        auxiliary parameters' priors."""
+        return self.model.batch_evaluate_log_prior(x, unit_hypercube=True) + self._reparameterisation.log_prior(x)
 
     def x_prime_log_prior(self, x_prime):
         return self._reparameterisation.x_prime_log_prior(x_prime)
@@ -416,6 +490,8 @@ class BaseFlowProposal(RejectionProposal):
 
     def convert_to_samples(self, x):
         """Model-space samples with the log-prior set."""
+        if self.map_to_unit_hypercube:
+            x = self.model.from_unit_hypercube(x)
         out = empty_structured_array(len(x), names=self.model.names)
         for n in self.model.names:
             out[n] = x[n]
@@ -427,11 +503,28 @@ class BaseFlowProposal(RejectionProposal):
     def populate(self, worst_point, n_samples=10000):
         raise NotImplementedError
 
+    def compute_acceptance(self, logL) -> float:
+        """The share of the pool above the likelihood ``logL``."""
+        return float(np.mean(self.samples["logL"] > logL))
+
+    def reset(self) -> None:
+        """Drop the pool, the training data's images and the acceptance
+        records."""
+        self.samples = []
+        self.indices = []
+        self.populated = False
+        self.x = None
+        self.training_latent = None
+        self.training_log_q = None
+        self.acceptance = []
+        self.populated_count = 0
+
     def draw(self, worst_point):
         """Pop a sample from the pool, repopulating (with the adaptive
-        poolsize) when empty."""
+        poolsize where ``update_poolsize``) when empty."""
         if not self.populated:
-            self.update_poolsize_scale(self.ns_acceptance)
+            if self.update_poolsize:
+                self.update_poolsize_scale(self.ns_acceptance)
             while not self.populated:
                 self.populate(worst_point, n_samples=self.poolsize)
         index = self.indices.pop()

@@ -20,86 +20,37 @@ import numpy as np
 
 from ..evidence import _NSIntegralState
 from ..livepoint import empty_structured_array
-from ..proposal import FlowProposal, RejectionProposal
+from ..proposal import AnalyticProposal, RejectionProposal
+from ..proposal.utils import check_proposal_kwargs, get_flow_proposal_class
+from ..stopping_criteria import StoppingCriterionRegistry
 from ..utils.indices import compute_indices_ks_test
 from .base import BaseNestedSampler
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["NestedSampler", "check_reference_options", "PROPOSAL_OPTIONS"]
+__all__ = ["NestedSampler", "check_reference_options", "FIXED_OPTIONS"]
 
 #: The JAX sampler's keyword options that the port does not take yet:
-#: for each, the one value the port runs with (the reference's default,
-#: or the port's fixed choice) and the ROADMAP §1 item that brings the
-#: others.
+#: for each, the one value the port runs with and the ROADMAP §1 item
+#: that brings the others.
 FIXED_OPTIONS = {
-    "stopping": (0.1, "6"),
-    "stopping_criterion": ("dlogZ", "6"),
-    "max_iteration": (None, "6"),
-    "prior_sampling": (False, "6"),
-    "analytic_priors": (False, "6"),
-    "maximum_uninformed": (None, "6"),
-    "uninformed_proposal": (None, "6"),
-    "uninformed_acceptance_threshold": (None, "6"),
-    "uninformed_proposal_kwargs": (None, "6"),
-    "training_frequency": (None, "6"),
-    "cooldown": (200, "6"),
-    "memory": (False, "6"),
-    "acceptance_threshold": (0.01, "6"),
-    "retrain_acceptance": (True, "6"),
-    "train_on_empty": (True, "6"),
-    "reset_weights": (False, "6"),
-    "reset_permutations": (False, "6"),
-    "reset_acceptance": (False, "6"),
-    "reset_flow": (False, "6"),
-    "flow_class": (None, "6"),
-    "flow_proposal_class": (None, "6"),
-    "shrinkage_expectation": ("logt", "6"),
-    "batched_bookkeeping": (True, "6"),
-    "device_bookkeeping": (True, "6"),
-    "simulated_evidence_error": (True, "6"),
+    "batched_bookkeeping": (True, "7"),
+    "device_bookkeeping": (True, "7"),
 }
 
 
-def _is_fixed(value, fixed) -> bool:
-    # a bool or None matches only itself (True == 1 in Python), a number
-    # or a string an equal plain number or string
-    if fixed is None or isinstance(fixed, bool):
-        return value is fixed
-    return type(value) in (int, float, str) and value == fixed
-
-
-#: The flow proposal's options that the port takes, passed on to
-#: :class:`~nessai_tpu_torch.proposal.FlowProposal`.
-PROPOSAL_OPTIONS = (
-    "reparameterisations",
-    "fallback_reparameterisation",
-    "use_default_reparameterisations",
-    "reverse_reparameterisations",
-)
-
-
 def check_reference_options(options: dict) -> None:
-    """Accept the JAX sampler's options where they hold the value the
-    port runs with; raise ``NotImplementedError`` naming the ROADMAP item
-    for any other value and for the flow proposal's options that the
-    port does not take (item 6). The options of
-    :data:`PROPOSAL_OPTIONS` are not checked here."""
+    """Accept the options of :data:`FIXED_OPTIONS` at the value the port
+    runs with (True, and not the 1 that equals it); raise
+    ``NotImplementedError`` naming the ROADMAP item for any other
+    value."""
     for name, value in options.items():
-        if name in PROPOSAL_OPTIONS:
-            continue
-        if name in FIXED_OPTIONS:
-            fixed, item = FIXED_OPTIONS[name]
-            if _is_fixed(value, fixed):
-                continue
+        fixed, item = FIXED_OPTIONS[name]
+        if value is not fixed:
             raise NotImplementedError(
                 f"{name}={value!r} is not in the PyTorch port's standard sampler yet "
                 f"(ROADMAP §1 item {item}); it runs with {name}={fixed!r}"
             )
-        raise NotImplementedError(
-            f"The flow proposal option {name}={value!r} is not in the PyTorch port "
-            "yet (ROADMAP §1 item 6)"
-        )
 
 
 class NestedSampler(BaseNestedSampler):
@@ -107,27 +58,29 @@ class NestedSampler(BaseNestedSampler):
 
     ``device`` (default CUDA) is where the flow trains and the pool is
     populated; the sampling loop itself runs on the host in float64.
-    The options of :data:`PROPOSAL_OPTIONS` (``reparameterisations=``
-    and its fallback, default and order options) go to the flow
-    proposal.
-    The flow is trained whenever its pool runs empty, and the run stops
-    when the estimated remaining evidence ``dlogZ`` falls to
-    :attr:`tolerance`.
+    The run stops when the estimated remaining evidence ``dlogZ`` falls
+    to the tolerance ``stopping`` (or at ``max_iteration``). The
+    uninformed proposal (rejection sampling from the prior, or with
+    ``analytic_priors`` exact prior draws) runs until its acceptance
+    falls below ``uninformed_acceptance_threshold`` or
+    ``maximum_uninformed`` iterations; then the flow proposal
+    (``flow_class``, :class:`FlowProposal` by default, which takes the
+    remaining keyword arguments) trains on the live points whenever its
+    pool runs empty (``train_on_empty``), its acceptance falls below
+    ``acceptance_threshold`` after ``cooldown`` iterations
+    (``retrain_acceptance``) or every ``training_frequency`` iterations,
+    and resets its weights and permutations on the schedule of
+    ``reset_weights``, ``reset_permutations`` and ``reset_flow``.
     """
-
-    #: stopping tolerance on dlogZ
-    tolerance: float = 0.1
-    #: switch to the flow proposal when the uninformed proposal's mean
-    #: block acceptance falls below this
-    uninformed_acceptance_threshold: float = 0.5
-    #: draws of the simulated evidence error
-    n_simulated_evidence: int = 500
 
     def __init__(
         self,
         model,
         nlive: int = 2000,
         output: Optional[str] = None,
+        stopping: float = 0.1,
+        stopping_criterion: str = "dlogZ",
+        max_iteration: Optional[int] = None,
         checkpointing: bool = True,
         checkpoint_interval: int = 600,
         checkpoint_on_iteration: bool = False,
@@ -139,18 +92,41 @@ class NestedSampler(BaseNestedSampler):
         seed: Optional[int] = None,
         rng: Optional[np.random.Generator] = None,
         plot: bool = True,
+        prior_sampling: bool = False,
+        analytic_priors: bool = False,
+        maximum_uninformed: Optional[float] = None,
+        uninformed_proposal=None,
+        uninformed_acceptance_threshold: Optional[float] = None,
+        uninformed_proposal_kwargs: Optional[dict] = None,
+        training_frequency=None,
+        cooldown: int = 200,
+        memory=False,
+        acceptance_threshold: float = 0.01,
+        retrain_acceptance: bool = True,
+        train_on_empty: bool = True,
+        reset_weights=False,
+        reset_permutations=False,
+        reset_acceptance: bool = False,
+        reset_flow=False,
+        flow_class=None,
+        flow_proposal_class=None,
         trace_parameters: Optional[list] = None,
         flow_config: Optional[dict] = None,
         training_config: Optional[dict] = None,
         proposal_plots: bool = False,
+        shrinkage_expectation: str = "logt",
+        batched_bookkeeping: bool = True,
+        device_bookkeeping: bool = True,
+        simulated_evidence_error=True,
         n_pool: Optional[int] = None,
         pool=None,
         close_pool: bool = False,
-        poolsize: Optional[int] = None,
         device=None,
-        **options,
+        **kwargs,
     ):
-        check_reference_options(options)
+        check_reference_options(
+            dict(batched_bookkeeping=batched_bookkeeping, device_bookkeeping=device_bookkeeping)
+        )
         #: close the model's pool when the sampling loop ends
         self._close_pool = close_pool
         super().__init__(
@@ -171,12 +147,32 @@ class NestedSampler(BaseNestedSampler):
             pool=pool,
             device=device,
         )
-        self.checkpoint_on_training = checkpoint_on_training
+        self.prior_sampling = prior_sampling
+        self.batched_bookkeeping = batched_bookkeeping
+        self.device_bookkeeping = device_bookkeeping
+        #: draws of the simulated evidence error (True: 500, an int: that
+        #: many, False or 0: none)
+        self.simulated_evidence_error = simulated_evidence_error
+        self.log_evidence_error_simulated = None
         #: parameters of the trace plot (by default every model parameter)
         self.trace_parameters = list(trace_parameters) if trace_parameters is not None else list(model.names)
-        self.log_evidence_error_simulated = None
-        self.state = _NSIntegralState(self.nlive)
+        if flow_proposal_class is not None:
+            if flow_class is not None:
+                raise RuntimeError("Specify only one of flow_proposal_class / flow_class")
+            flow_class = flow_proposal_class
+        self.checkpoint_on_training = checkpoint_on_training
+        self.configure_max_iteration(max_iteration)
+        self.acceptance_threshold = acceptance_threshold
+        self.retrain_acceptance = retrain_acceptance
+        self.train_on_empty = train_on_empty
+        self.cooldown = cooldown
+        self.memory = memory
+        self.configure_flow_reset(reset_weights, reset_permutations, reset_flow)
+        self.reset_acceptance = reset_acceptance
+        self.state = _NSIntegralState(self.nlive, expectation=shrinkage_expectation)
+        self.stopping_criterion = StoppingCriterionRegistry.get(stopping_criterion, tolerance=stopping)
         self.condition = np.inf
+        self.configure_training_frequency(training_frequency)
 
         self.live_points = None
         self.accepted = 0
@@ -195,30 +191,99 @@ class NestedSampler(BaseNestedSampler):
         self.mean_block_acceptance = 1.0
         self.training_iterations = []
         self.train_count = 0
+        self.last_updated = 0
+        self.completed_training = True
         self.uninformed_sampling = True
         self.training_time = datetime.timedelta()
         self._count_carry = 0
 
-        #: iterations after which the uninformed phase ends regardless
-        self.maximum_uninformed = 10 * self.nlive
-        self._uninformed_proposal = RejectionProposal(
-            self.model, rng=self.rng, poolsize=self.nlive
+        self.configure_uninformed_proposal(
+            uninformed_proposal,
+            analytic_priors,
+            maximum_uninformed,
+            uninformed_acceptance_threshold,
+            **(uninformed_proposal_kwargs or {}),
         )
-        self._flow_proposal = FlowProposal(
+        self.configure_flow_proposal(flow_class, flow_config, training_config, proposal_plots, **kwargs)
+        self.proposal = self._uninformed_proposal
+
+    # ------------------------------------------------------------------
+    # Configuration
+    # ------------------------------------------------------------------
+    def configure_max_iteration(self, max_iteration) -> None:
+        """The iteration cap (None: no cap)."""
+        self.max_iteration = np.inf if max_iteration is None else max_iteration
+
+    def configure_training_frequency(self, training_frequency) -> None:
+        """Retrain every ``training_frequency`` iterations; None, ``"inf"``
+        and ``"None"`` mean only when the other conditions hold."""
+        if training_frequency in (None, "inf", "None"):
+            self.training_frequency = np.inf
+        else:
+            self.training_frequency = training_frequency
+
+    def configure_flow_reset(self, reset_weights, reset_permutations, reset_flow) -> None:
+        """Reset the flow's weights (permutations) every ``reset_weights``
+        (``reset_permutations``) trainings, False for never; ``reset_flow``
+        sets both."""
+        for name, value in (
+            ("reset_weights", reset_weights),
+            ("reset_permutations", reset_permutations),
+            ("reset_flow", reset_flow),
+        ):
+            if not isinstance(value, (int, float)):
+                raise TypeError(f"`{name}` must be a bool, int or float")
+            setattr(self, name, float(value))
+        if self.reset_flow:
+            self.reset_weights = self.reset_flow
+            self.reset_permutations = self.reset_flow
+
+    def configure_uninformed_proposal(
+        self, uninformed_proposal, analytic_priors, maximum_uninformed, uninformed_acceptance_threshold, **kwargs
+    ) -> None:
+        """The proposal of the uninformed phase (``uninformed_proposal``,
+        or :class:`AnalyticProposal` with ``analytic_priors``, else
+        :class:`RejectionProposal`, built with ``kwargs``) and the rules
+        of the switch: at most ``maximum_uninformed`` iterations (10 ×
+        nlive by default, 0 for False), and an acceptance threshold (by
+        default the larger of 0.5 and 10 × ``acceptance_threshold``)."""
+        if maximum_uninformed is None:
+            self.maximum_uninformed = 10 * self.nlive
+        elif maximum_uninformed is False:
+            self.maximum_uninformed = 0
+        else:
+            self.maximum_uninformed = float(maximum_uninformed)
+        if uninformed_acceptance_threshold is None:
+            self.uninformed_acceptance_threshold = max(0.5, 10 * self.acceptance_threshold)
+        else:
+            self.uninformed_acceptance_threshold = uninformed_acceptance_threshold
+        kwargs.setdefault("poolsize", self.nlive)
+        if uninformed_proposal is None:
+            uninformed_proposal = AnalyticProposal if analytic_priors else RejectionProposal
+        self._uninformed_proposal = uninformed_proposal(self.model, rng=self.rng, **kwargs)
+
+    def configure_flow_proposal(self, flow_proposal_class, flow_config, training_config, proposal_plots, **kwargs):
+        """The flow proposal of class ``flow_proposal_class`` (a name or a
+        class, see :func:`get_flow_proposal_class`) with the keyword
+        arguments it takes (:func:`check_proposal_kwargs`), on the
+        sampler's device; the pool holds nlive points unless ``poolsize``
+        says otherwise."""
+        proposal_class = get_flow_proposal_class(flow_proposal_class)
+        kwargs = check_proposal_kwargs(proposal_class, kwargs)
+        kwargs.setdefault("poolsize", self.nlive)
+        self._flow_proposal = proposal_class(
             self.model,
             flow_config=flow_config,
             training_config=training_config,
             output=os.path.join(self.output, "proposal", ""),
-            poolsize=self.nlive if poolsize is None else poolsize,
             plot=proposal_plots,
             rng=self.rng,
             device=self.device,
-            **{k: options[k] for k in PROPOSAL_OPTIONS if k in options},
+            **kwargs,
         )
         # the weight files are read only at resume: none without
         # checkpoints
         self._flow_proposal.save_flow_weights = bool(self.checkpointing)
-        self.proposal = self._uninformed_proposal
 
     # ------------------------------------------------------------------
     @property
@@ -228,6 +293,22 @@ class NestedSampler(BaseNestedSampler):
     @property
     def acceptance(self) -> float:
         return self.iteration / max(self.likelihood_calls, 1)
+
+    @property
+    def tolerance(self) -> float:
+        """The stopping criterion's tolerance on dlogZ."""
+        return self.stopping_criterion.tolerance
+
+    @property
+    def mean_acceptance(self) -> float:
+        """Mean acceptance of the last ``nlive // 10`` blocks."""
+        if not self.acceptance_history:
+            return np.nan
+        return float(np.mean(self.acceptance_history))
+
+    @property
+    def last_iteration_with_flow(self):
+        return self.iteration - self.last_updated
 
     def check_resume(self) -> None:
         """After a resume, restore the proposal switch and a populated
@@ -323,16 +404,71 @@ class NestedSampler(BaseNestedSampler):
             return True
         return False
 
-    def train_proposal(self) -> None:
-        """Train the flow proposal on the current live points."""
+    def check_training(self):
+        """Whether to train now, and whether to force it past the
+        cooldown: ``(train, force)``. Nothing while the pool lasts; on an
+        empty pool, forced with ``train_on_empty``; forced where the
+        acceptance fell below ``acceptance_threshold`` after ``cooldown``
+        iterations of the block (``retrain_acceptance``); and every
+        ``training_frequency`` iterations, outside the cooldown."""
+        if not self.completed_training:
+            return True, True
+        if self.proposal.populated:
+            return False, False
+        train, force = False, False
+        if self.train_on_empty:
+            train, force = True, True
+        if (
+            self.retrain_acceptance
+            and self.mean_block_acceptance < self.acceptance_threshold
+            and self.block_iteration >= self.cooldown
+        ):
+            train, force = True, True
+        if (self.iteration - self.last_updated) >= self.training_frequency:
+            train = True
+        if train and not force and (self.iteration - self.last_updated) < self.cooldown:
+            train = False
+        return train, force
+
+    def check_flow_model_reset(self) -> None:
+        """Before a training: reset the flow's weights and permutations
+        where the acceptance fell below ``acceptance_threshold``
+        (``reset_acceptance``), else the weights every ``reset_weights``
+        and the permutations every ``reset_permutations`` trainings."""
+        proposal = self._flow_proposal
+        if not proposal.training_count:
+            return
+        if self.reset_acceptance and self.mean_block_acceptance < self.acceptance_threshold:
+            proposal.flow.reset_model(weights=True, permutations=True)
+            return
+        weights = bool(self.reset_weights and not (proposal.training_count % self.reset_weights))
+        permutations = bool(self.reset_permutations and not (proposal.training_count % self.reset_permutations))
+        if weights or permutations:
+            proposal.flow.reset_model(weights=weights, permutations=permutations)
+
+    def train_proposal(self, force: bool = False) -> None:
+        """Train the flow proposal on the current live points (with the
+        last ``memory`` nested samples), not within the cooldown unless
+        ``force``."""
+        if not force and (self.iteration - self.last_updated) < self.cooldown:
+            logger.debug("Not training; within cooldown")
+            return
+        self.check_flow_model_reset()
         logger.info("Training flow proposal at iteration %s", self.iteration)
         st = datetime.datetime.now()
-        self._flow_proposal.train(self.live_points.copy(), plot=self.plot)
+        training_data = self.live_points.copy()
+        if self.memory and len(self.nested_samples) >= self.memory:
+            training_data = np.concatenate(
+                [training_data, np.asarray(self.nested_samples[-int(self.memory) :], dtype=training_data.dtype)]
+            )
+        self._flow_proposal.train(training_data, plot=self.plot)
         self.training_time += datetime.datetime.now() - st
         self.training_iterations.append(self.iteration)
+        self.last_updated = self.iteration
         self.block_iteration = 0
         self.block_acceptance = 0.0
         self.train_count += 1
+        self.completed_training = True
         if self.checkpoint_on_training:
             self.checkpoint(periodic=True, force=True)
 
@@ -448,7 +584,7 @@ class NestedSampler(BaseNestedSampler):
         proposal = self.proposal
         indices = getattr(proposal, "indices", None)
         samples = getattr(proposal, "samples", None)
-        if not getattr(proposal, "populated", False) or not indices or samples is None:
+        if not self.completed_training or not getattr(proposal, "populated", False) or not indices or samples is None:
             return False
         state = self.state
         order = np.asarray(indices[::-1], dtype=np.int64)
@@ -463,7 +599,7 @@ class NestedSampler(BaseNestedSampler):
         ids = np.arange(n, dtype=np.int64)
         R_it = R["it"]
 
-        logt = -1.0 / n
+        logt = state.log_shrinkage(n)
         log1mexp_logt = math.log(-math.expm1(logt))
         logZ = float(state.logZ)
         oldZ = float(state.oldZ)
@@ -477,6 +613,7 @@ class NestedSampler(BaseNestedSampler):
         block_it = self.block_iteration
         cond = float(self.condition)
         tol = self.tolerance
+        max_it = self.max_iteration
         uninformed = self.uninformed_sampling
         switch_thr = self.uninformed_acceptance_threshold
         max_uninformed = self.maximum_uninformed
@@ -523,6 +660,8 @@ class NestedSampler(BaseNestedSampler):
             buf_nlives.clear()
 
         while cond > tol and j < K:
+            if max_it and it >= max_it:
+                break
             if uninformed and (mean_acc < switch_thr or it >= max_uninformed):
                 break
             w = float(llogL[0])
@@ -618,14 +757,20 @@ class NestedSampler(BaseNestedSampler):
         return True
 
     # ------------------------------------------------------------------
-    def check_state(self) -> None:
-        """Before each replacement: train at the switch from the
-        uninformed proposal and whenever the flow's pool is empty."""
+    def check_state(self, force: bool = False) -> None:
+        """Before each replacement: at the switch from the uninformed
+        proposal, train; after it, train as :meth:`check_training`
+        decides."""
         if self.uninformed_sampling:
-            if self.check_proposal_switch():
-                self.train_proposal()
-        elif not self.proposal.populated:
-            self.train_proposal()
+            if not self.check_proposal_switch():
+                return
+            force = True
+        if force:
+            self.train_proposal(force=True)
+            return
+        train, force_train = self.check_training()
+        if train or force_train:
+            self.train_proposal(force=force_train)
 
     def check_insertion_indices(self, rolling: bool = True) -> None:
         """KS test of the insertion indices."""
@@ -708,7 +853,12 @@ class NestedSampler(BaseNestedSampler):
         self.finalised = True
 
     def compute_simulated_evidence_error(self) -> None:
-        draws = self.state.simulate_log_evidence(self.n_simulated_evidence, rng=self.rng)
+        """The spread of ``simulated_evidence_error`` draws of logZ under
+        simulated prior-volume shrinkages (none where it is False or 0)."""
+        if not self.simulated_evidence_error:
+            return
+        n_sims = 500 if isinstance(self.simulated_evidence_error, bool) else int(self.simulated_evidence_error)
+        draws = self.state.simulate_log_evidence(n_sims, rng=self.rng)
         self.log_evidence_error_simulated = float(np.std(draws))
 
     def nested_sampling_loop(self):
@@ -716,6 +866,13 @@ class NestedSampler(BaseNestedSampler):
         self.sampling_start_time = datetime.datetime.now()
         if not self.initialised:
             self.initialise()
+        if self.prior_sampling:
+            for point in self.live_points:
+                self.nested_samples.append(point.copy())
+            logger.info("Prior sampling only; skipping NS loop")
+            if self._close_pool:
+                self.close_pool()
+            return self.state.logZ, self.nested_samples_array
         self._yield_iter = self.yield_sample(self.live_points[0])
         while self.condition > self.tolerance:
             self.check_state()
@@ -725,6 +882,9 @@ class NestedSampler(BaseNestedSampler):
                 self.block_iteration += 1
                 self.update_state()
                 self.periodically_log_state()
+            if self.max_iteration and self.iteration >= self.max_iteration:
+                logger.warning("Reached max iteration (%s)", self.max_iteration)
+                break
         self.finalise()
         self.check_insertion_indices(rolling=False)
         self.compute_simulated_evidence_error()

@@ -6,16 +6,17 @@ the launch overhead; the profiler's kernel records give the time the
 GPU spent. Run as a script on a GPU machine to trace the flagship runs::
 
     python -m nessai_tpu_torch.utils.profiling [realnvp] [nsf] [ins] [ins_mixture] \
-        [reparam_inversion] [reparam_angle] [ins_hypercube] [lu]
+        [reparam_inversion] [reparam_angle] [ins_hypercube] [lu] [eggbox] [augmented]
 
-It profiles the named runs, by default all eight: the RealNVP flagship,
+It profiles the named runs, by default all ten: the RealNVP flagship,
 the neural-spline flagship, the importance nested sampler's flagship,
 its Gaussian-mixture configuration (with the final redraw), the
 half-Gaussian and angle examples through the reparameterisations, the
 importance nested sampler with its neural spline flow on the unit
 hypercube (``tails=None``, the Rosenbrock likelihood in 4 dimensions;
-its trace holds the GPU alone) and the documented RealNVP with LU
-linear layers. Each runs
+its trace holds the GPU alone), the documented RealNVP with LU
+linear layers, and the egg-box and augmented-proposal examples (their
+traces hold the GPU alone). Each runs
 three times in one process: a first run (which also pays for the CUDA
 context, the kernel build or load and the library handles), a run
 without tracing and a run under the profiler (the mixture's traces the
@@ -51,6 +52,8 @@ __all__ = [
     "FLAGSHIP_REPARAM_ANGLE",
     "FLAGSHIP_INS_HYPERCUBE",
     "FLAGSHIP_LU",
+    "FLAGSHIP_EGGBOX",
+    "FLAGSHIP_AUGMENTED",
     "OWN_KERNELS",
     "gpu_kernel_events",
     "event_time_ms",
@@ -185,6 +188,36 @@ FLAGSHIP_LU = dict(
     checkpointing=False,
     flow_config=dict(n_blocks=4, n_layers=2, n_neurons=16, linear_transform="lu"),
     training_config=dict(lr=3e-3, batch_size=1000, max_epochs=500, patience=20),
+)
+
+
+#: ``examples/eggbox.py`` as written, on ``utils.testing.EggboxModel(2)``:
+#: nlive 2000, seed 170817, a full reset of the flow (weights and
+#: permutations) at every 8th training, the standard sampler's defaults
+#: otherwise (a RealNVP of 4 × [Permutation, AffineCoupling (resnet),
+#: ActNorm], 500 epochs at most, patience 20, batches of 1000, the latent
+#: radius at 95% of the latent mass).
+FLAGSHIP_EGGBOX = dict(
+    nlive=2000,
+    seed=170817,
+    resume=False,
+    plot=False,
+    checkpointing=False,
+    reset_flow=8,
+)
+
+#: ``examples/augmented_example.py`` as written, on
+#: ``utils.testing.BimodalGaussianModel``: seed 1234, the augmented flow
+#: proposal with two unit-Gaussian augment dimensions (a 4-D RealNVP with
+#: the fixed coupling mask), the standard sampler's defaults otherwise
+#: (nlive 2000).
+FLAGSHIP_AUGMENTED = dict(
+    seed=1234,
+    resume=False,
+    plot=False,
+    checkpointing=False,
+    flow_class="augmentedflowproposal",
+    augment_dims=2,
 )
 
 
@@ -360,11 +393,18 @@ def profile_flagship(
 
 
 def _main(names) -> None:
-    """Profile the named runs (all eight by default) and print one JSON
+    """Profile the named runs (all ten by default) and print one JSON
     object for each."""
     from ..ops.coupling import affine_coupling
     from ..ops.rqs import rqs
-    from .testing import AngleModel, GaussianMixture, HalfGaussianModel, RosenbrockModel
+    from .testing import (
+        AngleModel,
+        BimodalGaussianModel,
+        EggboxModel,
+        GaussianMixture,
+        HalfGaussianModel,
+        RosenbrockModel,
+    )
 
     k1, k2 = (affine_coupling, "k1"), (rqs, "rqs")
     runs = {
@@ -385,6 +425,8 @@ def _main(names) -> None:
             k2,
         ),
         "lu": (dict(config=FLAGSHIP_LU), k1),
+        "eggbox": (dict(config=FLAGSHIP_EGGBOX, model=EggboxModel, trace_cpu=False), k1),
+        "augmented": (dict(config=FLAGSHIP_AUGMENTED, model=BimodalGaussianModel, trace_cpu=False), k1),
     }
     for name in names or runs:
         kwargs, (wrapper, prefix) = runs[name]

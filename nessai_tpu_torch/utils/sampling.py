@@ -29,14 +29,16 @@ def draw_surface_nsphere(dims, r=1.0, N=1000, rng=None):
 
 class NDimensionalTruncatedGaussian:
     """Exact sampler for an n-dim standard Gaussian truncated at
-    ``radius``: inverse-CDF sampling of the radial chi distribution
-    (``gammaincinv``) times a uniform direction."""
+    ``radius * fuzz``: inverse-CDF sampling of the radial chi
+    distribution (``gammaincinv``) times a uniform direction."""
 
-    def __init__(self, dims: int, radius: float, rng=None):
+    def __init__(self, dims: int, radius: float, fuzz: float = 1.0, rng=None):
         self.dims = int(dims)
         self.radius = float(radius)
+        self.fuzz = float(fuzz)
         self.rng = rng if rng is not None else np.random.default_rng()
-        self.u_max = gammainc(self.dims / 2.0, self.radius**2 / 2.0)
+        r = self.radius * self.fuzz
+        self.u_max = gammainc(self.dims / 2.0, r**2 / 2.0)
 
     def sample(self, N: int) -> np.ndarray:
         u = self.rng.uniform(0, self.u_max, int(N))

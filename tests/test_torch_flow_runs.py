@@ -78,9 +78,17 @@ def test_populate_draws_from_the_base(name, tmp_path, monkeypatch):
     live["x_0"], live["x_1"] = x[:, 0], x[:, 1]
     live["logL"] = fs.ns.model.log_likelihood(live)
     proposal.train(live, plot=False)
-    truncated = proposal._truncation.sample_latent
+    rule = proposal.get_truncation_rule("latent_radius")
+    truncated = rule.sample_latent
     host = []
-    proposal._truncation.sample_latent = lambda n: host.append(n) or truncated(n)
+
+    def host_draws(p, n):
+        z = truncated(p, n)
+        if z is not None:
+            host.append(n)
+        return z
+
+    rule.sample_latent = host_draws
     proposal.populate(live[np.argmin(live["logL"])], n_samples=100)
     assert len(proposal.samples) == 100
     if name is None:

@@ -241,3 +241,23 @@ def test_import_walk_reaches_the_flows_layer(module):
 
     names = {m.name for m in pkgutil.walk_packages(nessai_tpu_torch.__path__, "nessai_tpu_torch.")}
     assert f"nessai_tpu_torch.{module}" in names
+
+
+@pytest.mark.parametrize(
+    "module",
+    [
+        "proposal.augmented",
+        "proposal.utils",
+        "proposal.flowproposal.truncation",
+    ],
+)
+def test_import_walk_reaches_the_configuration_surface(module):
+    """The walk of ``test_import_every_module_without_jax`` imports the
+    augmented proposal, the proposal classes by name and the truncation
+    rules too."""
+    import pkgutil
+
+    import nessai_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(nessai_tpu_torch.__path__, "nessai_tpu_torch.")}
+    assert f"nessai_tpu_torch.{module}" in names

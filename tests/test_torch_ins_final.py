@@ -663,8 +663,32 @@ def test_ins_whole_runs_agree_with_jax(tmp_path):
     ids=lambda v: next(iter(v)) if isinstance(v, dict) else v,
 )
 def test_standard_sampler_reference_options_raise_and_name_the_item(tmp_path, option, item):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP §1 item {item}\b"):
-        FlowSampler(IntegrationTestModel(2), output=str(tmp_path), nlive=50, device="cpu", **option)
+    """These options raised naming ROADMAP item 6 until the sampler took
+    them: no option is fixed by that item any more, and each is held by
+    the sampler (an unknown flow class raises the JAX package's
+    ``ValueError``)."""
+    from nessai_tpu_torch.samplers.nestedsampler import FIXED_OPTIONS
+
+    assert item not in {fixed_item for _, fixed_item in FIXED_OPTIONS.values()}
+    name = next(iter(option))
+    if name == "flow_class":
+        with pytest.raises(ValueError, match="Unknown flow class"):
+            FlowSampler(IntegrationTestModel(2), output=str(tmp_path), nlive=50, device="cpu", **option)
+        return
+    ns = FlowSampler(IntegrationTestModel(2), output=str(tmp_path), nlive=50, device="cpu", **option).ns
+    held = {
+        "stopping": ns.tolerance == 0.5,
+        "stopping_criterion": type(ns.stopping_criterion).__name__ == "Ratio",
+        "max_iteration": ns.max_iteration == 100,
+        "reset_flow": ns.reset_weights == ns.reset_permutations == 4.0,
+        "training_frequency": ns.training_frequency == 100,
+        "cooldown": ns.cooldown == 50,
+        "maximum_uninformed": ns.maximum_uninformed == 500,
+        "shrinkage_expectation": ns.state.expectation == "t",
+        "simulated_evidence_error": ns.simulated_evidence_error is False,
+        "drawsize": ns.flow_proposal.drawsize == 100,
+    }
+    assert held[name]
 
 
 #: a standard run that takes a few seconds on the CPU
@@ -785,9 +809,10 @@ def test_standard_sampler_takes_the_fixed_values(tmp_path):
     )
     ns = NestedSampler(IntegrationTestModel(2), nlive=50, output=str(tmp_path), device="cpu", **fixed)
     assert ns.tolerance == 0.1 and ns.maximum_uninformed == 500
-    with pytest.raises(NotImplementedError, match="item 6"):
-        # a bool is not the number it equals
-        NestedSampler(IntegrationTestModel(2), nlive=50, output=str(tmp_path), device="cpu", cooldown=True)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        # the options still fixed: the batched consume and device stepping
+        NestedSampler(IntegrationTestModel(2), nlive=50, output=str(tmp_path), device="cpu",
+                      batched_bookkeeping=False)
 
 
 #: the Gaussian-mixture configuration (``FLAGSHIP_INS_MIXTURE``) cut for

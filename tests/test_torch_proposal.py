@@ -94,14 +94,15 @@ class _Stub:
 def test_latent_radius_matches_jax(dims, seed):
     """The flow proposal's default truncation: JAX's ``latent_radius``
     rule in ``constant_volume`` mode with q = 0.95."""
-    ours = LatentRadiusTruncation(dims, rng=np.random.default_rng(seed))
+    ours = LatentRadiusTruncation(mode="constant_volume", q=0.95)
     theirs = JaxLatentRadius(mode="constant_volume", q=0.95)
-    b = _Stub(dims, seed)
+    a, b = _Stub(dims, seed), _Stub(dims, seed)
+    ours.prepare(a, None)
     theirs.prepare(b, None)
-    assert ours.r == theirs.r == b.r
-    z = ours.sample_latent(100)
+    assert ours.r == theirs.r == a.r == b.r
+    z = ours.sample_latent(a, 100)
     np.testing.assert_array_equal(z, theirs.sample_latent(b, 100))
-    np.testing.assert_array_equal(ours.apply_latent(1.2 * z), theirs.apply_latent(b, 1.2 * z))
+    np.testing.assert_array_equal(ours.apply_latent(a, 1.2 * z), theirs.apply_latent(b, 1.2 * z))
 
 
 def test_truncated_gaussian_matches_jax():
