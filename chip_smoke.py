@@ -16,15 +16,24 @@ unfused path of gathers, copies and the bare kernel, and timed against
 it); the rational-quadratic spline
 kernels (K2: forward, inverse and the backward of the forward, with
 linear tails up to 40 bins and with ``tails=None`` on the unit box)
-against theirs; the flagship RealNVP and the neural-spline flow, and
+against theirs; the nested-sampling consume/insert scan kernel
+(``csrc/ns_scan.cu``) against its plain version and the host pass's
+ordering, bit for bit, on the shared- and the global-memory paths
+(``ns_scan_vs_plain``); the flagship RealNVP and the neural-spline flow, and
 the flows the flagships do not build (LU and SVD linear layers, MAF, the
 logit pre-transform, a LARS base, the unit-hypercube spline on a uniform
 base), on the GPU against the same weights on the CPU; the importance nested sampler's
 per-level flows (``log_prob_all`` and single-level passes at 16,384
 rows) on the GPU against the CPU; the flagship nested-sampling run
 (``bench.py``'s configuration) through ``FlowSampler(..., device="cuda")``,
-the same run with the neural spline flow, the importance nested
-sampler's flagship (``FlowSampler(..., importance_nested_sampler=True,
+and the same run with the neural spline flow, both at their defaults:
+the device populate loop
+with its soft budget, the prior populated on the device and the scan
+chained onto both (K1 or K2 counted inside the loop), the flagship again
+with each bookkeeping flag off and the same bits (``flagship_device_loop``,
+``flagship_nsf_device_loop``), and on the rounds populate
+(``flagship_rounds``, with ``flagship_fuse_likelihood_false`` held to its
+bits); the importance nested sampler's flagship (``FlowSampler(..., importance_nested_sampler=True,
 device="cuda")``), its Gaussian-mixture configuration with the final
 redraw (``flagship_ins_mixture``) and capped runs of its flagship with
 the weighted flow training and the bootstrap, and with replace_all and
@@ -53,6 +62,7 @@ Imports nothing of JAX or of the JAX package.
 """
 
 import functools
+import hashlib
 import json
 import logging
 import math
@@ -99,8 +109,9 @@ K1_SHAPES = [
 #: then the reparameterisation runs' training batches of 1000 rows at
 #: D = 2 and D = 3 (the angle run's alternating masks), then the
 #: augmented proposal's 4-D flow (two real and two augment columns, the
-#: fixed mask) at 2000 rows; new rows go last, so that the rows before
-#: them keep their inputs
+#: fixed mask) at 2000 rows, then the device populate loop's batches of
+#: the flagship (4096 rows) and of the egg-box (8192 rows); new rows go
+#: last, so that the rows before them keep their inputs
 K1_LAYER_SHAPES = [
     (900, 2, (1, 0)),
     (900, 2, (0, 1)),
@@ -114,6 +125,8 @@ K1_LAYER_SHAPES = [
     (1000, 3, (0, 1, 0)),
     (1000, 3, (1, 0, 1)),
     (2000, 4, (1, 1, 0, 0)),
+    (4096, 2, (1, 0)),
+    (8192, 2, (0, 1)),
 ]
 #: shape of the kernels-line numbers of both K1 kernels: a flagship
 #: training step's coupling
@@ -764,6 +777,147 @@ def phase_k2():
     return max_err, main
 
 
+#: the scan's check rows (nlive, K): the flagship's live set with a pool
+#: of its size, larger pools at nlive 2000 and 10,000 (the egg-box's and
+#: the hypercube run's nlive), and 40,000 live points, past the 29,056
+#: that fit a block's shared memory (the global-memory path)
+NS_SCAN_SHAPES = [(1000, 1024), (2000, 4096), (10000, 16384), (40000, 4096)]
+#: the row of the kernels line (the flagship's live set and pool)
+NS_SCAN_MAIN_SHAPE = (1000, 1024)
+NS_SCAN_MAX_ACCEPTS = (2**31 - 1, 17)
+
+
+def _ns_scan_inputs(gen, n, k):
+    """Sorted live logL and a pool with ties (to the worst live point,
+    to a middle one and among themselves) and -inf padding at its end,
+    as a bucketed pool has."""
+    live = torch.sort(torch.randn(n, generator=gen, device="cuda")).values
+    pool = torch.randn(k, generator=gen, device="cuda") * 2.0 + live[n // 5]
+    pool[::5] = live[0]
+    pool[1::7] = live[n // 2]
+    pool[2::11] = pool[3::11][: pool[2::11].numel()]
+    pool[-k // 16 :] = -math.inf
+    return live.contiguous(), pool.contiguous()
+
+
+def _host_scan(live, pool, max_accepts):
+    """The ordering of the host batched pass
+    (``NestedSampler._consume_from_pool_batched``) on the same pool in
+    float64 numpy: skips, ``searchsorted`` and the slice shift of each
+    accept. Returns (mask, consumed, ins, final_ids, n_acc) as the scan
+    does."""
+    llogL = live.astype(np.float64)
+    n = llogL.size
+    ids = np.arange(n, dtype=np.int64)
+    k = pool.size
+    mask = np.zeros(k, bool)
+    consumed = np.full(k, -1, np.int64)
+    ins = np.empty(k, np.int64)
+    n_acc = 0
+    pool_l = pool.astype(np.float64).tolist()
+    for j, p in enumerate(pool_l):
+        idx = int(np.searchsorted(llogL, p))
+        ins[j] = idx - 1
+        if p > llogL[0] and n_acc < max_accepts:
+            mask[j] = True
+            consumed[j] = ids[0]
+            llogL[0 : idx - 1] = llogL[1:idx]
+            llogL[idx - 1] = p
+            ids[0 : idx - 1] = ids[1:idx]
+            ids[idx - 1] = n + j
+            n_acc += 1
+    return mask, consumed, ins, ids, n_acc
+
+
+def ns_scan_bound_ms(n, k, ins, mask):
+    """Least time for the scan on this data: bytes (live and pool read,
+    mask, consumed, ins, final ids and the count written) against
+    operations (each step's binary search, log2(n + 1) comparisons and
+    two more, and on each accept the moves of its shift, two a place:
+    idx - 1 places, counted from this run's insertion indices)."""
+    n_bytes = 4 * n + 4 * k + k + 4 * k + 4 * k + 4 * n + 4
+    moves = 2 * int(ins[mask].clip(min=0).sum())
+    n_ops = k * (math.ceil(math.log2(n + 1)) + 2) + moves
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def phase_ns_scan():
+    """The consume/insert scan kernel (``csrc/ns_scan.cu``) against its
+    plain version (``ns_scan_plain``, on the card) at each row of
+    ``NS_SCAN_SHAPES`` with ties and -inf padding, unbounded and capped
+    at 17 accepts: all five outputs equal, bit for bit, and equal to the
+    host batched pass's ordering in float64 numpy. Times: the kernel's
+    GPU time per pool and per step (profiler over 20 calls), the plain
+    version's at the main row, the host twin's wall time."""
+    from nessai_tpu_torch.ops.ns_scan import SHARED_MAX_LIVE, ns_scan, ns_scan_plain
+    from nessai_tpu_torch.utils.profiling import device_time_ms, event_time_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(20261017)
+    rows, main = [], None
+    for n, k in NS_SCAN_SHAPES:
+        live, pool = _ns_scan_inputs(gen, n, k)
+        live_h, pool_h = live.cpu().numpy(), pool.cpu().numpy()
+        for max_accepts in NS_SCAN_MAX_ACCEPTS:
+            row_start = time.perf_counter()
+            out = ns_scan(live, pool, max_accepts)
+            torch.cuda.synchronize()
+            ref = ns_scan_plain(live, pool, max_accepts)
+            torch.cuda.synchronize()
+            names = ("mask", "consumed", "ins", "final_ids", "n_acc")
+            equal = {name: bool(torch.equal(a, b)) for name, a, b in zip(names, out, ref)}
+            host_start = time.perf_counter()
+            host = _host_scan(live_h, pool_h, max_accepts)
+            host_s = time.perf_counter() - host_start
+            out_h = [o.cpu().numpy() for o in out]
+            equal_host = bool(
+                all(np.array_equal(a.astype(np.int64), np.asarray(b, np.int64)) for a, b in zip(out_h[:4], host[:4]))
+                and int(out_h[4]) == host[4]
+            )
+            ms, _, timer = device_time_ms(lambda: ns_scan(live, pool, max_accepts), calls=20)
+            is_main = (n, k) == NS_SCAN_MAIN_SHAPE and max_accepts == NS_SCAN_MAX_ACCEPTS[0]
+            plain_ms = event_time_ms(lambda: ns_scan_plain(live, pool, max_accepts), calls=2, warmup=1) if is_main else None
+            bound, bound_by = ns_scan_bound_ms(n, k, out_h[2], out_h[0])
+            row = dict(
+                nlive=n,
+                pool=k,
+                max_accepts=max_accepts,
+                memory="shared" if n <= SHARED_MAX_LIVE else "global",
+                accepted=int(out_h[4]),
+                equal_to_plain=equal,
+                equal_to_host_pass=equal_host,
+                max_abs_err=0.0 if all(equal.values()) else math.inf,
+                ms=ms,
+                us_per_step=ms * 1e3 / k,
+                timer=timer,
+                plain_ms=plain_ms,
+                plain_timer="cuda_events" if is_main else None,
+                host_twin_ms=host_s * 1e3,
+                bound_ms=bound,
+                bound_by=bound_by,
+                seconds=time.perf_counter() - row_start,
+            )
+            rows.append(row)
+            if is_main:
+                main = row
+    emit(
+        "ns_scan_vs_plain",
+        tolerance="exact: every output equal to the plain version's and to the host pass's ordering",
+        timing=(
+            "ms: GPU time per pool from torch.profiler over 20 calls, or " + EVENT_FALLBACK + "; plain_ms: "
+            "CUDA-event time per call of the plain version on the card over 2 calls, at the main row; "
+            "host_twin_ms: wall time of one call of the host batched pass's ordering in numpy"
+        ),
+        rows=rows,
+    )
+    bad = [(r["nlive"], r["pool"], r["max_accepts"]) for r in rows
+           if not (all(r["equal_to_plain"].values()) and r["equal_to_host_pass"])]
+    if bad:
+        raise RuntimeError(f"the scan kernel disagrees with its plain version or the host pass at {bad}")
+    return main
+
+
 def _flagship_flow(device, config, seed=0, dims=2):
     from nessai_tpu_torch.flows import configure_model
 
@@ -1020,6 +1174,8 @@ def _flagship_run(config, counters):
         **launches,
         max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
         posterior_samples=int(fs.posterior_samples.size),
+        device_steps=int(getattr(ns, "_n_device_steps", 0)),
+        insertion_indices_sha256=hashlib.sha256(np.asarray(ns.insertion_indices, np.int64).tobytes()).hexdigest(),
     )
     return result, nested, fs
 
@@ -1035,22 +1191,48 @@ def _check_run(result, nested, fs):
         raise RuntimeError("posterior samples are empty or not finite")
 
 
+class _LaunchesInLoop:
+    """Counts the kernel launches made inside the device populate loop's
+    rounds (``FlowProposal._device_loop_round``) while it is entered."""
+
+    def __enter__(self):
+        from nessai_tpu_torch.ops import coupling, rqs
+        from nessai_tpu_torch.proposal.flowproposal.flowproposal import FlowProposal
+
+        self.counts = dict(k1_launches_in_loop=0, rqs_launches_in_loop=0)
+        self._real = real = FlowProposal._device_loop_round
+        counts = self.counts
+
+        def counted(proposal, *args, **kwargs):
+            k1, k2 = coupling.affine_coupling.launches, rqs.launches
+            out = real(proposal, *args, **kwargs)
+            counts["k1_launches_in_loop"] += coupling.affine_coupling.launches - k1
+            counts["rqs_launches_in_loop"] += rqs.launches - k2
+            return out
+
+        FlowProposal._device_loop_round = counted
+        return self
+
+    def __exit__(self, *exc):
+        from nessai_tpu_torch.proposal.flowproposal.flowproposal import FlowProposal
+
+        FlowProposal._device_loop_round = self._real
+        return False
+
+
 def phase_flagship():
-    from nessai_tpu_torch.ops import coupling, rqs
+    """``FLAGSHIP`` at its defaults: the device populate loop with its
+    soft budget in the flow phase, the prior populated on the device and
+    the nested-sampling scan chained onto both (device stepping). Fails
+    unless K1 launched forward and backward, inside the loop too, and the
+    scan and both device populates ran, and on a pull of 3 sigma."""
     from nessai_tpu_torch.utils.profiling import FLAGSHIP
 
     # bench.py:51-63: nlive 1000, seed 1234, RealNVP 4 x [permutation,
     # resnet affine coupling, actnorm], 100 epochs, patience 20
-    result, nested, fs = _flagship_run(
-        FLAGSHIP,
-        {
-            "k1_launches": (coupling.affine_coupling, "launches"),
-            "k1_backward_launches": (coupling.affine_coupling, "backward_launches"),
-            "rqs_launches": (rqs, "launches"),
-            "rqs_backward_launches": (rqs, "backward_launches"),
-            **_rqs_unit_counters(),
-        },
-    )
+    with _LaunchesInLoop() as loop:
+        result, nested, fs = _flagship_run(FLAGSHIP, _k1_counters())
+    result.update(loop.counts, device_steps=int(getattr(fs.ns, "_n_device_steps", 0)))
     emit("flagship", **result)
     if result["k1_launches"] == 0 or result["k1_backward_launches"] == 0:
         raise RuntimeError(
@@ -1058,22 +1240,90 @@ def phase_flagship():
             f"{result['k1_launches']} (forward/inverse) and "
             f"{result['k1_backward_launches']} (backward) times"
         )
+    _check_device_path("flagship", result, loop_kernel="k1_launches_in_loop")
+    _check_run(result, nested, fs)
+    return result
+
+
+def _check_device_path(name, result, loop_kernel):
+    """Fails unless the run took the device populate loop (launching
+    ``loop_kernel`` inside it), populated the prior on the device and
+    stepped through its pools with the scan kernel."""
+    needed = ("device_loop_calls", "device_loop_chained_scans", "prior_device_populates", "ns_scan_launches",
+              "device_steps", loop_kernel)
+    missing = [k for k in needed if not result[k]]
+    if missing:
+        raise RuntimeError(f"{name} did not go through {missing}: {({k: result[k] for k in needed})}")
+
+
+def phase_flagship_device_loop(flagship):
+    """The flagship's device path, and ``FLAGSHIP`` again with
+    ``device_bookkeeping=False`` (the host batched pass replays the same
+    pools) and with ``batched_bookkeeping=False`` (``consume_sample`` an
+    iteration at a time). Fails unless both give the flagship's logZ
+    bits, iterations and insertion indices, without a scan launch."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP
+
+    runs = {}
+    for name, options in (("device_bookkeeping_false", dict(device_bookkeeping=False)),
+                          ("batched_bookkeeping_false", dict(batched_bookkeeping=False))):
+        result, nested, fs = _flagship_run(dict(FLAGSHIP, **options), _k1_counters())
+        result["same_bits_as_the_flagship"] = bool(
+            result["logZ"] == flagship["logZ"]
+            and result["iterations"] == flagship["iterations"]
+            and result["insertion_indices_sha256"] == flagship["insertion_indices_sha256"]
+        )
+        runs[name] = result
+        _check_run(result, nested, fs)
+    keys = ("logZ", "pull", "iterations", "likelihood_evaluations", "populates", "device_loop_calls",
+            "device_loop_rounds", "device_loop_chunk_reads", "device_loop_chained_scans", "prior_device_populates",
+            "prior_chained_scans", "ns_scan_launches", "device_steps", "k1_launches", "k1_backward_launches",
+            "k1_launches_in_loop", "population_time_s", "wall_s")
+    emit(
+        "flagship_device_loop",
+        flagship={k: flagship[k] for k in keys},
+        rounds_likelihood_evaluations_before_the_device_loop=86943,
+        **runs,
+    )
+    for name, result in runs.items():
+        if not result["same_bits_as_the_flagship"]:
+            raise RuntimeError(f"{name} moved the flagship: {result['logZ']} != {flagship['logZ']}")
+        if result["ns_scan_launches"]:
+            raise RuntimeError(f"{name} launched the scan {result['ns_scan_launches']} times")
+    return runs
+
+
+def phase_flagship_rounds():
+    """``FLAGSHIP`` on the rounds populate (``populate_mode="rounds"``),
+    the flow phase's path before the device loop was the default; the
+    prior is still populated on the device. Fails on a pull of 3 sigma
+    or without K1."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP
+
+    result, nested, fs = _flagship_run(dict(FLAGSHIP, populate_mode="rounds"), _k1_counters())
+    emit("flagship_rounds", **result)
+    if result["k1_launches"] == 0 or result["device_loop_calls"]:
+        raise RuntimeError(f"the rounds run launched K1 {result['k1_launches']} times, the loop "
+                           f"{result['device_loop_calls']} times")
     _check_run(result, nested, fs)
     return result
 
 
 def phase_flagship_fuse_likelihood_false(flagship):
-    """``FLAGSHIP`` with ``fuse_likelihood=False``: the likelihood only on
-    the accepted pools. Fails unless the run gives the flagship's bits
-    (the same float32 device likelihood, on fewer rows) with fewer
-    likelihood evaluations and K1 launched."""
+    """``FLAGSHIP`` on the rounds populate with ``fuse_likelihood=False``:
+    the likelihood only on the accepted pools. Fails unless the run gives
+    the bits of ``flagship`` (the rounds run; the same float32 device
+    likelihood, on fewer rows) with fewer likelihood evaluations and K1
+    launched. (The device populate loop evaluates the pool alone
+    whatever ``fuse_likelihood`` says, as the JAX package's does.)"""
     from nessai_tpu_torch.utils.profiling import FLAGSHIP
 
-    result, nested, fs = _flagship_run(dict(FLAGSHIP, fuse_likelihood=False), _k1_counters())
+    result, nested, fs = _flagship_run(dict(FLAGSHIP, populate_mode="rounds", fuse_likelihood=False),
+                                       _k1_counters())
     result["fused_likelihood_evaluations"] = flagship["likelihood_evaluations"]
-    result["same_logZ_bits_as_the_flagship"] = result["logZ"] == flagship["logZ"]
+    result["same_logZ_bits_as_the_rounds_flagship"] = result["logZ"] == flagship["logZ"]
     emit("flagship_fuse_likelihood_false", **result)
-    if not result["same_logZ_bits_as_the_flagship"] or result["iterations"] != flagship["iterations"]:
+    if not result["same_logZ_bits_as_the_rounds_flagship"] or result["iterations"] != flagship["iterations"]:
         raise RuntimeError(f"the split likelihood changed the flagship's run: {result['logZ']} {flagship['logZ']}")
     if not result["likelihood_evaluations"] < flagship["likelihood_evaluations"] or result["k1_launches"] == 0:
         raise RuntimeError(f"the split likelihood evaluated {result['likelihood_evaluations']} points")
@@ -1082,22 +1332,24 @@ def phase_flagship_fuse_likelihood_false(flagship):
 
 
 def phase_flagship_nsf():
-    from nessai_tpu_torch.ops import coupling, rqs
+    """``FLAGSHIP_NSF`` at its defaults, on the device populate loop: fails
+    unless K2 launched forward and backward, its inverse inside the loop
+    too (``flagship_nsf_device_loop``), and on a pull of 3 sigma."""
     from nessai_tpu_torch.utils.profiling import FLAGSHIP_NSF
 
     # the same run with the neural spline flow: 4 x [permutation, resnet
     # RQS coupling with 8 bins and linear tails on [-5, 5]], no actnorm
-    result, nested, fs = _flagship_run(
-        FLAGSHIP_NSF,
-        {
-            "rqs_launches": (rqs, "launches"),
-            "rqs_backward_launches": (rqs, "backward_launches"),
-            "k1_launches": (coupling.affine_coupling, "launches"),
-            "k1_backward_launches": (coupling.affine_coupling, "backward_launches"),
-            **_rqs_unit_counters(),
-        },
-    )
+    with _LaunchesInLoop() as loop:
+        result, nested, fs = _flagship_run(FLAGSHIP_NSF, _k1_counters())
+    result.update(loop.counts, device_steps=int(getattr(fs.ns, "_n_device_steps", 0)))
     emit("flagship_nsf", **result)
+    emit(
+        "flagship_nsf_device_loop",
+        **{k: result[k] for k in ("logZ", "pull", "iterations", "likelihood_evaluations", "populates",
+                                  "device_loop_calls", "device_loop_rounds", "rqs_launches_in_loop",
+                                  "ns_scan_launches", "prior_device_populates", "device_steps")},
+    )
+    _check_device_path("flagship_nsf", result, loop_kernel="rqs_launches_in_loop")
     if result["rqs_launches"] == 0 or result["rqs_backward_launches"] == 0:
         raise RuntimeError(
             "the NSF flagship launched the spline kernels "
@@ -1109,9 +1361,10 @@ def phase_flagship_nsf():
 
 
 def _k1_counters():
-    """The launch counters of every kernel, K1 first: (wrapper, attribute)
-    by the name of the count."""
+    """The launch counters of every kernel, K1 first, and the device
+    populates' counts: (wrapper, attribute) by the name of the count."""
     from nessai_tpu_torch.ops import coupling, rqs
+    from nessai_tpu_torch.utils.profiling import populate_counters
 
     return {
         "k1_launches": (coupling.affine_coupling, "launches"),
@@ -1119,6 +1372,7 @@ def _k1_counters():
         "rqs_launches": (rqs, "launches"),
         "rqs_backward_launches": (rqs, "backward_launches"),
         **_rqs_unit_counters(),
+        **populate_counters(),
     }
 
 
@@ -1515,6 +1769,15 @@ EGGBOX_MODE_RADIUS = 1.0
 #: about 4, some 110 s); ``python3 chip_smoke.py --eggbox-in-full`` runs
 #: it to its end with the same checks and the pull's gate.
 EGGBOX_SMOKE_ITERATIONS = 12_000
+#: the egg-box's numbers on the rounds populate with the hard 1e6 cap
+#: (PERF.md §5, H100 80GB HBM3 at 700 W), reported beside this run's
+#: under the device populate loop's soft budget: to 12,000 iterations
+#: and in full
+EGGBOX_ROUNDS_POPULATE = {
+    EGGBOX_SMOKE_ITERATIONS: dict(trainings=18, population_time_s=8.179491, likelihood_evaluations=9_380_683),
+    None: dict(trainings=699, population_time_s=229.731533, likelihood_evaluations=304_669_073,
+               wall_s=2605.004081696),
+}
 
 
 def phase_flagship_eggbox(max_iteration=EGGBOX_SMOKE_ITERATIONS):
@@ -1567,6 +1830,7 @@ def phase_flagship_eggbox(max_iteration=EGGBOX_SMOKE_ITERATIONS):
         posterior_samples_by_mode=counts.tolist(),
         posterior_samples_near_no_mode=int((~near).sum()),
         every_mode_holds_posterior_samples=bool((counts > 0).all()),
+        on_the_rounds_populate=EGGBOX_ROUNDS_POPULATE.get(max_iteration),
     )
     emit("flagship_eggbox", **result)
     _check_standard("flagship_eggbox", result, nested, fs, model)
@@ -1614,15 +1878,18 @@ def phase_flagship_augmented():
 #: short runs of the standard sampler's options on ``IntegrationTestModel(2)``
 #: at nlive 500 (seed 1234): name, options and the kernels the run must
 #: launch; each also has its own check in ``phase_standard_options``
-#: (options that do not interact share a run, for the time limit)
+#: (options that do not interact share a run, for the time limit). The
+#: first is the rounds populate, against which the likelihood split is
+#: held: the device populate loop of the default path evaluates its pool
+#: alone whatever ``fuse_likelihood`` says
 STANDARD_OPTIONS_BASE = dict(nlive=500, seed=1234, resume=False, plot=False, checkpointing=False)
 K1_RUN = ("k1_launches", "k1_backward_launches")
 STANDARD_OPTION_RUNS = (
-    ("default", {}, K1_RUN),
+    ("rounds", dict(populate_mode="rounds"), K1_RUN),
     ("adaptive_radius", dict(constant_volume_mode=False), K1_RUN),
     ("fixed_radius", dict(fixed_radius=2.5), K1_RUN),
     ("truncation_rules", dict(truncation=["latent_radius", "min_log_q", "likelihood_threshold"]), K1_RUN),
-    ("fuse_likelihood_false", dict(fuse_likelihood=False), K1_RUN),
+    ("fuse_likelihood_false", dict(populate_mode="rounds", fuse_likelihood=False), K1_RUN),
     ("max_iteration", dict(max_iteration=2000), K1_RUN),
     ("training_frequency", dict(training_frequency=500, cooldown=100, train_on_empty=False), K1_RUN),
     ("reset_acceptance_shrinkage_t", dict(reset_acceptance=True, shrinkage_expectation="t"), K1_RUN),
@@ -1654,13 +1921,15 @@ def _option_check(name, fs, result, results):
         facts = dict(rules=proposal.truncation_methods, fused=proposal._fuse_likelihood_resolved)
         ok = facts["rules"] == ["latent_radius", "min_log_q", "likelihood_threshold"] and facts["fused"]
     elif name == "fuse_likelihood_false":
-        fused = results["default"]
+        fused = results["rounds"]
         facts = dict(
             likelihood_evaluations=result["likelihood_evaluations"],
             fused_likelihood_evaluations=fused["likelihood_evaluations"],
             fused_iterations=fused["iterations"],
+            same_logZ_bits_as_the_fused_run=result["logZ"] == fused["logZ"],
         )
-        ok = result["likelihood_evaluations"] < fused["likelihood_evaluations"]
+        ok = (result["likelihood_evaluations"] < fused["likelihood_evaluations"]
+              and facts["same_logZ_bits_as_the_fused_run"] and result["iterations"] == fused["iterations"])
     elif name == "max_iteration":
         facts = dict(iteration=int(ns.iteration))
         ok = ns.iteration == 2000
@@ -1670,7 +1939,7 @@ def _option_check(name, fs, result, results):
         ok = all(g >= 100 for g in gaps)
     elif name == "reset_acceptance_shrinkage_t":
         facts = dict(reset_acceptance=ns.reset_acceptance, expectation=ns.state.expectation,
-                     logZ_logt=results["default"]["logZ"])
+                     logZ_logt=results["rounds"]["logZ"])
         ok = ns.reset_acceptance is True and ns.state.expectation == "t"
     elif name == "analytic_priors_batch_size_all":
         facts = dict(uninformed_proposal=type(ns._uninformed_proposal).__name__,
@@ -2282,6 +2551,7 @@ def main():
         max_err = timed(seconds, "k1_vs_plain", phase_k1)
         max_err_layer, main_layer = timed(seconds, "k1_layer_vs_plain", phase_k1_layer)
         max_err_k2, main_k2 = timed(seconds, "k2_vs_plain", phase_k2)
+        main_scan = timed(seconds, "ns_scan_vs_plain", phase_ns_scan)
         timed(seconds, "flow_realnvp", phase_flow, FLAGSHIP, "realnvp", scale=0.05)
         # the reference in float64: the plain spline in float32 strays
         # from the exact spline by more than the kernel, which computes
@@ -2292,8 +2562,10 @@ def main():
         timed(seconds, "ins_flow", phase_ins_flow)
         timed(seconds, "reparam_inverse", phase_reparam_inverse)
         flagship = timed(seconds, "flagship", phase_flagship)
+        bookkeeping = timed(seconds, "flagship_device_loop", phase_flagship_device_loop, flagship)
         flagship_nsf = timed(seconds, "flagship_nsf", phase_flagship_nsf)
-        split = timed(seconds, "flagship_fuse_likelihood_false", phase_flagship_fuse_likelihood_false, flagship)
+        rounds = timed(seconds, "flagship_rounds", phase_flagship_rounds)
+        split = timed(seconds, "flagship_fuse_likelihood_false", phase_flagship_fuse_likelihood_false, rounds)
         flagship_ins = timed(seconds, "flagship_ins", phase_flagship_ins)
         mixture = timed(seconds, "flagship_ins_mixture", phase_flagship_ins_mixture)
         options = timed(seconds, "ins_options", phase_ins_options)
@@ -2314,7 +2586,9 @@ def main():
     kernels = []
     runs = {
         "flagship": flagship,
+        **{f"flagship_{name}": r for name, r in bookkeeping.items()},
         "flagship_nsf": flagship_nsf,
+        "flagship_rounds": rounds,
         "flagship_fuse_likelihood_false": split,
         "flagship_ins": flagship_ins,
         "flagship_ins_mixture": mixture,
@@ -2415,6 +2689,29 @@ def main():
                 "card": smi,
             }
         )
+    kernels.append(
+        {
+            "name": "ns_scan",
+            "route": "cuda",
+            "source": "nessai_tpu_torch/csrc/ns_scan.cu",
+            # not Pallas: the JAX package's lax.scan, chained onto its pools
+            "replaces": "nessai_tpu/samplers/ns_device.py:42",
+            "launches": flagship["ns_scan_launches"],
+            "launches_by_run": {run: r["ns_scan_launches"] for run, r in runs.items()},
+            "max_abs_err": main_scan["max_abs_err"],
+            "ms": main_scan["ms"],
+            "plain_ms": main_scan["plain_ms"],
+            "bound_ms": main_scan["bound_ms"],
+            "bound_by": main_scan["bound_by"],
+            # no PyTorch call computes the consume/insert scan
+            "library_ms": None,
+            "timer": main_scan["timer"],
+            "plain_timer": main_scan["plain_timer"],
+            "host_twin_ms": main_scan["host_twin_ms"],
+            "shape": list(NS_SCAN_MAIN_SHAPE),
+            "card": smi,
+        }
+    )
     print(json.dumps({"kernels": kernels}), flush=True)
     print(
         json.dumps(

@@ -76,16 +76,14 @@ class FlowSampler:
         if self.eps is not None:
             logger.info("Setting eps to %s", self.eps)
             config.general.eps = self.eps
+        # the JAX package keeps the name (nessai_tpu/flowsampler.py:76-81)
+        # and reads it nowhere: both packages compute in float32
+        name = "float32"
         if torch_dtype is not None:
             name = str(torch_dtype).replace("torch.", "")
-            if name == "float64":
-                raise NotImplementedError(
-                    "torch_dtype='float64' is not in the PyTorch port yet: the "
-                    "affine-coupling and spline kernels are float32 (ROADMAP §1 item 12)"
-                )
-            if name != "float32":
+            if name not in ("float32", "float64"):
                 raise ValueError(f"Unknown torch_dtype: {torch_dtype}")
-        self.torch_dtype = "float32"
+        self.torch_dtype = name
         self.close_pool = close_pool
         self.result_extension = result_extension
         self._result = None

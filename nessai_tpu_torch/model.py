@@ -7,7 +7,10 @@ also needs the maps ``to_unit_hypercube`` and ``from_unit_hypercube``
 ``torch_log_likelihood(x)`` hook takes a ``[n, dims]`` float32 tensor on
 the model's device (columns ordered like ``names``) and returns ``[n]``
 log-likelihoods; when present, batched evaluation and the flow
-proposal's populate run it on the device.
+proposal's populate run it on the device. The device populate loop needs
+the prior on the device too: a ``torch_log_prior(x)`` hook of the same
+form, or a uniform prior on the box of ``bounds`` (declared with
+``uniform_prior_box = True``, or found by :attr:`Model.has_uniform_box_prior`).
 """
 
 import datetime
@@ -31,6 +34,7 @@ from .utils.multiprocessing import (
     check_vectorised_function,
     get_n_pool,
     initialise_pool_variables,
+    initialise_pool_worker,
     log_likelihood_wrapper,
     log_prior_wrapper,
 )
@@ -73,6 +77,11 @@ class Model(ABC):
     device = None
     #: Optional device hook: ``[n, dims]`` float32 tensor -> ``[n]``.
     torch_log_likelihood = None
+    #: Optional device prior, of the same form as ``torch_log_likelihood``.
+    torch_log_prior = None
+    #: Whether ``log_prior`` is the uniform density on the box of
+    #: ``bounds`` (:class:`UniformPriorMixin` sets it)
+    uniform_prior_box: bool = False
     #: Host likelihoods in chunks of at most this many points (None: one
     #: batch)
     likelihood_chunksize: Optional[int] = None
@@ -173,6 +182,52 @@ class Model(ABC):
     @property
     def has_torch_likelihood(self) -> bool:
         return callable(self.torch_log_likelihood)
+
+    @property
+    def has_torch_prior(self) -> bool:
+        return callable(self.torch_log_prior)
+
+    @property
+    def has_uniform_box_prior(self) -> bool:
+        """Whether ``log_prior`` is the uniform density on the box of
+        ``bounds``: declared (``uniform_prior_box``), or found by probing,
+        as the JAX package does (``nessai_tpu/model.py:694-760``). The
+        probe evaluates ``log_prior`` at 256 points drawn uniformly in the
+        box from a generator of its own and accepts only if every value
+        equals ``-sum(log(width))`` to 1e-9. Its answer is cached. A model
+        with a ``torch_log_prior`` is not probed."""
+        if self.uniform_prior_box:
+            return True
+        if self.has_torch_prior:
+            return False
+        cached = getattr(self, "_uniform_box_detected", None)
+        if cached is not None:
+            return cached
+        detected = False
+        try:
+            lower = np.asarray(self.lower_bounds, float)
+            upper = np.asarray(self.upper_bounds, float)
+            if np.all(np.isfinite(lower)) and np.all(np.isfinite(upper)):
+                pts = np.random.default_rng(818118).uniform(lower, upper, (256, self.dims))
+                x = numpy_array_to_live_points(pts, self.names)
+                log_p = np.asarray(
+                    batch_evaluate_function(
+                        self.log_prior, x, self.vectorised_prior, func_wrapper=log_prior_wrapper
+                    ),
+                    float,
+                )
+                const = -np.sum(np.log(upper - lower))
+                detected = bool(np.all(np.isfinite(log_p)) and np.allclose(log_p, const, rtol=0, atol=1e-9))
+                if detected:
+                    logger.info(
+                        "Detected a uniform box prior (constant %.6f over the bounds): the prior is "
+                        "evaluated on the device",
+                        const,
+                    )
+        except Exception as e:
+            logger.debug("Uniform-box prior probe failed: %s", e)
+        self._uniform_box_detected = detected
+        return detected
 
     def in_bounds(self, x) -> np.ndarray:
         """Elementwise check that points lie in the prior box."""
@@ -282,7 +337,7 @@ class Model(ABC):
             initialise_pool_variables(self)
             self.pool = multiprocessing.get_context("fork").Pool(
                 processes=n_pool,
-                initializer=initialise_pool_variables,
+                initializer=initialise_pool_worker,
                 initargs=(self,),
             )
         self._pool_configured = self.pool is not None
@@ -447,6 +502,8 @@ class UniformPriorMixin:
     """``log_prior`` and the unit-hypercube maps of a prior that is
     uniform inside ``bounds``. Use as ``class MyModel(UniformPriorMixin,
     Model)``."""
+
+    uniform_prior_box: bool = True
 
     def log_prior(self, x):
         with np.errstate(divide="ignore"):

@@ -36,7 +36,7 @@ __all__ = [
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 #: The sources under ``csrc/``, one library each.
-KERNELS = ("affine_coupling", "rqs")
+KERNELS = ("affine_coupling", "rqs", "ns_scan")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode",

@@ -1,8 +1,22 @@
 """FlowProposal: the flagship proposal. Counterpart of
-``nessai_tpu/proposal/flowproposal/flowproposal.py`` (its ``rounds``
-populate).
+``nessai_tpu/proposal/flowproposal/flowproposal.py``.
 
-Each populate round draws latent points (the truncated Gaussian on the
+Two populates, as in the JAX package. ``populate_mode="auto"`` (the
+default) takes the device populate loop wherever the configuration
+allows it (:attr:`FlowProposal._can_device_loop`), and the rounds
+populate elsewhere; ``"rounds"`` always takes the rounds populate and
+``"device_loop"`` the loop, or raises.
+
+The device populate loop (:meth:`FlowProposal._device_loop_populate`)
+draws batches from the flow's base on the device, keeps the draws inside
+the latent ball, inverts the flow (K1 or K2 launches) and the
+reparameterisations, evaluates the prior on the device and rejection
+samples each batch against its largest weight into a fixed buffer, round
+after round, with one host read per chunk of rounds; the device
+likelihood then runs on the buffer, and the nested-sampling scan can be
+chained onto it. An unset ``max_samples`` is a soft budget there.
+
+Each rounds populate round draws latent points (the truncated Gaussian on the
 host, from ``self.rng``, or the flow's base on the device), lets the
 truncation rules cut them, then makes one device call,
 :meth:`FlowProposal._fused_backward`: the flow inverse (four
@@ -16,6 +30,8 @@ against the prior runs on the host.
 
 import datetime
 import logging
+import math
+import types
 import warnings
 from typing import Optional
 
@@ -25,12 +41,19 @@ from scipy.special import logsumexp
 
 from ...flows.distributions import StandardNormal
 from ...livepoint import empty_structured_array
+from ...utils.sampling import _bucket_size
 from .base import BaseFlowProposal
 from .truncation import TruncationScheme
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["FlowProposal"]
+__all__ = ["FlowProposal", "device_loop_counts"]
+
+#: What the device populate loop did since the counts were last set to 0:
+#: its calls, the rounds queued, the host reads of the accepted count
+#: (one per chunk of rounds) and the nested-sampling scans chained onto
+#: its pools.
+device_loop_counts = types.SimpleNamespace(calls=0, rounds=0, chunk_reads=0, chained_scans=0)
 
 
 class FlowProposal(BaseFlowProposal):
@@ -45,15 +68,21 @@ class FlowProposal(BaseFlowProposal):
     - ``accumulate_weights``: gather every round's draws and reject once
       when the expected number accepted reaches the pool size;
     - ``max_samples``: latent draws after which one populate gives up
-      (default 1,000,000);
+      (default 1,000,000); where it is not set, the device populate loop
+      takes it as a soft budget and keeps drawing while anything is
+      accepted, as the JAX package does;
     - ``latent_temperature``: the latent draws of the base are scaled by
       its square root, and log q is the tempered density;
-    - ``fuse_likelihood``: True evaluates a device likelihood on every
-      draw in the populate's device call; False evaluates it only on the
-      accepted pool; None (default) fuses wherever the model has a
-      device likelihood. A rule that needs the likelihood forces fusing;
-    - ``populate_mode``: ``"auto"`` and ``"rounds"`` both run the rounds
-      populate.
+    - ``fuse_likelihood``: in the rounds populate, True evaluates a
+      device likelihood on every draw in the populate's device call;
+      False evaluates it only on the accepted pool; None (default) fuses
+      wherever the model has a device likelihood. A rule that needs the
+      likelihood forces fusing. The device populate loop evaluates the
+      pool alone, as the JAX package's does;
+    - ``populate_mode``: ``"auto"`` takes the device populate loop where
+      :attr:`_can_device_loop` holds and the rounds populate elsewhere;
+      ``"rounds"`` always the rounds; ``"device_loop"`` the loop, raising
+      where the configuration does not allow it.
     """
 
     #: cap on the acceptance-adaptive latent draw scale
@@ -90,15 +119,13 @@ class FlowProposal(BaseFlowProposal):
     ):
         super().__init__(model, **kwargs)
         self.accumulate_weights = accumulate_weights
+        #: an explicit max_samples is exact on every path; an unset one is
+        #: a soft budget in the device populate loop
+        self._max_samples_explicit = max_samples is not None
         self.max_samples = 1_000_000 if max_samples is None else int(max_samples)
         self.configure_population(drawsize, latent_prior=latent_prior, latent_temperature=latent_temperature)
         self.fuse_likelihood = fuse_likelihood
-        if populate_mode == "device_loop":
-            raise NotImplementedError(
-                "populate_mode='device_loop' (the single-dispatch device populate loop) is not in the "
-                "PyTorch port yet (ROADMAP §1 item 7); 'auto' and 'rounds' run the rounds populate"
-            )
-        if populate_mode not in ("auto", "rounds"):
+        if populate_mode not in ("auto", "rounds", "device_loop"):
             raise ValueError(f"Unknown populate_mode: {populate_mode} (expected auto, rounds or device_loop)")
         self.populate_mode = populate_mode
         self._fuse_likelihood_resolved = None
@@ -401,6 +428,280 @@ class FlowProposal(BaseFlowProposal):
         in_b = self.model.in_unit_hypercube(x) if self.map_to_unit_hypercube else self.model.in_bounds(x)
         return x_arr, out[:, -1] - log_j, None, in_b
 
+    # ------------------------------------------------------------------
+    # The device populate loop
+    # ------------------------------------------------------------------
+    @property
+    def _can_device_loop(self) -> bool:
+        """Whether the populate can run as the device loop, by the JAX
+        package's rule (``flowproposal.py:625-651``): every member of the
+        stack inverts on the device (and the flow's columns are the
+        stack's), neither the unit hypercube nor ``accept_all`` nor
+        ``accumulate_weights``, latent-radius rules only, a prior on the
+        device (a ``torch_log_prior`` or a uniform box) with the
+        auxiliary parameters' priors on the device too; one device."""
+        reparam = self._reparameterisation
+        if self.flow is None or reparam is None:
+            return False
+        if self.map_to_unit_hypercube or not self._can_fuse_populate or not reparam.has_torch_inverse:
+            return False
+        if self.accept_all or self.accumulate_weights:
+            return False
+        scheme = self._truncation_scheme
+        if scheme is None or scheme.requires_log_likelihood:
+            return False
+        if any(r.name != "latent_radius" for r in scheme.rules):
+            return False
+        m = self.model
+        if not (m.has_torch_prior or m.has_uniform_box_prior):
+            return False
+        return reparam.torch_log_prior_fn() is not None
+
+    def _use_device_loop(self) -> bool:
+        """Whether this populate takes the device loop: never with
+        ``"rounds"``; with ``"device_loop"`` always, raising where
+        :attr:`_can_device_loop` is False; with ``"auto"`` where it is
+        True."""
+        if self.populate_mode == "rounds":
+            return False
+        ok = self._can_device_loop
+        if self.populate_mode == "device_loop" and not ok:
+            raise RuntimeError(
+                "populate_mode='device_loop' requested but the configuration does not support it (requires "
+                "device inverse reparameterisations, latent-radius-only truncation, a torch_log_prior hook or "
+                "uniform box prior, and no unit hypercube, accept_all or accumulate_weights)"
+            )
+        return ok
+
+    @torch.no_grad()
+    def _device_loop_populate(self, n_samples: int):
+        """Fill the pool through the device populate loop, the JAX
+        package's ``lax.while_loop`` populate
+        (``flowproposal.py:667-985``). Sets ``self.x`` and returns
+        ``(n_accepted, n_proposed, likelihoods_in_pool)``.
+
+        Each call of :meth:`_device_loop_call` runs up to ``rounds``
+        rounds of B draws (``B = _bucket_size(drawsize or 4 * poolsize)``)
+        into a buffer of ``n_samples`` rows. The host loop around the
+        calls is the JAX package's: each call's budget is
+        ``margin * (pool left) / acceptance + B`` proposals (the reference
+        ``max_samples`` before any acceptance is known), at most
+        ``max(max_samples, 256 B)``. An explicit ``max_samples`` stops the
+        populate there with a warning; an unset one is a soft budget,
+        past which it stops only on zero acceptance; and never beyond
+        ``2**31 - B - 1`` proposals. A call adds ``n_samples`` to the
+        likelihood count where the likelihood is on the device.
+
+        The host stream ``rng`` gives, in this order, the pool's pop order
+        (a permutation of ``n_samples``, where the likelihood is on the
+        device) and one seed per call for the call's device generator,
+        exactly as the JAX package draws them; only the device's own
+        draws differ from JAX's. Where the sampler asks for the
+        nested-sampling scan (``_ns_scan_request``) and the first call
+        fills the pool, the scan runs on its likelihoods in pop order and
+        its outputs wait in ``_pending_ns_scan``."""
+        model = self.model
+        with_ll = bool(model.has_torch_likelihood)
+        B = _bucket_size(int(self.drawsize) if self.drawsize else 4 * self._poolsize)
+        cap = int(n_samples)
+        int32_cap = 2**31 - B - 1
+        # a resumed pickle without the flag keeps the exact cap
+        explicit = getattr(self, "_max_samples_explicit", True)
+        hard_cap = int(min(self.max_samples, int32_cap)) if explicit else int32_cap
+        # the host re-reads the acceptance at least every soft budget, so a
+        # flow that accepts nothing cannot spin to the int32 cap
+        per_call_cap = int(min(max(self.max_samples, 256 * B), hard_cap))
+        margin = 3.0
+        rule = self._truncation_scheme.get_rule("latent_radius")
+        r_max = rule.r * rule.fuzz if rule is not None and getattr(rule, "r", None) else math.inf
+
+        self._early_perm = None
+        scan_req = getattr(self, "_ns_scan_request", None)
+        with_scan = bool(with_ll and scan_req is not None)
+        if with_ll:
+            self._early_perm = self.rng.permutation(cap)
+        self._pending_ns_scan = None
+
+        parts_x, parts_ll = [], []
+        filled = total_acc = total_prop = 0
+        acc_est = self.population_acceptance
+        if acc_est is not None and not (np.isfinite(acc_est) and acc_est > 0):
+            acc_est = None
+        while filled < cap and total_prop < hard_cap:
+            if acc_est:
+                want = int(margin * (cap - filled) / acc_est) + B
+            else:
+                want = int(self.max_samples)
+            budget_call = min(want, per_call_cap, hard_cap - total_prop)
+            rounds = max(budget_call // B, 1)
+            seed = int(self.rng.integers(2**31 - 1))
+            # the first chunk: the rounds that fill the pool at the last
+            # acceptance; the chunks double after it
+            first_chunk = math.ceil((cap - filled) / (acc_est * B)) if acc_est else 1
+            # the scan's results are valid only for a first call that fills
+            # the pool: it sees exactly that call's buffer
+            scan = (self._early_perm, *scan_req) if with_scan and filled == 0 else None
+            x_arr, log_l, count, n_prop, scan_out = self._device_loop_call(
+                seed, rounds, B, cap, r_max, with_ll, first_chunk, scan
+            )
+            if scan_out is not None:
+                self._pending_ns_scan = scan_out
+            k = min(count, cap - filled, cap)
+            if k > 0:
+                parts_x.append(x_arr[:k])
+                if log_l is not None:
+                    parts_ll.append(log_l[:k])
+            filled += k
+            total_acc += count
+            total_prop += n_prop
+            if with_ll:
+                model.likelihood_evaluations += cap
+            acc_est = total_acc / total_prop if total_prop else None
+            if filled < cap and total_prop >= self.max_samples:
+                if explicit:
+                    logger.warning("Reached max samples (%s)", self.max_samples)
+                    break
+                if not acc_est:
+                    logger.warning("Reached max samples (%s) with 0 accepted", self.max_samples)
+                    break
+        if filled < cap and total_prop >= hard_cap:
+            logger.warning("Reached max samples (%s)", hard_cap)
+        if not filled:
+            raise RuntimeError("Failed to populate the proposal pool (0 accepted samples)")
+        x_arr = np.concatenate(parts_x, axis=0)[:cap]
+        x = empty_structured_array(len(x_arr), dtype=self.x_dtype)
+        for i, name in enumerate(self.parameters):
+            x[name] = x_arr[:, i]
+        if parts_ll:
+            x["logL"] = np.concatenate(parts_ll)[: len(x_arr)]
+        self.x = x
+        return total_acc, total_prop, with_ll
+
+    def _device_loop_call(self, seed, rounds, B, cap, r_max, with_ll, first_chunk, scan=None):
+        """One call of the device populate loop, the JAX package's
+        ``while_loop`` program: up to ``rounds`` rounds of ``B`` draws from
+        a device generator seeded with ``seed``, accepted draws written in
+        order into a buffer of ``cap`` rows (and one dump row), the loop
+        ending once the buffer is full; then the likelihood on the buffer
+        (``with_ll``) and, where ``scan = (perm, live32, max_accepts)`` is
+        given and the buffer is full, the nested-sampling scan of its
+        likelihoods in the pop order ``perm``
+        (:func:`~nessai_tpu_torch.samplers.ns_device.chain_scan`).
+
+        The loop runs on the device without a host synchronisation per
+        round: rounds are queued in chunks, ``first_chunk`` and then
+        doubling, each ended by one host read of the accepted count. A
+        round in a chunk after the buffer filled is masked: it writes
+        nothing and adds nothing to the count of proposals, so the result
+        is the ``while_loop``'s. No more than ``rounds`` rounds are ever
+        queued.
+
+        Returns ``(x [k, P], log_l [k] or None, accepted, proposed,
+        scan outputs or None)``, x and log_l as float64 numpy arrays of
+        the first ``k = min(accepted, cap)`` rows."""
+        device = self.device
+        model = self.model
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        n_params = len(self.parameters)
+        loop = self._device_loop_constants(B, cap, r_max)
+        buf_x = torch.zeros(cap + 1, n_params, dtype=torch.float32, device=device)
+        count = torch.zeros((), dtype=torch.int64, device=device)
+        n_prop = torch.zeros((), dtype=torch.int64, device=device)
+        device_loop_counts.calls += 1
+        done = 0
+        chunk = max(1, min(int(first_chunk), int(rounds)))
+        count_host = 0
+        while done < rounds:
+            c = min(chunk, rounds - done)
+            for _ in range(c):
+                self._device_loop_round(loop, gen, buf_x, count, n_prop)
+            done += c
+            device_loop_counts.rounds += c
+            device_loop_counts.chunk_reads += 1
+            count_host = int(count)
+            if count_host >= cap:
+                break
+            chunk *= 2
+        k = min(count_host, cap)
+        buf = buf_x[:cap]
+        columns = [buf]
+        log_l_dev = None
+        if with_ll:
+            log_l_dev = model.torch_log_likelihood(buf[:, : len(model.names)]).to(torch.float32)
+            columns.append(log_l_dev[:, None])
+        scan_out = None
+        if scan is not None and count_host >= cap:
+            from ...samplers.ns_device import chain_scan
+
+            scan_out = chain_scan(log_l_dev, *scan)
+            device_loop_counts.chained_scans += 1
+        out = torch.cat(columns, dim=1)[:k].cpu().numpy().astype(np.float64)
+        log_l = out[:, n_params] if with_ll else None
+        return out[:, :n_params], log_l, count_host, int(n_prop), scan_out
+
+    def _device_loop_constants(self, B, cap, r_max):
+        """What every round of a call reads: the batch, the buffer size,
+        the squared latent radius, the prior box and the priors."""
+        model = self.model
+        device = self.device
+        lower = torch.as_tensor(model.lower_bounds, dtype=torch.float32, device=device)
+        upper = torch.as_tensor(model.upper_bounds, dtype=torch.float32, device=device)
+        log_p_box = torch.tensor(
+            np.float32(-np.sum(np.log(np.asarray(model.upper_bounds) - np.asarray(model.lower_bounds)))),
+            device=device,
+        )
+        return types.SimpleNamespace(
+            B=B,
+            cap=cap,
+            r2=r_max * r_max,
+            sqrt_t=float(np.sqrt(self.latent_temperature)),
+            lower=lower,
+            upper=upper,
+            log_p_box=log_p_box,
+            prior=model.torch_log_prior if model.has_torch_prior else None,
+            aux_prior=self._reparameterisation.torch_log_prior_fn(),
+            n_model=len(model.names),
+        )
+
+    def _device_loop_round(self, loop, gen, buf_x, count, n_prop) -> None:
+        """One round of the loop on the device: B draws from the flow's
+        base (scaled by the square root of the latent temperature), kept
+        inside the latent ball, through the flow inverse and the
+        reparameterisations' device inverse, the prior box, the prior on
+        the device and the auxiliary priors; rejection sampling against
+        the batch's largest weight; the accepted rows written in order at
+        ``count`` (past the buffer into its dump row). A round that finds
+        the buffer full writes nothing and leaves ``count`` and
+        ``n_prop`` as they are. Updates ``buf_x``, ``count`` and
+        ``n_prop`` in place."""
+        flow = self.flow.flow
+        active = count < loop.cap
+        z0 = flow.sample_base(loop.B, gen)
+        z = z0 * loop.sqrt_t if loop.sqrt_t != 1.0 else z0
+        in_ball = torch.sum(z * z, dim=1) <= loop.r2
+        x_prime, log_j = flow.inverse(z)
+        # the tempered latent density: q(z) = base(z0) T^(-d/2) for z = sqrt(T) z0
+        log_q = flow.base_log_prob(z0) - log_j
+        if loop.sqrt_t != 1.0:
+            log_q = log_q - z.shape[-1] * math.log(loop.sqrt_t)
+        cols = {pp: x_prime[:, i] for i, pp in enumerate(self.prime_parameters)}
+        cols, log_j_r = self._reparameterisation.torch_inverse(cols)
+        log_q = log_q - log_j_r
+        x = torch.stack([cols[p] for p in self.parameters], dim=1)
+        x_model = x[:, : loop.n_model]
+        in_b = torch.all((x_model >= loop.lower) & (x_model <= loop.upper), dim=1)
+        log_p = loop.log_p_box if loop.prior is None else loop.prior(x_model)
+        log_p = log_p + loop.aux_prior(cols)
+        ok = in_ball & in_b & torch.isfinite(log_q)
+        log_w = torch.where(ok, log_p - log_q, -math.inf)
+        log_u = torch.log(torch.rand(loop.B, generator=gen, device=z0.device))
+        accept = ok & (log_u < log_w - torch.max(log_w)) & active
+        pos = count + torch.cumsum(accept, dim=0) - 1
+        idx = torch.where(accept & (pos < loop.cap), pos, loop.cap)
+        buf_x[idx] = x
+        count += torch.sum(accept)
+        n_prop += active.to(torch.int64) * loop.B
+
     def populate(self, worst_point, n_samples: int = 10000, plot: bool = True, r=None, max_samples=None) -> None:
         """Fill the pool with ``n_samples`` accepted draws (at most
         ``max_samples`` latent draws, by default :attr:`max_samples`;
@@ -409,15 +710,25 @@ class FlowProposal(BaseFlowProposal):
         if not self.initialised:
             raise RuntimeError("Proposal has not been initialised; call initialise() first")
         if max_samples is not None and max_samples != self.max_samples:
+            # exact for this call, on either path
             previous = self.max_samples
+            previous_explicit = getattr(self, "_max_samples_explicit", True)
             self.max_samples = max_samples
+            self._max_samples_explicit = True
             try:
                 return self.populate(worst_point, n_samples=n_samples, plot=plot, r=r)
             finally:
                 self.max_samples = previous
+                self._max_samples_explicit = previous_explicit
         scheme = self.truncation
         scheme.prepare(self, worst_point, radius=r)
         self.indices = []
+        device_loop = self._use_device_loop()
+        if not self.populated_count:
+            logger.info("Populating with the %s", "device populate loop" if device_loop else "rounds populate")
+        if device_loop:
+            n_accepted, n_proposed, ll_in_pool = self._device_loop_populate(n_samples)
+            return self._finalise_population(st, n_accepted, n_proposed, ll_in_pool, plot, worst_point)
         if self.accumulate_weights:
             samples = empty_structured_array(0, dtype=self.x_dtype)
             log_weights = np.empty(0)
@@ -524,7 +835,20 @@ class FlowProposal(BaseFlowProposal):
             self.samples["logL"] = self.model.batch_evaluate_log_likelihood(self.samples)
         if self.check_acceptance and worst_point is not None:
             self.acceptance.append(self.compute_acceptance(worst_point["logL"]))
-        self.indices = self.rng.permutation(self.samples.size).tolist()
+        perm = getattr(self, "_early_perm", None)
+        if perm is not None:
+            # drawn by the device populate loop before its first call; a
+            # permutation of the capacity restricted to the filled rows is
+            # a uniform permutation of them
+            self._early_perm = None
+            if len(perm) == self.samples.size:
+                self.indices = perm.tolist()
+            else:
+                self.indices = [int(i) for i in perm if i < self.samples.size]
+                # the chained scan saw another pool
+                self._pending_ns_scan = None
+        else:
+            self.indices = self.rng.permutation(self.samples.size).tolist()
         self.population_acceptance = n_accepted / n_proposed if n_proposed else np.nan
         self.populated_count += 1
         self.populated = True
@@ -535,3 +859,11 @@ class FlowProposal(BaseFlowProposal):
         super().reset()
         if self._truncation_scheme is not None:
             self._truncation_scheme.reset()
+
+    def __getstate__(self):
+        state = super().__getstate__()
+        # the populate's scratch, owned by the running sampler
+        state.pop("_pending_ns_scan", None)
+        state.pop("_ns_scan_request", None)
+        state.pop("_early_perm", None)
+        return state

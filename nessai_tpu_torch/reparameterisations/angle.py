@@ -136,6 +136,14 @@ class Angle(Reparameterisation):
             return 0.0
         return self.chi.logpdf(x[self.radial])
 
+    def torch_log_prior_fn(self):
+        """chi(2) prior on the auxiliary radius on the device:
+        ``log r - r^2 / 2``."""
+        if self.chi is None:
+            return None
+        radial = self.radial
+        return lambda cols: torch.log(cols[radial]) - 0.5 * cols[radial] ** 2
+
     def torch_inverse(self, cols: dict):
         """Polar -> (angle, radius) on the columns' device: the radius,
         ``atan2`` (floor-modulo 2 pi for an angle bounded below at 0)
@@ -371,6 +379,15 @@ class AnglePair(Reparameterisation):
         if self.chi is None:
             return 0.0
         return self.chi.logpdf(x[self.radial])
+
+    def torch_log_prior_fn(self):
+        """chi(3) prior on the auxiliary radius on the device:
+        ``2 log r - r^2 / 2 + log sqrt(2 / pi)``."""
+        if self.chi is None:
+            return None
+        radial = self.radial
+        const = 0.5 * math.log(2.0 / math.pi)
+        return lambda cols: 2.0 * torch.log(cols[radial]) - 0.5 * cols[radial] ** 2 + const
 
     def torch_inverse(self, cols: dict):
         """3-D Cartesian -> (alpha, beta, radius) on the columns' device,

@@ -424,6 +424,21 @@ class Reparameterisation:
         """
         return None
 
+    @property
+    def has_torch_inverse(self) -> bool:
+        """Whether :meth:`torch_inverse` runs on the device (the JAX
+        package's ``jax_inverse() is not None``)."""
+        return type(self).torch_inverse is not Reparameterisation.torch_inverse
+
+    def torch_log_prior_fn(self):
+        """Device counterpart of :meth:`log_prior` for the device populate
+        loop: a function of the x-space columns (a dict of ``[n]``
+        tensors) that returns the auxiliary parameters' log-prior, or None
+        where the class has none. Consulted only where :attr:`has_prior`
+        is set. Counterpart of ``jax_log_prior_fn``
+        (``nessai_tpu/reparameterisations/base.py:440``)."""
+        return None
+
     def x_prime_log_prior(self, x_prime):
         """Log-prior defined directly in the prime space (optional)."""
         raise RuntimeError(

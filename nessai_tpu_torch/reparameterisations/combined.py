@@ -112,6 +112,37 @@ class CombinedReparameterisation(dict):
             log_j = log_j + lj
         return cols, log_j
 
+    @property
+    def has_torch_inverse(self) -> bool:
+        """Whether every member inverts on the device (the first that does
+        not is named in :attr:`no_torch_inverse`)."""
+        for r in self.values():
+            if not r.has_torch_inverse:
+                self.no_torch_inverse = r.name
+                return False
+        return True
+
+    def torch_log_prior_fn(self):
+        """The members' auxiliary priors on the device, summed (a
+        function of the x-space columns), or None if a member with a prior
+        has no device form; members without priors add nothing, as in
+        :meth:`log_prior`."""
+        parts = []
+        for r in self.values():
+            if getattr(r, "has_prior", False):
+                fn = r.torch_log_prior_fn()
+                if fn is None:
+                    return None
+                parts.append(fn)
+
+        def log_prior(cols):
+            log_p = 0.0
+            for fn in parts:
+                log_p = log_p + fn(cols)
+            return log_p
+
+        return log_prior
+
     def update(self, x) -> None:
         for r in self.values():
             r.update(x)

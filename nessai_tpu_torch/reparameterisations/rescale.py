@@ -109,6 +109,11 @@ class PrePostRescalingMixin:
                 fns.append(get_torch_rescaling(name)[1])
         return tuple(fns)
 
+    @property
+    def has_torch_inverse(self) -> bool:
+        """A custom (non-registry) rescaling keeps the inverse on the host."""
+        return self._torch_pre_post_inverses() is not None
+
     def _apply_pre(self, x):
         if not self.has_pre_rescaling:
             return x, np.zeros_like(x)
@@ -133,6 +138,9 @@ class PrePostRescalingMixin:
 class ScaleAndShift(Reparameterisation, PrePostRescalingMixin):
     """x' = (pre(x) - shift) / scale, optionally estimated (z-score) from
     the training data on each :meth:`update`."""
+
+    # ahead of Reparameterisation's in the method order
+    has_torch_inverse = PrePostRescalingMixin.has_torch_inverse
 
     def __init__(
         self,
@@ -270,6 +278,9 @@ class RescaleToBounds(Reparameterisation, PrePostRescalingMixin):
     """Map prior bounds to ``rescale_bounds`` (default [-1, 1]) with
     optional live bound updates, per-parameter offsets, pre/post
     rescaling and boundary inversion."""
+
+    # ahead of Reparameterisation's in the method order
+    has_torch_inverse = PrePostRescalingMixin.has_torch_inverse
 
     requires_bounded_prior = True
 

@@ -1,18 +1,30 @@
 """Standard nested sampler with a flow proposal. Counterpart of
 ``nessai_tpu/samplers/nestedsampler.py``.
 
-The loop consumes each populated pool with the host batched pass
-:meth:`NestedSampler._consume_from_pool_batched`, the bit-exact twin of
-the sequential :meth:`NestedSampler.consume_sample` (the JAX package's
-device stepping, ``samplers/ns_device.py``, is its float32 replica and is
-not ported). Device work (flow training, pool population, likelihoods)
+Three ways to consume a populated pool, each giving the same bits:
+
+- device stepping (``device_bookkeeping``, the default): the proposal's
+  device populate chains the consume/insert scan (``ns_device.py``, the
+  kernel of ``ops/ns_scan.py``) onto the pool, and
+  :meth:`NestedSampler._consume_from_pool_device` commits its trajectory
+  with the float64 evidence replayed on the host;
+- the host batched pass :meth:`NestedSampler._consume_from_pool_batched`
+  (``batched_bookkeeping``, the default), where device stepping does not
+  apply;
+- the sequential :meth:`NestedSampler.consume_sample`, one iteration at
+  a time, which the other two reproduce.
+
+Device work (flow training, pool population, likelihoods, the scan)
 happens inside the proposals.
 """
 
+import contextlib
 import datetime
 import logging
 import math
 import os
+import signal
+import threading
 from collections import deque
 from typing import Optional
 
@@ -28,29 +40,35 @@ from .base import BaseNestedSampler
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["NestedSampler", "check_reference_options", "FIXED_OPTIONS"]
+__all__ = ["NestedSampler"]
 
-#: The JAX sampler's keyword options that the port does not take yet:
-#: for each, the one value the port runs with and the ROADMAP §1 item
-#: that brings the others.
-FIXED_OPTIONS = {
-    "batched_bookkeeping": (True, "7"),
-    "device_bookkeeping": (True, "7"),
-}
+#: the signals that ``FlowSampler`` checkpoints and exits on
+_CHECKPOINT_SIGNALS = (signal.SIGTERM, signal.SIGINT, signal.SIGALRM)
 
 
-def check_reference_options(options: dict) -> None:
-    """Accept the options of :data:`FIXED_OPTIONS` at the value the port
-    runs with (True, and not the 1 that equals it); raise
-    ``NotImplementedError`` naming the ROADMAP item for any other
-    value."""
-    for name, value in options.items():
-        fixed, item = FIXED_OPTIONS[name]
-        if value is not fixed:
-            raise NotImplementedError(
-                f"{name}={value!r} is not in the PyTorch port's standard sampler yet "
-                f"(ROADMAP §1 item {item}); it runs with {name}={fixed!r}"
-            )
+@contextlib.contextmanager
+def _signals_held():
+    """Hold the checkpointing signals until the block ends: one that
+    arrives inside it is recorded and raised again at its end, so that
+    its handler runs before or after the block and never sees half of
+    its state changes. Python runs signal handlers in the main thread
+    only; elsewhere the block runs as it is."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+    previous = {s: signal.getsignal(s) for s in _CHECKPOINT_SIGNALS}
+    # a handler installed outside Python cannot be put back
+    held = [s for s, handler in previous.items() if handler is not None]
+    caught = []
+    for s in held:
+        signal.signal(s, lambda signum, frame: caught.append(signum))
+    try:
+        yield
+    finally:
+        for s in held:
+            signal.signal(s, previous[s])
+        for signum in dict.fromkeys(caught):
+            signal.raise_signal(signum)
 
 
 class NestedSampler(BaseNestedSampler):
@@ -71,7 +89,14 @@ class NestedSampler(BaseNestedSampler):
     (``retrain_acceptance``) or every ``training_frequency`` iterations,
     and resets its weights and permutations on the schedule of
     ``reset_weights``, ``reset_permutations`` and ``reset_flow``.
+    ``batched_bookkeeping`` consumes each pool in one pass rather than
+    an iteration at a time, and ``device_bookkeeping`` steps through the
+    pool on the device where the proposal populates there; neither
+    changes the run's bits.
     """
+
+    #: set while a device commit holds the periodic checkpoints
+    _in_device_commit = False
 
     def __init__(
         self,
@@ -124,9 +149,6 @@ class NestedSampler(BaseNestedSampler):
         device=None,
         **kwargs,
     ):
-        check_reference_options(
-            dict(batched_bookkeeping=batched_bookkeeping, device_bookkeeping=device_bookkeeping)
-        )
         #: close the model's pool when the sampling loop ends
         self._close_pool = close_pool
         super().__init__(
@@ -757,6 +779,346 @@ class NestedSampler(BaseNestedSampler):
         return True
 
     # ------------------------------------------------------------------
+    # Stepping on the device
+    # ------------------------------------------------------------------
+    def _device_step_eligible(self):
+        """``(order, pool_logL, live32, pool32)`` for the device commit, or
+        None where the host paths must run (``nestedsampler.py:1081-1131``
+        of the JAX package): device bookkeeping on, plots off (the state
+        plot needs the live set inside the pool), a populated pool, the
+        plain integral state, and every logL finite and exactly
+        representable in float32, so that the scan's float32 comparisons
+        order the points as the host's float64 ones do."""
+        if not getattr(self, "device_bookkeeping", False):
+            return None
+        proposal = self.proposal
+        indices = getattr(proposal, "indices", None)
+        samples = getattr(proposal, "samples", None)
+        if self.plot or not getattr(proposal, "populated", False) or not indices or samples is None:
+            return None
+        if type(self.state) is not _NSIntegralState:
+            return None
+        order = np.asarray(indices[::-1], dtype=np.int64)
+        pool_logL = np.ascontiguousarray(samples["logL"][order], dtype=np.float64)
+        live_logL = np.ascontiguousarray(self.live_points["logL"], dtype=np.float64)
+        if not (np.all(np.isfinite(pool_logL)) and np.all(np.isfinite(live_logL))):
+            return None
+        pool32 = pool_logL.astype(np.float32)
+        live32 = live_logL.astype(np.float32)
+        if not (
+            np.array_equal(pool32.astype(np.float64), pool_logL)
+            and np.array_equal(live32.astype(np.float64), live_logL)
+            and np.all(np.isfinite(pool32))
+            and np.all(np.isfinite(live32))
+        ):
+            return None
+        return order, pool_logL, live32, pool32
+
+    def _drain_rejected_tail(self) -> None:
+        """Drain a pool whose remaining entries cannot beat the worst live
+        point, as ``yield_sample`` would, so that the next pool is
+        populated by :meth:`_maybe_populate_for_device` with the scan
+        chained on (``nestedsampler.py:1133-1172``): the pops count
+        towards the next accepted iteration (``_count_carry``), the empty
+        pool adds one to ``rejected`` and runs :meth:`check_state`, as
+        the reject branch of :meth:`consume_sample` does."""
+        if not getattr(self, "device_bookkeeping", False):
+            return
+        proposal = self.proposal
+        if not getattr(proposal, "populated", False) or type(self.state) is not _NSIntegralState:
+            return
+        indices = getattr(proposal, "indices", None)
+        samples = getattr(proposal, "samples", None)
+        if not indices or samples is None or self.live_points is None:
+            return
+        logLs = samples["logL"][indices]
+        next_worst = float(self.live_points["logL"][0])
+        if not np.all(np.isfinite(logLs)) or np.any(logLs > next_worst):
+            return
+        self._count_carry = getattr(self, "_count_carry", 0) + len(indices)
+        del indices[:]
+        proposal.populated = False
+        self.rejected += 1
+        self.check_state()
+        self._yield_iter = self.yield_sample(self.live_points[0])
+
+    def _maybe_populate_for_device(self) -> None:
+        """Populate an empty pool through the proposal's device populate
+        with the consume/insert scan chained on
+        (``nestedsampler.py:1174-1244``): the same trigger as the
+        proposal's own ``draw`` (the poolsize update, the worst point,
+        populating until populated) in the flow phase, and the prior
+        populate in the uninformed phase, so the host stream and the pool
+        are those of the host path; it only asks for the scan as well."""
+        if not getattr(self, "device_bookkeeping", False):
+            return
+        proposal = self.proposal
+        if (
+            self.plot
+            or getattr(proposal, "populated", False)
+            or type(self.state) is not _NSIntegralState
+            or self.live_points is None
+        ):
+            return
+        uninformed = self.uninformed_sampling
+        if uninformed:
+            if not getattr(proposal, "_device_populate_ok", False):
+                return
+        elif not (
+            self.completed_training
+            and getattr(proposal, "_can_device_loop", False)
+            and getattr(proposal, "populate_mode", None) != "rounds"
+            and self.model.has_torch_likelihood
+        ):
+            return
+        live_logL = np.ascontiguousarray(self.live_points["logL"], dtype=np.float64)
+        if not np.all(np.isfinite(live_logL)):
+            return
+        live32 = live_logL.astype(np.float32)
+        if not np.array_equal(live32.astype(np.float64), live_logL):
+            return
+        if self.max_iteration and np.isfinite(self.max_iteration):
+            max_acc = int(self.max_iteration) - self.iteration
+            if max_acc <= 0:
+                return
+        else:
+            max_acc = 2**31 - 1
+        proposal._ns_scan_request = (live32, max_acc)
+        try:
+            if uninformed:
+                proposal.populate()
+            else:
+                if proposal.update_poolsize:
+                    proposal.update_poolsize_scale(proposal.ns_acceptance)
+                while not proposal.populated:
+                    proposal.populate(self.live_points[0].copy(), n_samples=proposal.poolsize)
+        finally:
+            proposal._ns_scan_request = None
+
+    def _consume_from_pool_device(self) -> bool:
+        """Commit the consume/insert trajectory that the scan chained onto
+        the pool just populated (``nestedsampler.py:1246-1516``).
+
+        The scan gave the ordering: skips and accepts, insertion indices,
+        the consumed points and the final live set. The float64 evidence
+        is replayed here over that trajectory with the kernels of the
+        sequential integrator (``np.add.accumulate`` and
+        ``np.logaddexp.accumulate`` are strict left folds, and the
+        information is a scalar loop in the increment's order), so the
+        state committed is bit for bit that of :meth:`consume_sample` and
+        of the batched pass. Where ``dlogZ <= tolerance``, the uninformed
+        phase's switch or ``max_iteration`` lands inside the pool, the
+        scan runs again on its own (:func:`~.ns_device.run_ns_scan`)
+        with the exact accept cap, for the live set at that point.
+
+        Returns True if at least one iteration was consumed."""
+        proposal = self.proposal
+        pending = getattr(proposal, "_pending_ns_scan", None)
+        if pending is None:
+            return False
+        proposal._pending_ns_scan = None
+        elig = self._device_step_eligible()
+        if elig is None:
+            return False
+        order, pool_logL, live32, pool32 = elig
+        samples = proposal.samples
+        indices = proposal.indices
+        state = self.state
+        n = self.nlive
+        it0 = self.iteration
+        if self.max_iteration and np.isfinite(self.max_iteration):
+            max_acc = int(self.max_iteration) - it0
+            if max_acc <= 0:
+                return False
+        else:
+            max_acc = 2**31 - 1
+        # the chained scan must have seen this live set, pool and cap
+        if (
+            pending["mask"].shape[0] != order.size
+            or pending["max_acc"] != min(max_acc, 2**31 - 1)
+            or not np.array_equal(pending["live32"], live32)
+        ):
+            return False
+        mask = pending["mask"]
+        consumed_all = pending["consumed"]
+        ins_all = pending["ins"]
+        final_ids = pending["final_ids"]
+        n_acc = pending["n_acc"]
+        if n_acc == 0:
+            return False
+
+        pos = np.nonzero(mask)[0][:n_acc]
+        R = np.concatenate([self.live_points, samples[order]])
+        w = np.ascontiguousarray(R["logL"][consumed_all[pos]], dtype=np.float64)
+        p_acc = pool_logL[pos]
+        ins = ins_all[pos]
+
+        # the float64 evidence, in the sequential integrator's op order
+        logt = state.log_shrinkage(n)
+        c_shrink = math.log(-math.expm1(logt))
+        lw = np.add.accumulate(np.concatenate(([state.logw], np.full(n_acc, logt))))
+        logw_pre, logw_post = lw[:-1], lw[1:]
+        Wt = (logw_pre + w) + c_shrink
+        logZ_tr = np.logaddexp.accumulate(np.concatenate(([state.logZ], Wt)))[1:]
+        oldZ_tr = np.concatenate(([state.oldZ], logZ_tr[:-1]))
+        # logLmax as the dlogZ condition reads it: moved only by a
+        # candidate in the top slot, and read before this insertion
+        cand = np.where(ins == n - 1, p_acc, -np.inf)
+        run_max = np.maximum.accumulate(cand)
+        logLmax0 = float(self.logLmax)
+        logLmax_pre = np.maximum(logLmax0, np.concatenate(([-np.inf], run_max[:-1])))
+        logLmax_post = np.maximum(logLmax0, run_max)
+        cond_tr = np.logaddexp(logZ_tr, logLmax_pre + logw_post) - logZ_tr
+
+        # acceptance: the pops of each replacement from the accept
+        # positions; the first also owns the pops drained from the last
+        # pool's rejected tail
+        cnt = np.diff(np.concatenate(([-1], pos))).astype(np.float64)
+        cnt[0] += getattr(self, "_count_carry", 0)
+        self._count_carry = 0
+        ba_tr = np.add.accumulate(np.concatenate(([self.block_acceptance], 1.0 / cnt)))[1:]
+        block_it_tr = self.block_iteration + 1 + np.arange(n_acc)
+        mean_acc_tr = ba_tr / np.maximum(block_it_tr - 1, 1)
+
+        # the stopping decision, checked after each replacement
+        below = np.nonzero(cond_tr <= self.tolerance)[0]
+        n_commit = int(below[0]) + 1 if below.size else int(n_acc)
+        if self.uninformed_sampling:
+            # check_proposal_switch at the top of each iteration: before
+            # step k it sees the mean after step k - 1 and it0 + k
+            mean_top = np.concatenate(([self.mean_block_acceptance], mean_acc_tr[:-1]))
+            it_top = it0 + np.arange(n_acc)
+            max_uninf = np.inf if self.maximum_uninformed is None else self.maximum_uninformed
+            fire = (mean_top < self.uninformed_acceptance_threshold) | (it_top >= max_uninf)
+            fire[0] = False
+            hit = np.nonzero(fire)[0]
+            if hit.size:
+                n_commit = min(n_commit, int(hit[0]))
+        if n_commit < n_acc:
+            from .ns_device import run_ns_scan
+
+            _, _, _, final_ids, n_chk = run_ns_scan(live32, pool32, n_commit, device=self.device)
+            if n_chk != n_commit:
+                return False
+            pos = pos[:n_commit]
+            w = w[:n_commit]
+            ins = ins[:n_commit]
+            logw_pre = logw_pre[:n_commit]
+            logw_post = logw_post[:n_commit]
+            Wt = Wt[:n_commit]
+            logZ_tr = logZ_tr[:n_commit]
+            oldZ_tr = oldZ_tr[:n_commit]
+            logLmax_post = logLmax_post[:n_commit]
+            cond_tr = cond_tr[:n_commit]
+            ba_tr = ba_tr[:n_commit]
+            block_it_tr = block_it_tr[:n_commit]
+            mean_acc_tr = mean_acc_tr[:n_commit]
+        j_commit = int(pos[-1]) + 1
+        consumed_ids = consumed_all[pos]
+
+        # the information: a scalar loop in the increment's order
+        info_vals = [0.0] * n_commit
+        info_last = float(state.info[-1])
+        wl = w.tolist()
+        wtl = Wt.tolist()
+        zl = logZ_tr.tolist()
+        ozl = oldZ_tr.tolist()
+        for i in range(n_commit):
+            oz = ozl[i]
+            if math.isfinite(oz):
+                z = zl[i]
+                v = math.exp(wtl[i] - z) * wl[i] + math.exp(oz - z) * (info_last + oz) - z
+                if math.isnan(v):
+                    v = 0.0
+            else:
+                v = 0.0
+            info_last = v
+            info_vals[i] = v
+
+        # the commit sets the pool's final live set before it brings the
+        # state up to each boundary: a checkpoint inside it, periodic or
+        # taken by a signal handler, would pickle that live set beside an
+        # earlier iteration, so both wait for its end
+        with self._checkpoints_held():
+            # the non-monotonic screen, rate-limited as the integrator's
+            lastL_tr = np.concatenate(([state.logLs[-1]], w[:-1]))
+            nm = np.nonzero(w <= lastL_tr)[0]
+            for i in nm[: max(0, 5 - state.nonmonotonic_count)]:
+                logger.warning("NS integrator received non-monotonic logL: %.5f -> %.5f", lastL_tr[i], w[i])
+            state.nonmonotonic_count += int(nm.size)
+
+            # commit: stamp and rebuild the rows, then bring the state up to
+            # each boundary in turn, so that the history and the rolling KS
+            # test run there as in consume_sample
+            R["it"][n + pos] = it0 + np.arange(n_commit)
+            new_nested = R[consumed_ids]
+            accepted0 = self.accepted
+            hist_interval = max(n // 10, 1)
+            self.live_points = R[final_ids]
+            ins_list = ins.tolist()
+            vols_list = logw_post.tolist()
+            done = 0
+
+            def sync_to(i):
+                nonlocal done
+                hi = i + 1
+                self.iteration = it0 + hi
+                self.condition = float(cond_tr[i])
+                self.logLmin = wl[i]
+                self.logLmax = float(logLmax_post[i])
+                self.accepted = accepted0 + hi
+                self.block_acceptance = float(ba_tr[i])
+                self.block_iteration = int(block_it_tr[i])
+                self.mean_block_acceptance = float(mean_acc_tr[i])
+                state.logZ = float(logZ_tr[i])
+                state.oldZ = float(logZ_tr[i])
+                state.logw = float(logw_post[i])
+                state.logLs.extend(wl[done:hi])
+                state.log_vols.extend(vols_list[done:hi])
+                state.info.extend(info_vals[done:hi])
+                state.nlives.extend([n] * (hi - done))
+                self.insertion_indices.extend(ins_list[done:hi])
+                self.nested_samples.extend(new_nested[done:hi])
+                done = hi
+
+            for v in range(it0 + 1, it0 + n_commit + 1):
+                if v % hist_interval == 0 or v % n == 0:
+                    sync_to(v - it0 - 1)
+                    self.update_state()
+                    self.periodically_log_state()
+            sync_to(n_commit - 1)
+
+            del indices[-j_commit:]
+            if not indices:
+                proposal.populated = False
+            self._yield_iter = self.yield_sample(self.live_points[0])
+            if not self.uninformed_sampling:
+                self._flow_proposal.ns_acceptance = self.mean_block_acceptance
+            else:
+                self._uninformed_proposal.ns_acceptance = self.mean_block_acceptance
+        self._n_device_steps = getattr(self, "_n_device_steps", 0) + n_commit
+        self.checkpoint(periodic=True)
+        return True
+
+    @contextlib.contextmanager
+    def _checkpoints_held(self):
+        """Hold the periodic checkpoints and the checkpointing signals
+        until the block ends."""
+        self._in_device_commit = True
+        try:
+            with _signals_held():
+                yield
+        finally:
+            self._in_device_commit = False
+
+    def checkpoint(self, periodic: bool = False, force: bool = False, save_existing: Optional[bool] = None) -> None:
+        """As the base class's; a periodic checkpoint waits for the end of
+        a device commit, which writes it once the state is whole."""
+        if periodic and not force and self._in_device_commit:
+            return
+        super().checkpoint(periodic=periodic, force=force, save_existing=save_existing)
+
+    # ------------------------------------------------------------------
     def check_state(self, force: bool = False) -> None:
         """Before each replacement: at the switch from the uninformed
         proposal, train; after it, train as :meth:`check_training`
@@ -876,7 +1238,13 @@ class NestedSampler(BaseNestedSampler):
         self._yield_iter = self.yield_sample(self.live_points[0])
         while self.condition > self.tolerance:
             self.check_state()
-            if not self._consume_from_pool_batched():
+            if self.batched_bookkeeping:
+                self._drain_rejected_tail()
+                self._maybe_populate_for_device()
+            if not (
+                self.batched_bookkeeping
+                and (self._consume_from_pool_device() or self._consume_from_pool_batched())
+            ):
                 self.consume_sample()
                 self.iteration += 1
                 self.block_iteration += 1
@@ -966,7 +1334,14 @@ class NestedSampler(BaseNestedSampler):
     def __getstate__(self):
         state = super().__getstate__()
         state.pop("_yield_iter", None)
+        state.pop("_in_device_commit", None)
         return state
+
+    def __setstate__(self, state):
+        # a pickle without the flag steps on the device, as the JAX
+        # package's older pickles do
+        state.setdefault("device_bookkeeping", True)
+        self.__dict__.update(state)
 
     @classmethod
     def resume_from_pickled_sampler(

@@ -11,6 +11,7 @@ worker never touches CUDA.
 
 import logging
 import multiprocessing
+import signal
 
 import numpy as np
 
@@ -20,6 +21,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "initialise_pool_variables",
+    "initialise_pool_worker",
     "get_n_pool",
     "check_multiprocessing_start_method",
     "log_likelihood_wrapper",
@@ -36,6 +38,26 @@ def initialise_pool_variables(model) -> None:
     """Store the model in a global for fork-shared pool workers."""
     global _model
     _model = model
+
+
+#: A pool worker's dispositions of the signals that ``FlowSampler``
+#: checkpoints on: the parent handles them (a checkpoint, then it closes
+#: or terminates the pool), so a worker ignores SIGINT and ends on
+#: SIGTERM or SIGALRM.
+WORKER_SIGNALS = {signal.SIGTERM: signal.SIG_DFL, signal.SIGALRM: signal.SIG_DFL, signal.SIGINT: signal.SIG_IGN}
+
+
+def initialise_pool_worker(model) -> None:
+    """The initializer of the pool's forked workers: the model in the
+    global of :func:`initialise_pool_variables`, and the signal
+    dispositions of :data:`WORKER_SIGNALS`. A forked worker inherits the
+    parent's Python handlers; the sampler's would run in the worker on
+    the pool's terminate (SIGTERM), write a checkpoint of the run as it
+    was at the fork over the parent's, and exit holding whatever lock the
+    fork copied, so that the parent waits for it for ever."""
+    initialise_pool_variables(model)
+    for signum, disposition in WORKER_SIGNALS.items():
+        signal.signal(signum, disposition)
 
 
 def check_multiprocessing_start_method() -> None:

@@ -27,7 +27,9 @@ run, the GPU busy share of the untraced wall time, the GPU seconds of
 each of the port's own kernels, and the kernels that take the most GPU
 time, the traced run's training epochs and GPU records per epoch, and
 the launches per run of the flagship's own kernels (K1 forward and
-backward, or K2 forward and backward). For the importance nested
+backward, or K2 forward and backward), of the nested-sampling scan and
+the device populate loop's calls, rounds and host reads per run beside
+them, and the populate's share of the untraced wall. For the importance nested
 sampler it also prints the levels and the time in training, in draws,
 in the ``update_log_q`` passes, in ``log_prob_all`` and in the final
 redraw.
@@ -55,6 +57,7 @@ __all__ = [
     "FLAGSHIP_EGGBOX",
     "FLAGSHIP_AUGMENTED",
     "OWN_KERNELS",
+    "populate_counters",
     "gpu_kernel_events",
     "event_time_ms",
     "device_time_ms",
@@ -317,7 +320,29 @@ OWN_KERNELS = (
     "affine_coupling_backward_kernel",
     "rqs_forward_kernel",
     "rqs_backward_kernel",
+    "ns_scan_kernel",
 )
+
+
+def populate_counters() -> dict:
+    """The counts of the device populates and the scan, by name: the
+    flow proposal's device loop (calls, rounds, host reads of its count,
+    scans chained on), the prior populate on the device (populates,
+    scans chained on) and the scan kernel's launches, as ``(object,
+    attribute)``; set each to 0 before a run and read it after."""
+    from ..ops.ns_scan import ns_scan
+    from ..proposal.flowproposal.flowproposal import device_loop_counts
+    from ..proposal.rejection import prior_populate_counts
+
+    return {
+        "device_loop_calls": (device_loop_counts, "calls"),
+        "device_loop_rounds": (device_loop_counts, "rounds"),
+        "device_loop_chunk_reads": (device_loop_counts, "chunk_reads"),
+        "device_loop_chained_scans": (device_loop_counts, "chained_scans"),
+        "prior_device_populates": (prior_populate_counts, "populates"),
+        "prior_chained_scans": (prior_populate_counts, "chained_scans"),
+        "ns_scan_launches": (ns_scan, "launches"),
+    }
 
 
 def profile_flagship(
@@ -370,11 +395,13 @@ def profile_flagship(
     traced_times = phase_times(fs_traced)
     # the traced run's epochs: its GPU records per epoch of training
     epochs = traced_times["training_epochs"]
+    population = untraced_times.get("untraced_population_time_s")
     return dict(
         card=card,
         first_run_wall_s=first,
         untraced_wall_s=untraced,
         **untraced_times,
+        untraced_population_share_of_wall=None if population is None else population / untraced,
         traced_wall_s=traced,
         traced_training_time_s=traced_times["training_time_s"],
         gpu_records=len(events),
@@ -431,11 +458,15 @@ def _main(names) -> None:
     for name in names or runs:
         kwargs, (wrapper, prefix) = runs[name]
         wrapper.launches = wrapper.backward_launches = 0
+        counters = populate_counters()
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
         result = profile_flagship(name=name, **kwargs)
         # three runs: first, untraced, traced
         launches = {
             f"{prefix}_launches_per_run": wrapper.launches / 3,
             f"{prefix}_backward_launches_per_run": wrapper.backward_launches / 3,
+            **{f"{key}_per_run": getattr(obj, attr) / 3 for key, (obj, attr) in counters.items()},
         }
         print(json.dumps(dict(flagship=name, **result, **launches)), flush=True)
 

@@ -1,16 +1,33 @@
 """Latent-space sampling helpers. Counterpart of
 ``nessai_tpu/utils/sampling.py``; the truncated Gaussian is drawn on the
-host with numpy, exactly as the JAX package's rounds populate does."""
+host with numpy, exactly as the JAX package's rounds populate does.
+:func:`_bucket_size` is the JAX package's rounding of a batch size to a
+power of two (``nessai_tpu/flowmodel/base.py:69-79``), which fixes the
+device populate loop's batch and the prior populate's pool size."""
 
 import numpy as np
 from scipy import stats
 from scipy.special import gammainc, gammaincinv
 
 __all__ = [
+    "_bucket_size",
     "compute_radius",
     "draw_surface_nsphere",
     "NDimensionalTruncatedGaussian",
 ]
+
+
+def _bucket_size(n: int, minimum: int = 256) -> int:
+    """``n`` rounded up to a power of two, and at least ``minimum``.
+
+    This sets semantics, not padding: the device populate loop draws
+    batches of ``_bucket_size(drawsize or 4 * poolsize)`` and normalises
+    each by its own largest weight, and the prior populate fills a pool
+    of ``_bucket_size(N)`` draws, every one of which the sampler
+    consumes."""
+    if n <= minimum:
+        return minimum
+    return 1 << (n - 1).bit_length()
 
 
 def compute_radius(n: int, q: float = 0.95) -> float:

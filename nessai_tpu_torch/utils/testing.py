@@ -36,6 +36,8 @@ class IntegrationTestModel(Model):
     Analytic log-evidence: ``-n * log(20)``.
     """
 
+    uniform_prior_box = True
+
     def __init__(self, dims: int = 2):
         self.names = [f"x_{i}" for i in range(dims)]
         self.bounds = {n: [-10.0, 10.0] for n in self.names}
@@ -150,6 +152,8 @@ class RosenbrockModel(IntegrationTestModel):
 
 class _UniformBoxModel(Model):
     """A uniform prior on the box of :attr:`bounds`."""
+
+    uniform_prior_box = True
 
     def log_prior(self, x):
         with np.errstate(divide="ignore"):

@@ -724,3 +724,75 @@ def test_reparameterisation_device_inverse_gpu_matches_cpu(cuda, name):
     for f in cpu:
         assert ((gpu[f] - cpu[f]).abs() / (1 + cpu[f].abs())).max() <= 1e-5, f
     assert ((lj_gpu - lj_cpu).abs() / (1 + lj_cpu.abs())).max() <= 1e-3
+
+
+def _scan_inputs(n, k, seed, ties=True, pad=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    live = np.sort(rng.normal(size=n)).astype(np.float32)
+    pool = rng.normal(loc=float(live[n // 5]), scale=2.0, size=k).astype(np.float32)
+    if ties:
+        pool[::5] = live[0]
+        pool[1::7] = live[n // 2]
+    if pad:
+        pool[-pad:] = -np.inf
+    return live, pool
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_accepts", [2**31 - 1, 17])
+@pytest.mark.parametrize("n,k,pad", [(1000, 1024, 24), (2000, 4096, 0), (40000, 512, 7)])
+def test_ns_scan_kernel_matches_plain(cuda, n, k, pad, max_accepts):
+    """The scan kernel against its plain version, all five outputs equal,
+    with ties and -inf padding; 40,000 live points take the global-memory
+    path."""
+    from nessai_tpu_torch.ops.ns_scan import ns_scan, ns_scan_plain
+
+    live, pool = _scan_inputs(n, k, n + k, pad=pad)
+    live_t, pool_t = torch.from_numpy(live), torch.from_numpy(pool)
+    before = ns_scan.launches
+    out = ns_scan(live_t.to(cuda), pool_t.to(cuda), max_accepts)
+    torch.cuda.synchronize()
+    assert ns_scan.launches == before + 1
+    for a, b in zip(out, ns_scan_plain(live_t, pool_t, max_accepts)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_ns_scan_kernel_rejects_bad_input(cuda):
+    from nessai_tpu_torch.ops.ns_scan import ns_scan
+
+    live = torch.zeros(8, device=cuda)
+    with pytest.raises(TypeError):
+        ns_scan(live.double(), live.double(), 3)
+    with pytest.raises(ValueError):
+        ns_scan(live, live.cpu(), 3)
+
+
+@pytest.mark.cuda
+def test_device_stepping_on_the_card_matches_the_host_pass(cuda, tmp_path):
+    """A capped run of the standard sampler on the card steps through its
+    pools with the scan kernel, with the bits of the host batched pass."""
+    import numpy as np
+
+    from nessai_tpu_torch.ops.ns_scan import ns_scan
+    from nessai_tpu_torch.samplers.nestedsampler import NestedSampler
+    from nessai_tpu_torch.utils.testing import IntegrationTestModel
+
+    runs = []
+    for device_bookkeeping in (True, False):
+        model = IntegrationTestModel(2)
+        model.set_rng(np.random.default_rng(3))
+        before = ns_scan.launches
+        ns = NestedSampler(model, nlive=200, output=str(tmp_path / str(device_bookkeeping)), seed=4, plot=False,
+                           checkpointing=False, maximum_uninformed=100, max_iteration=1500, poolsize=200,
+                           flow_config=dict(n_blocks=2, n_neurons=8, n_layers=1),
+                           training_config=dict(max_epochs=20, patience=5), device=cuda,
+                           device_bookkeeping=device_bookkeeping)
+        ns.nested_sampling_loop()
+        runs.append((ns, ns_scan.launches - before))
+    (dev, launches), (host, _) = runs
+    assert launches > 0 and getattr(dev, "_n_device_steps", 0) > 0
+    assert dev.iteration == host.iteration and dev.state.logZ == host.state.logZ
+    assert dev.insertion_indices == host.insertion_indices

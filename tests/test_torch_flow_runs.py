@@ -58,8 +58,9 @@ def test_run_agrees_with_jax(name, tmp_path):
 
 @pytest.mark.parametrize("name", ["realnvp_lars", "realnvp_mvn", None])
 def test_populate_draws_from_the_base(name, tmp_path, monkeypatch):
-    """A unit-Gaussian base takes the host's truncated Gaussian; any other
-    base is sampled on the device, from the flow model's generator."""
+    """In the rounds populate a unit-Gaussian base takes the host's
+    truncated Gaussian; any other base is sampled on the device, from the
+    flow model's generator."""
     calls = []
     for cls in (distributions.StandardNormal, distributions.MultivariateNormal, distributions.ResampledGaussian):
         sample = cls.sample
@@ -70,7 +71,7 @@ def test_populate_draws_from_the_base(name, tmp_path, monkeypatch):
 
         monkeypatch.setattr(cls, "sample", recording)
     kwargs = _kwargs(FLOWS[name] if name else {})
-    fs = FlowSampler(IntegrationTestModel(2), output=str(tmp_path), device="cpu", **kwargs)
+    fs = FlowSampler(IntegrationTestModel(2), output=str(tmp_path), device="cpu", populate_mode="rounds", **kwargs)
     proposal = fs.ns.flow_proposal
     proposal.initialise()
     x = np.random.default_rng(0).normal(size=(300, 2))

@@ -261,3 +261,15 @@ def test_import_walk_reaches_the_configuration_surface(module):
 
     names = {m.name for m in pkgutil.walk_packages(nessai_tpu_torch.__path__, "nessai_tpu_torch.")}
     assert f"nessai_tpu_torch.{module}" in names
+
+
+@pytest.mark.parametrize("module", ["samplers.ns_device", "ops.ns_scan"])
+def test_import_walk_reaches_the_device_stepping(module):
+    """The walk of ``test_import_every_module_without_jax`` imports the
+    nested-sampling scan's entry point and its kernel wrapper too."""
+    import pkgutil
+
+    import nessai_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(nessai_tpu_torch.__path__, "nessai_tpu_torch.")}
+    assert f"nessai_tpu_torch.{module}" in names

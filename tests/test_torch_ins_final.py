@@ -664,12 +664,12 @@ def test_ins_whole_runs_agree_with_jax(tmp_path):
 )
 def test_standard_sampler_reference_options_raise_and_name_the_item(tmp_path, option, item):
     """These options raised naming ROADMAP item 6 until the sampler took
-    them: no option is fixed by that item any more, and each is held by
+    them: no option is fixed by any item any more, and each is held by
     the sampler (an unknown flow class raises the JAX package's
     ``ValueError``)."""
-    from nessai_tpu_torch.samplers.nestedsampler import FIXED_OPTIONS
+    from nessai_tpu_torch.samplers import nestedsampler
 
-    assert item not in {fixed_item for _, fixed_item in FIXED_OPTIONS.values()}
+    assert not hasattr(nestedsampler, "FIXED_OPTIONS")
     name = next(iter(option))
     if name == "flow_class":
         with pytest.raises(ValueError, match="Unknown flow class"):
@@ -809,10 +809,10 @@ def test_standard_sampler_takes_the_fixed_values(tmp_path):
     )
     ns = NestedSampler(IntegrationTestModel(2), nlive=50, output=str(tmp_path), device="cpu", **fixed)
     assert ns.tolerance == 0.1 and ns.maximum_uninformed == 500
-    with pytest.raises(NotImplementedError, match="item 7"):
-        # the options still fixed: the batched consume and device stepping
-        NestedSampler(IntegrationTestModel(2), nlive=50, output=str(tmp_path), device="cpu",
-                      batched_bookkeeping=False)
+    # the batched consume and device stepping, fixed until the port took them
+    ns = NestedSampler(IntegrationTestModel(2), nlive=50, output=str(tmp_path), device="cpu",
+                       batched_bookkeeping=False, device_bookkeeping=False)
+    assert ns.batched_bookkeeping is False and ns.device_bookkeeping is False
 
 
 #: the Gaussian-mixture configuration (``FLAGSHIP_INS_MIXTURE``) cut for

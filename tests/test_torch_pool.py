@@ -72,6 +72,31 @@ def test_close_pool(code):
         pool.map(abs, [1])
 
 
+def test_workers_do_not_run_the_parents_signal_handlers(tmp_path):
+    """The pool's workers do not inherit the process's signal handlers
+    (the sampler's checkpoint-and-exit, here a marker): they end on
+    SIGTERM and SIGALRM and ignore SIGINT, so terminating the pool runs
+    no handler in a worker and waits for none."""
+    marker = tmp_path / "handled"
+
+    def handler(signum, frame):
+        marker.write_text(f"{signum} {os.getpid()}")
+
+    signals = (signal.SIGTERM, signal.SIGALRM, signal.SIGINT)
+    previous = {s: signal.signal(s, handler) for s in signals}
+    try:
+        model = _host_model()
+        with time_limit(60):
+            model.configure_pool(n_pool=2)
+            dispositions = model.pool.map(signal.getsignal, signals, chunksize=1)
+            model.close_pool(code=2)
+    finally:
+        for s, h in previous.items():
+            signal.signal(s, h)
+    assert dispositions == [signal.SIG_DFL, signal.SIG_DFL, signal.SIG_IGN]
+    assert not marker.exists()
+
+
 def test_model_pickle_drops_the_pool():
     model = _host_model()
     with time_limit(60):

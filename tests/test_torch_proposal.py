@@ -136,6 +136,7 @@ def _proposals(tmp_path, dims=2, seed=17):
         rng=np.random.default_rng(seed + 1),
         plot=False,
         device="cpu",
+        populate_mode="rounds",
     )
     jprop.initialise()
     tprop.initialise()

@@ -306,15 +306,18 @@ def test_configure_truncation_errors_match_jax(tmp_path):
 
 
 def test_device_loop_names_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
-        FlowProposal(IntegrationTestModel(2), output=str(tmp_path), populate_mode="device_loop", device="cpu")
+    """The device populate loop is taken (it raised naming ROADMAP item 7
+    until the port had it); an unknown mode raises."""
+    for mode in ("auto", "rounds", "device_loop"):
+        proposal = FlowProposal(IntegrationTestModel(2), output=str(tmp_path), populate_mode=mode, device="cpu")
+        assert proposal.populate_mode == mode
     with pytest.raises(ValueError, match="Unknown populate_mode"):
         FlowProposal(IntegrationTestModel(2), output=str(tmp_path), populate_mode="other", device="cpu")
 
 
 def _proposals(tmp_path, seed=17, **kwargs):
     """The same flow (converted weights) and host generators in both
-    packages, the JAX package on its rounds populate."""
+    packages, both on their rounds populates."""
     flow_config = dict(n_blocks=2, n_neurons=8, n_layers=1)
     jmodel, tmodel = JaxModel(2), IntegrationTestModel(2)
     jmodel.set_rng(np.random.default_rng(seed))
@@ -323,7 +326,7 @@ def _proposals(tmp_path, seed=17, **kwargs):
     jprop = JaxFlowProposal(jmodel, output=str(tmp_path / "jax"), rng=np.random.default_rng(seed + 1),
                             populate_mode="rounds", fuse_likelihood=True, **common)
     tprop = FlowProposal(tmodel, output=str(tmp_path / "torch"), rng=np.random.default_rng(seed + 1), plot=False,
-                         device="cpu", **common)
+                         device="cpu", populate_mode="rounds", **common)
     jprop.initialise()
     tprop.initialise()
     rng = np.random.default_rng(seed + 2)
