@@ -10,9 +10,15 @@ were accepted), records the consumed id and the insertion index, and
 inserts the candidate into the sorted live set. The kernel is
 ``csrc/ns_scan.cu`` (``ns_scan_launch``), built with nvcc for ``sm_90a``
 and bound with ctypes (see ``_build.py``): one launch of one block per
-pool, the live set in shared memory up to 29,056 entries and in global
-scratch above. What bounds it is the chain of K dependent steps, not
-bytes or operations; the source says how its design treats that.
+pool. What bounds it is the chain of accepted steps, not bytes or
+operations. Rejections go 32 at a time by a warp vote, an accepted step
+is a count and a shift over the live set spread over the block's
+threads with one barrier, and the steps after the accept cap run in
+parallel. The live set stays where :func:`memory_path` says: in
+registers up to ``REGISTER_MAX_LIVE`` entries, in shared memory up to
+``SHARED_MAX_LIVE`` (a ring a thread), with the ids in global scratch up
+to ``SHARED_VALUES_MAX_LIVE`` and all of it in global scratch above. The
+source says how its design treats each.
 
 :func:`ns_scan` takes a CUDA tensor to the kernel (each launch adds one
 to ``ns_scan.launches``) and a CPU tensor to :func:`ns_scan_plain`; any
@@ -24,7 +30,16 @@ import functools
 
 import torch
 
-__all__ = ["ns_scan", "ns_scan_plain", "INT32_MAX"]
+__all__ = [
+    "ns_scan",
+    "ns_scan_plain",
+    "memory_path",
+    "INT32_MAX",
+    "block_shape",
+    "REGISTER_MAX_LIVE",
+    "SHARED_MAX_LIVE",
+    "SHARED_VALUES_MAX_LIVE",
+]
 
 INT32_MAX = 2**31 - 1
 
@@ -96,9 +111,38 @@ def _kernel():
     return fn
 
 
-#: live sets above this many entries do not fit the block's shared memory
-#: (8 bytes an entry in 227 KB) and go to global scratch
-SHARED_MAX_LIVE = 232448 // 8
+#: live sets of up to this many entries step in registers: one warp of
+#: 8, 16 or 32 entries a lane up to 1024, then 16 a thread in up to 8 warps
+REGISTER_MAX_LIVE = 4096
+#: larger ones step in one block of 32 * min(32, ceil(n / 1024)) threads,
+#: each owning R = ceil(n / threads) live points (``block_shape``), their
+#: logL and ids in shared memory up to this many entries, 8 bytes each in
+#: 224 KB ...
+SHARED_MAX_LIVE = 28 * 1024
+#: ... and their logL alone up to this many, the ids in global scratch;
+#: above it both are in global scratch
+SHARED_VALUES_MAX_LIVE = 56 * 1024
+
+
+def block_shape(n: int):
+    """``(threads, R)``: the threads that step ``n`` live points, ``R``
+    entries each, as ``csrc/ns_scan.cu`` chooses them."""
+    if n <= REGISTER_MAX_LIVE:
+        per_thread = 8 if n <= 256 else 16 if n <= 512 else 32 if n <= 1024 else 16
+        return 32 * -(-n // (32 * per_thread)), per_thread
+    threads = 32 * min(32, -(-n // 1024))
+    return threads, -(-n // threads)
+
+
+def memory_path(n: int) -> str:
+    """Where the kernel holds a live set of ``n`` entries while it steps:
+    ``"register"``, ``"shared"``, ``"global_ids"`` (the logL in shared
+    memory, the ids in global scratch) or ``"global"``."""
+    if n <= REGISTER_MAX_LIVE:
+        return "register"
+    if n <= SHARED_MAX_LIVE:
+        return "shared"
+    return "global_ids" if n <= SHARED_VALUES_MAX_LIVE else "global"
 
 
 def _launch(live, pool, max_accepts):
@@ -110,9 +154,12 @@ def _launch(live, pool, max_accepts):
     final_ids = torch.empty(n, dtype=torch.int32, device=device)
     n_acc = torch.empty((), dtype=torch.int32, device=device)
     work_live = work_ids = None
-    if n > SHARED_MAX_LIVE:
-        work_live = torch.empty(n, dtype=torch.float32, device=device)
-        work_ids = torch.empty(n, dtype=torch.int32, device=device)
+    path = memory_path(n)
+    if path in ("global_ids", "global"):
+        threads, per_thread = block_shape(n)
+        work_ids = torch.empty(threads * per_thread, dtype=torch.int32, device=device)
+        if path == "global":
+            work_live = torch.empty(threads * per_thread, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = _kernel()(
             live.data_ptr(), pool.data_ptr(), n, k, min(int(max_accepts), INT32_MAX),

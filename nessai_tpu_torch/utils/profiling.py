@@ -320,6 +320,7 @@ OWN_KERNELS = (
     "affine_coupling_backward_kernel",
     "rqs_forward_kernel",
     "rqs_backward_kernel",
+    "ns_scan_register_kernel",
     "ns_scan_kernel",
 )
 

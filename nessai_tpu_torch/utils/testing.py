@@ -23,6 +23,13 @@ __all__ = [
     "BimodalGaussianModel",
     "REPARAMETERISATION_CASES",
     "reparameterisation_case",
+    "NS_SCAN_REGIMES",
+    "ns_scan_case",
+    "NS_SCAN_UNBOUNDED",
+    "NS_SCAN_SHAPES",
+    "NS_SCAN_CAPS",
+    "NS_SCAN_CASE_ROWS",
+    "ns_scan_rows",
     "assert_structured_arrays_equal",
     "time_limit",
     "pickled_types",
@@ -385,6 +392,124 @@ def reparameterisation_case(name, n: int, seed: int):
     data = {p: case["draws"][p](rng, n) for p in case["parameters"]}
     bounds = {p: list(b) for p, b in case["prior_bounds"].items()}
     return list(case["parameters"]), bounds, dict(case.get("kwargs", {})), data
+
+
+#: The regimes of :func:`ns_scan_case`, the branches of the scan kernel
+#: (``csrc/ns_scan.cu``): rejections in bulk, accepts, the capped tail.
+NS_SCAN_REGIMES = ("mixed", "terminal", "ascending", "nan_inf", "ties")
+
+
+def ns_scan_case(regime, n: int, k: int, seed: int):
+    """Sorted live logL ``[n]`` and a pool ``[k]`` in pop order, float32
+    numpy arrays from ``seed``, for the consume/insert scan in one of
+    :data:`NS_SCAN_REGIMES`:
+
+    - ``mixed``: a pool around the live set's lowest fifth, with ties to
+      its worst and middle points and -inf padding in its last sixteenth
+      (a bucketed pool);
+    - ``terminal``: about one candidate in 400 (at least one) above the
+      worst live point, the rest at or below it, as near the end of a
+      run;
+    - ``ascending``: an ascending pool above the worst live point, so that
+      every step accepts;
+    - ``nan_inf``: ``mixed`` without padding, with NaN, +inf and -inf
+      candidates;
+    - ``ties``: the worst eighth of the live set one value and runs of five
+      candidates equal to it between candidates that may be accepted.
+    """
+    rng = np.random.default_rng(seed)
+    live = np.sort(rng.normal(size=n)).astype(np.float32)
+    if regime == "ties":
+        live[: max(1, n // 8)] = live[0]
+    pool = rng.normal(loc=float(live[n // 5]), scale=2.0, size=k).astype(np.float32)
+    pool[1::11] = live[n // 2]
+    if regime == "mixed":
+        pool[::5] = live[0]
+        pool[len(pool) - k // 16 :] = -np.inf
+    elif regime == "terminal":
+        pool = (live[0] - np.abs(rng.normal(size=k))).astype(np.float32)
+        pool[::7] = live[0]
+        above = rng.choice(k, size=min(k, max(1, k // 400)), replace=False)
+        pool[above] = rng.uniform(live[0], live[min(n - 1, n // 10)], size=above.size) + 1e-3
+    elif regime == "ascending":
+        span = float(live[-1] - live[0]) + 1.0
+        pool = (live[0] + 1e-2 + np.linspace(0.0, span, k)).astype(np.float32)
+    elif regime == "nan_inf":
+        pool[::9] = np.nan
+        pool[4::13] = np.inf
+        pool[7::17] = -np.inf
+    elif regime == "ties":
+        pool[np.arange(k) % 8 < 5] = live[0]
+    else:
+        raise ValueError(f"unknown scan regime {regime!r}")
+    return live, pool
+
+
+NS_SCAN_UNBOUNDED = 2**31 - 1
+#: The scan's check rows on the card, unbounded and capped at 17 accepts
+#: (``chip_smoke.py`` ``ns_scan_vs_plain``, ``utils/compare_scan.py``).
+#: ``(nlive, K)`` with inputs from one CUDA generator in order: the
+#: flagship's live set with a pool of its size, larger pools at nlive
+#: 2000 and 10,000 (the egg-box's and the hypercube run's nlive), and
+#: 40,000 live points on the global path.
+NS_SCAN_SHAPES = [(1000, 1024), (2000, 4096), (10000, 16384), (40000, 4096)]
+NS_SCAN_CAPS = (NS_SCAN_UNBOUNDED, 17)
+#: ``(regime, nlive, K, caps)`` with inputs from :func:`ns_scan_case`: the
+#: egg-box's terminal pool, a pool that accepts every step, NaN and
+#: infinite candidates, runs of ties, and each side of every change of the
+#: kernel's shape (``ops/ns_scan.block_shape``: 8, 16 or 32 entries a lane
+#: in one warp, 16 a thread in several, 32 a thread in the rings or more)
+#: and of ``ops/ns_scan.memory_path``.
+NS_SCAN_CASE_ROWS = [
+    ("terminal", 2000, 4096, (NS_SCAN_UNBOUNDED,)),
+    ("ascending", 1000, 1024, (NS_SCAN_UNBOUNDED,)),
+    ("nan_inf", 1000, 1024, (NS_SCAN_UNBOUNDED,)),
+    ("ties", 1000, 1024, (NS_SCAN_UNBOUNDED,)),
+    ("mixed", 256, 512, (NS_SCAN_UNBOUNDED,)),
+    ("mixed", 257, 512, (NS_SCAN_UNBOUNDED,)),
+    ("mixed", 512, 512, (NS_SCAN_UNBOUNDED,)),
+    ("mixed", 513, 512, (NS_SCAN_UNBOUNDED,)),
+    ("mixed", 1024, 512, (NS_SCAN_UNBOUNDED,)),
+    ("mixed", 1025, 512, (NS_SCAN_UNBOUNDED,)),
+    ("mixed", 4096, 512, NS_SCAN_CAPS),
+    ("mixed", 4097, 512, NS_SCAN_CAPS),
+    ("mixed", 28672, 512, NS_SCAN_CAPS),
+    ("mixed", 28673, 512, NS_SCAN_CAPS),
+    ("mixed", 32768, 512, (NS_SCAN_UNBOUNDED,)),
+    ("mixed", 32769, 512, (NS_SCAN_UNBOUNDED,)),
+    ("mixed", 57344, 512, NS_SCAN_CAPS),
+    ("mixed", 57345, 512, NS_SCAN_CAPS),
+]
+
+
+def _ns_scan_generator_inputs(gen, n, k, device):
+    """Sorted live logL and a pool with ties (to the worst live point,
+    to a middle one and among themselves) and -inf padding at its end,
+    as a bucketed pool has."""
+    live = torch.sort(torch.randn(n, generator=gen, device=device)).values
+    pool = torch.randn(k, generator=gen, device=device) * 2.0 + live[n // 5]
+    pool[::5] = live[0]
+    pool[1::7] = live[n // 2]
+    pool[2::11] = pool[3::11][: pool[2::11].numel()]
+    pool[-k // 16 :] = -math.inf
+    return live.contiguous(), pool.contiguous()
+
+
+def ns_scan_rows(device="cuda"):
+    """Every check row of the scan: ``(row, live, pool)`` with ``row`` a
+    dict of its ``regime``, ``nlive``, ``pool`` size and ``max_accepts``
+    and the inputs float32 tensors on ``device``: the rows of
+    :data:`NS_SCAN_SHAPES` (regime ``ties_padded``), then those of
+    :data:`NS_SCAN_CASE_ROWS`."""
+    gen = torch.Generator(device=device).manual_seed(20261017)
+    for n, k in NS_SCAN_SHAPES:
+        live, pool = _ns_scan_generator_inputs(gen, n, k, device)
+        for cap in NS_SCAN_CAPS:
+            yield dict(regime="ties_padded", nlive=n, pool=k, max_accepts=cap), live, pool
+    for regime, n, k, caps in NS_SCAN_CASE_ROWS:
+        live, pool = (torch.from_numpy(a).to(device) for a in ns_scan_case(regime, n, k, seed=n + k))
+        for cap in caps:
+            yield dict(regime=regime, nlive=n, pool=k, max_accepts=cap), live, pool
 
 
 def assert_structured_arrays_equal(x, y, atol=0.0, rtol=0.0) -> None:

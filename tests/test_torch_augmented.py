@@ -38,6 +38,16 @@ def _highest_precision():
 
 
 @pytest.fixture(autouse=True)
+def _threads():
+    """Two intra-op threads: the small runs' eager training steps contend
+    for the cores with the other test processes otherwise."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(previous)
+
+
+@pytest.fixture(autouse=True)
 def _no_extra_live_point_fields():
     """The pools' fields in both packages without the extra live-point
     fields that an importance nested sampler run earlier in the process

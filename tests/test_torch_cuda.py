@@ -740,16 +740,41 @@ def _scan_inputs(n, k, seed, ties=True, pad=0):
     return live, pool
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("max_accepts", [2**31 - 1, 17])
-@pytest.mark.parametrize("n,k,pad", [(1000, 1024, 24), (2000, 4096, 0), (40000, 512, 7)])
-def test_ns_scan_kernel_matches_plain(cuda, n, k, pad, max_accepts):
-    """The scan kernel against its plain version, all five outputs equal,
-    with ties and -inf padding; 40,000 live points take the global-memory
-    path."""
-    from nessai_tpu_torch.ops.ns_scan import ns_scan, ns_scan_plain
+#: (regime, nlive, K, pad): PR 11's cases (``_scan_inputs``, with ties and
+#: -inf padding; 40,000 live points on the global path), then the
+#: regimes of ``utils.testing.ns_scan_case`` and each side of every change
+#: of the kernel's shape (``ops.ns_scan.block_shape``) and memory path
+NS_SCAN_KERNEL_CASES = [
+    ("ties_padded", 1000, 1024, 24),
+    ("ties_padded", 2000, 4096, 0),
+    ("ties_padded", 40000, 512, 7),
+    ("terminal", 2000, 4096, 0),
+    ("ascending", 1000, 1024, 0),
+    ("nan_inf", 1000, 1024, 0),
+    ("ties", 1000, 1024, 0),
+] + [
+    ("mixed", n, 256 if n <= 4097 else 128, 0)
+    for n in (1, 256, 257, 512, 513, 1024, 1025, 4096, 4097, 28672, 28673, 32768, 32769, 57344, 57345)
+]
 
-    live, pool = _scan_inputs(n, k, n + k, pad=pad)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_accepts", [2**31 - 1, 17, 1, 0])
+@pytest.mark.parametrize("regime,n,k,pad", NS_SCAN_KERNEL_CASES)
+def test_ns_scan_kernel_matches_plain(cuda, regime, n, k, pad, max_accepts):
+    """The scan kernel against its plain version, all five outputs equal:
+    with ties and -inf padding, a terminal pool, a pool that accepts every
+    step, NaN and infinite candidates, runs of ties, no accept, one, 17
+    and none capped, on both sides of every change of the block's shape
+    and of where the live set is held (registers, shared memory, the ids
+    in global scratch, all in global scratch)."""
+    from nessai_tpu_torch.ops.ns_scan import ns_scan, ns_scan_plain
+    from nessai_tpu_torch.utils.testing import ns_scan_case
+
+    if regime == "ties_padded":
+        live, pool = _scan_inputs(n, k, n + k, pad=pad)
+    else:
+        live, pool = ns_scan_case(regime, n, k, seed=n + k)
     live_t, pool_t = torch.from_numpy(live), torch.from_numpy(pool)
     before = ns_scan.launches
     out = ns_scan(live_t.to(cuda), pool_t.to(cuda), max_accepts)

@@ -3,7 +3,10 @@
 the JAX package's ``scan_consume`` / ``run_ns_scan``
 (``nessai_tpu/samplers/ns_device.py``) and the pure-python oracle of
 ``tests/test_device_ns_loop.py``: all five outputs equal, exactly, over
-seeds, ties, -inf padding, accept caps and pools that accept nothing.
+seeds, ties, -inf padding, accept caps and pools that accept nothing,
+and over the regimes and live-set sizes the kernel's design branches on
+(``csrc/ns_scan.cu``: rejections in bulk, accepted steps, the capped
+tail; the block's shapes and where it holds the live set).
 The CUDA kernel against the plain version is in ``tests/test_torch_cuda.py``
 and ``chip_smoke.py``."""
 
@@ -16,7 +19,15 @@ import torch
 from nessai_tpu.samplers.ns_device import run_ns_scan as jax_run_ns_scan
 from nessai_tpu.samplers.ns_device import scan_consume
 from nessai_tpu_torch.ops.ns_scan import ns_scan, ns_scan_plain
+from nessai_tpu_torch.ops.ns_scan import (
+    REGISTER_MAX_LIVE,
+    SHARED_MAX_LIVE,
+    SHARED_VALUES_MAX_LIVE,
+    block_shape,
+    memory_path,
+)
 from nessai_tpu_torch.samplers.ns_device import run_ns_scan
+from nessai_tpu_torch.utils.testing import ns_scan_case
 from tests.test_device_ns_loop import _oracle
 
 UNBOUNDED = 2**31 - 1
@@ -135,3 +146,81 @@ def test_wrapper_checks_and_takes_the_plain_version_on_the_cpu():
         ns_scan(live_t[:0], pool_t, 5)
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         ns_scan(live_t.to("meta"), pool_t.to("meta"), 5)
+
+
+#: (regime, nlive, K, max_accepts): the regimes of the kernel's design at
+#: small sizes, then each side of every change of its shape
+#: (``block_shape``: 8, 16 or 32 entries a lane in one warp, 16 a thread in
+#: several, 32 a thread in the rings or more) and of ``memory_path``
+REGIME_CASES = [
+    ("terminal", 64, 300, UNBOUNDED),
+    ("terminal", 200, 1200, 17),
+    ("ascending", 48, 100, UNBOUNDED),
+    ("ascending", 40, 90, 33),
+    ("mixed", 50, 100, 0),
+    ("mixed", 50, 100, 1),
+    ("mixed", 50, 100, 5),
+    ("nan_inf", 64, 150, UNBOUNDED),
+    ("nan_inf", 64, 150, 17),
+    ("ties", 80, 160, UNBOUNDED),
+    ("ties", 80, 160, 9),
+] + [
+    ("mixed", n, k, cap)
+    for n, k, cap in [
+        (1, 40, UNBOUNDED), (256, 40, UNBOUNDED), (257, 40, UNBOUNDED),
+        (512, 40, UNBOUNDED), (513, 40, UNBOUNDED),
+        (1024, 40, UNBOUNDED), (1025, 40, UNBOUNDED), (1025, 40, 3),
+        (REGISTER_MAX_LIVE, 40, UNBOUNDED), (REGISTER_MAX_LIVE + 1, 40, UNBOUNDED), (REGISTER_MAX_LIVE + 1, 40, 3),
+        (32 * 1024, 8, UNBOUNDED), (32 * 1024 + 1, 8, UNBOUNDED),
+        (SHARED_MAX_LIVE, 8, UNBOUNDED), (SHARED_MAX_LIVE + 1, 8, UNBOUNDED), (SHARED_MAX_LIVE + 1, 8, 2),
+        (SHARED_VALUES_MAX_LIVE, 8, UNBOUNDED), (SHARED_VALUES_MAX_LIVE + 1, 8, 2),
+    ]
+]
+
+
+@pytest.mark.parametrize("regime, n, k, max_accepts", REGIME_CASES)
+def test_scan_regimes_and_paths_in_both_packages(regime, n, k, max_accepts):
+    """Each regime and each side of each path boundary: the plain scan
+    equals the JAX package's ``scan_consume`` in all five outputs and the
+    oracle, and ``run_ns_scan`` the JAX package's, bit for bit. The case
+    is in the regime it names (every step accepted, a few candidates
+    above the worst, the cap reached in the first chunk of 32, ...)."""
+    live, pool = ns_scan_case(regime, n, k, seed=n + k)
+    ours = _plain(live, pool, max_accepts)
+    for a, b, name in zip(ours, _jax(live, pool, max_accepts), ("mask", "consumed", "ins", "final_ids", "n_acc")):
+        assert np.array_equal(np.asarray(a), np.asarray(b)), name
+    mask, consumed, ins, ids_f, n_acc = ours
+    emask, econs, eins, eids, enacc = _oracle(live.astype(np.float64), pool.astype(np.float64), max_accepts)
+    assert (n_acc, mask.tolist(), consumed.tolist(), ids_f.tolist()) == (enacc, emask, econs, eids)
+    assert [i for i, m in zip(ins.tolist(), mask.tolist()) if m] == [i for i in eins if i is not None]
+    ran = run_ns_scan(live, pool, max_accepts, device="cpu")
+    theirs = jax_run_ns_scan(live, pool, max_accepts)
+    assert all(np.array_equal(a, b) for a, b in zip(ran[:4], theirs[:4])) and ran[4] == theirs[4] == n_acc
+    # the regime itself
+    above = int((pool > live[0]).sum())
+    if regime == "ascending":
+        assert n_acc == min(k, max_accepts) and mask[:n_acc].all()
+    elif regime == "terminal":
+        assert 0 < n_acc <= above <= max(1, k // 400)
+    elif regime == "nan_inf":
+        nan = np.isnan(pool)
+        assert nan.any() and np.isinf(pool).any() and not mask[nan].any() and (ins[nan] == -1).all()
+    elif regime == "ties":
+        tied = pool == live[0]
+        assert tied.sum() >= 5 * (k // 8) and not mask[tied].any()
+    if 0 < max_accepts <= 5:
+        assert n_acc == max_accepts and np.nonzero(mask)[0][-1] < 32
+    if max_accepts == 0:
+        assert n_acc == 0 and (consumed == -1).all() and (ins >= -1).all() and (ins > -1).any()
+    # ins is the lower bound of every step, accepted or not, over the live set
+    # as the step found it: after the cap, over the frozen set
+    if n_acc == max_accepts and n_acc < k:
+        frozen = np.where(ids_f < n, live[np.minimum(ids_f, n - 1)], pool[np.maximum(ids_f - n, 0)])
+        last = np.nonzero(mask)[0][-1] if n_acc else -1
+        tail = pool[last + 1 :]
+        # the count sum(live < p): 0 for NaN, where searchsorted puts NaN last
+        below = np.where(np.isnan(tail), 0, np.searchsorted(frozen, tail, side="left"))
+        assert ins[last + 1 :].tolist() == (below - 1).tolist()
+    threads, per_thread = block_shape(n)
+    assert threads % 32 == 0 and threads * per_thread >= n
+    assert memory_path(n) in ("register", "shared", "global_ids", "global")
