@@ -24,7 +24,9 @@ and at their boundaries, with a terminal pool, an all-accept pool, NaN
 and infinite candidates and runs of ties (``ns_scan_vs_plain``); the flagship RealNVP and the neural-spline flow, and
 the flows the flagships do not build (LU and SVD linear layers, MAF, the
 logit pre-transform, a LARS base, the unit-hypercube spline on a uniform
-base), on the GPU against the same weights on the CPU; the importance nested sampler's
+base) and the RealNVP and NSF conditioned on a one-hot context of 8
+labels (``realnvp_context``, ``nsf_context``, with the gradient), on the
+GPU against the same weights on the CPU; the importance nested sampler's
 per-level flows (``log_prob_all`` and single-level passes at 16,384
 rows) on the GPU against the CPU; the flagship nested-sampling run
 (``bench.py``'s configuration) through ``FlowSampler(..., device="cuda")``,
@@ -49,7 +51,9 @@ hypercube (``tails=None``, a uniform base) on the 4-D Rosenbrock
 likelihood (``flagship_ins_hypercube``); the egg-box example
 (``flagship_eggbox``, to ``EGGBOX_SMOKE_ITERATIONS``: the reset every
 8th training, the 18 modes) and the augmented-proposal example in full
-(``flagship_augmented``); short runs of the standard sampler's options
+(``flagship_augmented``); the experimental proposals: the MCMC example in
+full (``flagship_mcmc``) and the RealNVP flagship with the clustering
+proposal (``flagship_clustering``); short runs of the standard sampler's options
 (``standard_options_*``: the truncation rules, the likelihood split,
 the iteration cap, the training schedule, the uninformed proposal, the
 shrinkage, the optimisers and training options, the augmented marginal,
@@ -220,6 +224,9 @@ NSF_FLOW_PERTURBATION = 0.1
 #: the CPU; its log-Jacobian by up to 4.4e-4 where a sigmoid's 1 - y is
 #: rounded near y = 1 (``dequantise-logit``), as the JAX package's float32
 #: inverse does.
+#: the context width of the conditional flow checks: the clustering
+#: proposal's one-hot label at its default of 8 clusters
+CONTEXT_FEATURES = 8
 REPARAM_ROWS = 65536
 REPARAM_X_TOL, REPARAM_LJ_TOL = 1e-5, 1e-3
 #: what ``ms`` and ``plain_ms`` are where the profiler sees no GPU work
@@ -935,12 +942,19 @@ def _flagship_flow(device, config, seed=0, dims=2):
     return flow.to(device)
 
 
-def phase_flow(config, name, scale, seed=7, reference_dtype=torch.float32, dims=2, inputs="normal"):
+def phase_flow(config, name, scale, seed=7, reference_dtype=torch.float32, dims=2, inputs="normal",
+               context_features=None):
     """The flagship's flow (``config``, on ``dims`` dimensions) on the GPU
     against the same weights on the CPU in ``reference_dtype``, every
     weight perturbed by ``scale`` so that the couplings are not the
     identity; ``inputs="unit"`` feeds it points of the unit hypercube (the
-    domain of a logit pre-transform or of a flow on the unit box)."""
+    domain of a logit pre-transform or of a flow on the unit box). With
+    ``context_features`` the flow is conditional (every coupling's net
+    takes ``[x_id, context]``), each row gets a one-hot context, and the
+    gradient of the mean log-density in every weight is held too (K1's or
+    K2's backward kernel on the GPU)."""
+    if context_features:
+        config = dict(config, flow_config=dict(config["flow_config"], context_features=context_features))
     flow_gpu = _flagship_flow("cuda", config, dims=dims)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -959,17 +973,25 @@ def phase_flow(config, name, scale, seed=7, reference_dtype=torch.float32, dims=
         # reaches 1e-5 on either device.)
         x = np.random.default_rng(seed + 4).normal(0, 1, (6000, dims))
         x = torch.as_tensor(x[np.linalg.norm(x, axis=1) <= 3.0][:4096], dtype=torch.float32)
+    context = None
+    if context_features:
+        labels = np.random.default_rng(seed + 5).integers(0, context_features, len(x))
+        context = torch.as_tensor(np.eye(context_features, dtype=np.float32)[labels])
+
+    def on(device, dtype=torch.float32):
+        return None if context is None else context.to(device, dtype)
+
     errs = {}
     shares = {}
     largest = {}
     with torch.no_grad():
         for method, f in (
-            ("forward", lambda fl, a: fl(a)),
-            ("inverse", lambda fl, a: fl.inverse(a)),
-            ("log_prob", lambda fl, a: (fl.log_prob(a),)),
+            ("forward", lambda fl, a, c: fl(a, c)),
+            ("inverse", lambda fl, a, c: fl.inverse(a, c)),
+            ("log_prob", lambda fl, a, c: (fl.log_prob(a, c),)),
         ):
-            out_gpu = f(flow_gpu, x.cuda())
-            out_cpu = f(flow_cpu, x.to(reference_dtype))
+            out_gpu = f(flow_gpu, x.cuda(), on("cuda"))
+            out_cpu = f(flow_cpu, x.to(reference_dtype), on("cpu", reference_dtype))
             err = share = 0.0
             for a, b in zip(out_gpu, out_cpu):
                 a = a.cpu().to(reference_dtype)
@@ -981,7 +1003,11 @@ def phase_flow(config, name, scale, seed=7, reference_dtype=torch.float32, dims=
             shares[method] = share
             largest[method] = max(b.abs().max().item() for b in out_cpu)
         # how far the perturbed flow is from its permutations alone
-        z_cpu, _ = flow_cpu(x.to(reference_dtype))
+        z_cpu, _ = flow_cpu(x.to(reference_dtype), on("cpu", reference_dtype))
+    gradient = None
+    if context is not None:
+        gradient = _flow_gradient_check(flow_gpu, flow_cpu, x, on("cuda"), on("cpu", reference_dtype),
+                                        reference_dtype)
     perm = x.to(reference_dtype)
     for b in flow_cpu.bijector.bijectors:
         if hasattr(b, "perm"):
@@ -1001,7 +1027,31 @@ def phase_flow(config, name, scale, seed=7, reference_dtype=torch.float32, dims=
         max_share_of_tolerance=shares,
         max_abs_value=largest,
         max_abs_distance_from_permutation=(z_cpu - perm).abs().max().item(),
+        context_features=context_features,
+        gradient=gradient,
     )
+
+
+def _flow_gradient_check(flow_gpu, flow_cpu, x, context_gpu, context_cpu, reference_dtype):
+    """The gradient of the mean log-density in every weight, on the GPU
+    (the backward kernels) against the CPU in ``reference_dtype``, each
+    to ``GRAD_ATOL`` and ``GRAD_RTOL`` of the largest reference gradient
+    of its weight. Returns the largest error and share of the
+    tolerance."""
+    grads = []
+    for flow, a, c in ((flow_gpu, x.cuda(), context_gpu), (flow_cpu, x.to(reference_dtype), context_cpu)):
+        flow.zero_grad(set_to_none=True)
+        (-flow.log_prob(a, c).mean()).backward()
+        grads.append({n: p.grad.detach().cpu().to(reference_dtype) for n, p in flow.named_parameters()})
+    err = share = 0.0
+    for name, ref in grads[1].items():
+        diff = (grads[0][name] - ref).abs().max().item()
+        limit = GRAD_ATOL + GRAD_RTOL * ref.abs().max().item()
+        err, share = max(err, diff), max(share, diff / limit)
+        if diff > limit:
+            raise RuntimeError(f"the gradient in {name} differs by {diff} (limit {limit})")
+    return dict(weights=len(grads[1]), atol=GRAD_ATOL, rtol_of_largest=GRAD_RTOL, max_abs_err=err,
+                max_share_of_tolerance=share)
 
 
 def _ins_flow_model(device, seed=11):
@@ -1885,6 +1935,96 @@ def phase_flagship_augmented():
     return result
 
 
+def phase_flagship_mcmc():
+    """``FLAGSHIP_MCMC``, ``examples/mcmc_example.py`` as written (the MCMC
+    flow proposal, 20 differential-evolution steps a populate, nlive 2000,
+    seed 1234, a host likelihood), in full: each step one flow inverse of
+    the whole pool on the GPU. Fails unless |pull| < 3 against -log 400,
+    K1 launched forward and backward, and every pool point of every
+    populate lies in the prior bounds."""
+    from nessai_tpu_torch.experimental.proposal import MCMCFlowProposal
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_MCMC
+    from nessai_tpu_torch.utils.testing import GaussianModel
+
+    pools = []
+    real = MCMCFlowProposal.populate
+
+    def checked(self, *args, **kwargs):
+        out = real(self, *args, **kwargs)
+        pools.append((len(self.samples), _in_bounds(self.samples, self.model)))
+        return out
+
+    MCMCFlowProposal.populate = checked
+    try:
+        fs, model, nested, wall, launches = _drive(FLAGSHIP_MCMC, _k1_counters(), model=GaussianModel())
+    finally:
+        MCMCFlowProposal.populate = real
+    result = _standard_result(fs, model, wall, launches, float(model.analytic_log_evidence))
+    proposal = fs.ns.flow_proposal
+    result.update(
+        proposal=type(proposal).__name__,
+        step_type=proposal.step_type,
+        n_steps=proposal.n_steps,
+        mcmc_history=proposal.mcmc_history,
+        pool_sizes=[n for n, _ in pools],
+        every_pool_in_bounds=bool(pools) and all(ok for _, ok in pools),
+    )
+    emit("flagship_mcmc", **result)
+    _check_standard("flagship_mcmc", result, nested, fs, model)
+    if not result["every_pool_in_bounds"]:
+        raise RuntimeError(f"an MCMC pool left the prior bounds: {pools}")
+    return result
+
+
+def phase_flagship_clustering():
+    """``FLAGSHIP_CLUSTERING``: the RealNVP flagship with the clustering
+    flow proposal (8 clusters at most), in full. Every coupling's net
+    takes the one-hot label; the populate takes the rounds through the
+    proposal's backward pass, never the device loop, and the sampler
+    steps through the flow phase's pools on the host (the scan may run in
+    the uninformed phase, chained onto the prior's device populate).
+    Fails unless |pull| < 3, some training chose two clusters or more, K1
+    launched forward and backward, and the device loop was not called."""
+    from nessai_tpu_torch.experimental.flowmodel import ClusteringFlowModel
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_CLUSTERING
+
+    chosen = []
+    real = ClusteringFlowModel.train_clustering
+
+    def recording(self, samples):
+        out = real(self, samples)
+        chosen.append(self.n_clusters)
+        return out
+
+    ClusteringFlowModel.train_clustering = recording
+    try:
+        with _LaunchesInLoop() as loop:
+            fs, model, nested, wall, launches = _drive(FLAGSHIP_CLUSTERING, _k1_counters())
+    finally:
+        ClusteringFlowModel.train_clustering = real
+    result = _standard_result(fs, model, wall, launches, float(model.analytic_log_evidence))
+    flow = fs.ns.flow_proposal.flow
+    couplings = [b for b in flow.flow.bijector.bijectors if hasattr(b, "net")]
+    result.update(
+        loop.counts,
+        proposal=type(fs.ns.flow_proposal).__name__,
+        clusters_chosen=chosen,
+        last_cluster_weights=np.asarray(flow.cluster_weights).tolist(),
+        conditioner_inputs=[c.net.initial.in_features for c in couplings],
+        uninformed_population_time_s=fs.ns._uninformed_proposal.population_time.total_seconds(),
+        device_steps=int(getattr(fs.ns, "_n_device_steps", 0)),
+    )
+    emit("flagship_clustering", **result)
+    _check_standard("flagship_clustering", result, nested, fs, model)
+    if not any(k >= 2 for k in chosen):
+        raise RuntimeError(f"no training of the clustering run chose two clusters or more: {chosen}")
+    if result["device_loop_calls"] or result["k1_launches_in_loop"]:
+        raise RuntimeError(f"the clustering run called the device populate loop {result['device_loop_calls']} times")
+    if result["conditioner_inputs"] != [1 + flow.max_clusters] * len(couplings):
+        raise RuntimeError(f"the couplings' nets take {result['conditioner_inputs']} inputs, not x_id and the label")
+    return result
+
+
 #: short runs of the standard sampler's options on ``IntegrationTestModel(2)``
 #: at nlive 500 (seed 1234): name, options and the kernels the run must
 #: launch; each also has its own check in ``phase_standard_options``
@@ -2569,6 +2709,12 @@ def main():
         timed(seconds, "flow_nsf", phase_flow, FLAGSHIP_NSF, "nsf",
               scale=NSF_FLOW_PERTURBATION, reference_dtype=torch.float64)
         phase_new_flows(seconds)
+        # the conditional flows of the clustering proposal: a one-hot
+        # context of 8 labels in every coupling's net
+        timed(seconds, "flow_realnvp_context", phase_flow, FLAGSHIP, "realnvp_context", scale=0.05,
+              context_features=CONTEXT_FEATURES)
+        timed(seconds, "flow_nsf_context", phase_flow, FLAGSHIP_NSF, "nsf_context", scale=NSF_FLOW_PERTURBATION,
+              reference_dtype=torch.float64, context_features=CONTEXT_FEATURES)
         timed(seconds, "ins_flow", phase_ins_flow)
         timed(seconds, "reparam_inverse", phase_reparam_inverse)
         flagship = timed(seconds, "flagship", phase_flagship)
@@ -2585,6 +2731,8 @@ def main():
         hypercube = timed(seconds, "flagship_ins_hypercube", phase_flagship_ins_hypercube)
         eggbox = timed(seconds, "flagship_eggbox", phase_flagship_eggbox)
         augmented = timed(seconds, "flagship_augmented", phase_flagship_augmented)
+        mcmc = timed(seconds, "flagship_mcmc", phase_flagship_mcmc)
+        clustering = timed(seconds, "flagship_clustering", phase_flagship_clustering)
         standard_options = timed(seconds, "standard_options", phase_standard_options)
         checkpointing = timed(seconds, "flagship_checkpointing", phase_flagship_checkpointing, flagship)
         pool = timed(seconds, "pool_reparam_angle", phase_pool_reparam_angle, angle)
@@ -2609,6 +2757,8 @@ def main():
         "flagship_ins_hypercube": hypercube,
         "flagship_eggbox": eggbox,
         "flagship_augmented": augmented,
+        "flagship_mcmc": mcmc,
+        "flagship_clustering": clustering,
         **standard_options,
         "flagship_checkpointing": checkpointing,
         "pool_reparam_angle": pool,

@@ -11,8 +11,14 @@ mode (conditioner dropout) for the optimiser steps alone. A LARS base
 distribution moves its normalisation estimate after every epoch and
 takes a final one after training, where the JAX package's per-epoch
 loop does (``nessai_tpu/flowmodel/base.py:991-1035, 1108-1113``). Host
-arrays come in and go out as numpy; the flow and its data live on
-``device``.
+arrays come in and go out as numpy, with one device-to-host copy a call;
+the flow and its data live on ``device``.
+
+A conditional flow (``context_features`` in the flow config) takes a
+``conditional`` ([n, context_features]) beside its samples: training
+shuffles and splits it with them and feeds it to the loss and to the
+ActNorm initialisation, and every inference call passes it to the flow
+(``nessai_tpu/flowmodel/base.py:422-503, 813-865, 1176-1260``).
 """
 
 import copy
@@ -164,13 +170,16 @@ class FlowModel:
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
-    def prep_data(self, samples, val_size, batch_size=None, weights=None):
+    def prep_data(self, samples, val_size, batch_size=None, weights=None, conditional=None):
         """Shuffle, split off ``val_size`` for validation and cut the
         training rows into batches (the last one may be smaller).
         ``weights`` (one per sample) are shuffled and split with the
         samples. Returns ``(train_batches, val, weight_batches,
         val_weights)`` as device tensors; the weight entries are None
-        without weights."""
+        without weights. With a ``conditional`` (one row per sample),
+        shuffled and split with the samples too, its batches and
+        validation rows follow: ``(..., conditional_batches,
+        val_conditional)``."""
         samples = np.asarray(samples, dtype=np.float32)
         if not np.isfinite(samples).all():
             raise ValueError("Training data is not finite")
@@ -181,6 +190,11 @@ class FlowModel:
                 raise ValueError("Weights contain non-finite values")
         perm = self.rng.permutation(n)
         samples = samples[perm]
+        if conditional is not None:
+            conditional = np.asarray(conditional, dtype=np.float32)
+            if len(conditional) != n:
+                raise ValueError(f"{len(conditional)} conditional rows for {n} samples")
+            conditional = conditional[perm]
         n_val = int(round((val_size or 0.0) * n))
         n_train = n - n_val
         if n_train < 2:
@@ -198,11 +212,17 @@ class FlowModel:
         batches = list(torch.split(train, batch_size))
         val = self._to_device(samples[n_train:]) if n_val > 0 else None
         if weights is None:
-            return batches, val, None, None
-        weights = weights[perm]
-        w_batches = list(torch.split(self._to_device(weights[:n_train]), batch_size))
-        w_val = self._to_device(weights[n_train:]) if n_val > 0 else None
-        return batches, val, w_batches, w_val
+            out = (batches, val, None, None)
+        else:
+            weights = weights[perm]
+            w_batches = list(torch.split(self._to_device(weights[:n_train]), batch_size))
+            w_val = self._to_device(weights[n_train:]) if n_val > 0 else None
+            out = (batches, val, w_batches, w_val)
+        if conditional is None:
+            return out
+        c_batches = list(torch.split(self._to_device(conditional[:n_train]), batch_size))
+        c_val = self._to_device(conditional[n_train:]) if n_val > 0 else None
+        return out + (c_batches, c_val)
 
     def _state_copy(self) -> dict:
         return {k: v.detach().clone() for k, v in self.flow.state_dict().items()}
@@ -210,11 +230,11 @@ class FlowModel:
     def _trainable(self):
         return [p for p in self.flow.parameters() if p.requires_grad]
 
-    def _loss(self, x, w=None) -> torch.Tensor:
-        """Mean negative log-density of the batch ``x``; with weights
-        ``w``, the JAX package's weighted loss ``-sum(w log p) /
-        max(sum(w), 1e-12)``."""
-        log_p = self.flow.log_prob(x)
+    def _loss(self, x, w=None, context=None) -> torch.Tensor:
+        """Mean negative log-density of the batch ``x`` (given its
+        ``context``); with weights ``w``, the JAX package's weighted loss
+        ``-sum(w log p) / max(sum(w), 1e-12)``."""
+        log_p = self.flow.log_prob(x, context)
         if w is None:
             return -log_p.mean()
         return -(w * log_p).sum() / w.sum().clamp_min(1e-12)
@@ -244,11 +264,12 @@ class FlowModel:
         if isinstance(self.flow.base, ResampledGaussian):
             self.flow.finalise(self.device_generator())
 
-    def _train_step(self, x, w=None) -> torch.Tensor:
-        """One optimiser step on the batch ``x`` (with weights ``w``);
-        returns its loss (a device scalar, no host synchronisation)."""
+    def _train_step(self, x, w=None, context=None) -> torch.Tensor:
+        """One optimiser step on the batch ``x`` (with weights ``w`` and
+        its ``context``); returns its loss (a device scalar, no host
+        synchronisation)."""
         self.optimiser.zero_grad(set_to_none=True)
-        loss = self._loss(x, w)
+        loss = self._loss(x, w) if context is None else self._loss(x, w, context)
         loss.backward()
         if self.training_config.clip_grad_norm:
             _clip_by_global_norm(self._trainable(), self.training_config.clip_grad_norm)
@@ -276,26 +297,36 @@ class FlowModel:
         raise ValueError(f"Unknown noise type: {tc.noise_type}")
 
     @torch.no_grad()
-    def _maybe_init_actnorm(self, x) -> None:
-        """Data-dependent actnorm initialisation: walk the chain once,
-        whitening the activations at each ActNorm (not with
-        ``use_actnorm_init=False``)."""
+    def _maybe_init_actnorm(self, x, conditional=None) -> None:
+        """Data-dependent actnorm initialisation: walk the chain once
+        (with the ``conditional``), whitening the activations at each
+        ActNorm (not with ``use_actnorm_init=False``)."""
         if self._actnorm_done or not self.training_config.use_actnorm_init:
             return
         if isinstance(self.flow.bijector, Chain):
             h = self._to_device(x)
+            context = self._to_device_or_none(conditional)
             for b in self.flow.bijector.bijectors:
                 if isinstance(b, ActNorm):
                     b.data_init(h)
-                h, _ = b(h)
+                h, _ = b(h, context)
         self._actnorm_done = True
 
     def train(
-        self, samples, weights=None, max_epochs=None, patience=None, val_size=None, save: bool = True, output=None
+        self,
+        samples,
+        weights=None,
+        max_epochs=None,
+        patience=None,
+        val_size=None,
+        save: bool = True,
+        output=None,
+        conditional=None,
     ):
         """Train the flow on ``samples`` ([n, dims]), with the weighted
-        loss where ``weights`` are given. Returns the history of this
-        call, ``{"loss": [...], "val_loss": [...]}``."""
+        loss where ``weights`` are given and conditioned on
+        ``conditional`` ([n, context_features]) where it is. Returns the
+        history of this call, ``{"loss": [...], "val_loss": [...]}``."""
         if not self.initialised:
             self.initialise()
         samples = np.asarray(samples, dtype=np.float32)
@@ -306,10 +337,12 @@ class FlowModel:
         patience = tc.patience if patience is None else patience
         val_size = tc.val_size if val_size is None else val_size
 
-        self._maybe_init_actnorm(samples)
-        batches, val, w_batches, w_val = self.prep_data(samples, val_size, weights=weights)
+        self._maybe_init_actnorm(samples, conditional)
+        prepared = self.prep_data(samples, val_size, weights=weights, conditional=conditional)
+        batches, val, w_batches, w_val = prepared[:4]
         if w_batches is None:
             w_batches = [None] * len(batches)
+        c_batches, c_val = prepared[4:] if conditional is not None else ([None] * len(batches), None)
         sigma = self._noise_sigma(batches)
         decay_steps = None
         if tc.annealing:
@@ -328,20 +361,20 @@ class FlowModel:
         for epoch in range(int(max_epochs)):
             self.flow.train()
             losses = []
-            for i, (x, w) in enumerate(zip(batches, w_batches)):
+            for i, (x, w, c) in enumerate(zip(batches, w_batches, c_batches)):
                 if decay_steps is not None:
                     for group in self.optimiser.param_groups:
                         group["lr"] = _cosine_decay(tc.lr, steps, decay_steps)
                 if sigma is not None:
                     x = x + sigma[i] * torch.randn(x.shape, generator=self.device_generator(), device=x.device)
-                losses.append(self._train_step(x, w))
+                losses.append(self._train_step(x, w) if c is None else self._train_step(x, w, c))
                 steps += 1
             loss = torch.stack(losses).mean()
             self.flow.eval()
             self.end_iteration()
             if val is not None:
                 with torch.no_grad():
-                    metric = self._loss(val, w_val)
+                    metric = self._loss(val, w_val) if c_val is None else self._loss(val, w_val, c_val)
                 loss_v, metric_v = torch.stack([loss, metric]).tolist()
                 if np.isnan(metric_v):
                     metric_v = loss_v
@@ -371,23 +404,64 @@ class FlowModel:
         return history
 
     # ------------------------------------------------------------------
-    # Inference (numpy in / numpy out)
+    # Inference (numpy in / numpy out, one device-to-host copy a call)
     # ------------------------------------------------------------------
+    def _to_device_or_none(self, x):
+        return None if x is None else self._to_device(x)
+
+    @staticmethod
+    def _to_host(points, per_row):
+        """``points`` [n, d] and ``per_row`` [n] as float64 numpy arrays,
+        through one device-to-host copy."""
+        out = torch.cat([points, per_row[:, None]], dim=1).double().cpu().numpy()
+        return out[:, :-1], out[:, -1]
+
     @torch.no_grad()
-    def forward_and_log_prob(self, x):
+    def forward_and_log_prob(self, x, conditional=None):
         """x -> (z, log q(x)) as float64 numpy arrays."""
-        z, log_q = self.flow.forward_and_log_prob(self._to_device(x))
-        return z.double().cpu().numpy(), log_q.double().cpu().numpy()
+        z, log_q = self.flow.forward_and_log_prob(self._to_device(x), self._to_device_or_none(conditional))
+        return self._to_host(z, log_q)
 
     @torch.no_grad()
-    def inverse_and_log_prob(self, z):
-        """z -> (x, log q(x)) as float64 numpy arrays."""
-        x, log_q = self.flow.inverse_and_log_prob(self._to_device(z))
-        return x.double().cpu().numpy(), log_q.double().cpu().numpy()
+    def forward(self, x, conditional=None):
+        """x -> (z, log|dz/dx|) as float64 numpy arrays."""
+        return self._to_host(*self.flow(self._to_device(x), self._to_device_or_none(conditional)))
 
     @torch.no_grad()
-    def log_prob(self, x):
-        return self.flow.log_prob(self._to_device(x)).double().cpu().numpy()
+    def inverse(self, z, conditional=None):
+        """z -> (x, log|dx/dz|) as float64 numpy arrays."""
+        return self._to_host(*self.flow.inverse(self._to_device(z), self._to_device_or_none(conditional)))
+
+    def tempered_inverse(self, zt, temperature=1.0, context=None):
+        """Device tensors ``zt`` -> ``(x, log q(x))``, with the tempered
+        latent density ``base(z / sqrt(T)) - (d / 2) log T`` where the
+        ``temperature`` T is not 1 (``nessai_tpu/flowmodel/base.py:
+        1196-1222``)."""
+        if temperature in (None, 1.0):
+            return self.flow.inverse_and_log_prob(zt, context)
+        sqrt_t = float(np.sqrt(temperature))
+        x, log_j = self.flow.inverse(zt, context)
+        log_q = self.flow.base_log_prob(zt / sqrt_t) - zt.shape[-1] * float(np.log(sqrt_t))
+        return x, log_q - log_j
+
+    @torch.no_grad()
+    def inverse_and_log_prob(self, z, conditional=None, temperature=None):
+        """z -> (x, log q(x)) as float64 numpy arrays, the latent density
+        tempered at ``temperature`` (see :meth:`tempered_inverse`)."""
+        x, log_q = self.tempered_inverse(self._to_device(z), temperature, self._to_device_or_none(conditional))
+        return self._to_host(x, log_q)
+
+    @torch.no_grad()
+    def log_prob(self, x, conditional=None):
+        return self.flow.log_prob(self._to_device(x), self._to_device_or_none(conditional)).double().cpu().numpy()
+
+    @torch.no_grad()
+    def sample(self, n: int = 1, conditional=None):
+        """``n`` draws from the flow (given ``conditional``, one row per
+        draw) as a float64 numpy array; the latent draws come from
+        :meth:`device_generator`."""
+        x = self.flow.sample(int(n), self.device_generator(), self._to_device_or_none(conditional))
+        return x.double().cpu().numpy()
 
     @torch.no_grad()
     def base_log_prob(self, z):

@@ -19,7 +19,15 @@ from .maf import build_maf_bijector
 from .nsf import build_nsf_bijector
 from .realnvp import build_realnvp_bijector
 from .rqs import rational_quadratic_spline
-from .utils import configure_model, get_base_distribution, get_flow_builder, get_n_neurons
+from .utils import (
+    configure_model,
+    get_base_distribution,
+    get_flow_builder,
+    get_flow_class,
+    get_n_neurons,
+    get_native_flow_class,
+    register_flow,
+)
 
 __all__ = [
     "Flow",
@@ -38,6 +46,9 @@ __all__ = [
     "ResampledGaussian",
     "configure_model",
     "get_flow_builder",
+    "get_native_flow_class",
+    "get_flow_class",
+    "register_flow",
     "get_base_distribution",
     "build_realnvp_bijector",
     "build_nsf_bijector",

@@ -1,5 +1,9 @@
 """Flow container: a bijector chain and a base distribution.
-Counterpart of ``nessai_tpu/flows/base.py``."""
+Counterpart of ``nessai_tpu/flows/base.py``.
+
+Every pass takes an optional ``context`` (``[n, context_features]``),
+which reaches the couplings' conditioner nets; the base distribution is
+unconditional (``nessai_tpu/flows/base.py:43-114``)."""
 
 from torch import nn
 
@@ -16,26 +20,26 @@ class Flow(nn.Module):
         self.base = base
         self.dim = dim
 
-    def forward(self, x):
+    def forward(self, x, context=None):
         """x -> (z, log|dz/dx|)."""
-        return self.bijector(x)
+        return self.bijector(x, context)
 
-    def inverse(self, z):
+    def inverse(self, z, context=None):
         """z -> (x, log|dx/dz|)."""
-        return self.bijector.inverse(z)
+        return self.bijector.inverse(z, context)
 
-    def log_prob(self, x):
-        z, log_j = self.bijector(x)
+    def log_prob(self, x, context=None):
+        z, log_j = self.bijector(x, context)
         return self.base.log_prob(z) + log_j
 
-    def forward_and_log_prob(self, x):
-        z, log_j = self.bijector(x)
+    def forward_and_log_prob(self, x, context=None):
+        z, log_j = self.bijector(x, context)
         return z, self.base.log_prob(z) + log_j
 
-    def inverse_and_log_prob(self, z):
+    def inverse_and_log_prob(self, z, context=None):
         """z -> (x, log q(x)): the inverse pass with the base log-density
         and the Jacobian correction."""
-        x, log_j = self.bijector.inverse(z)
+        x, log_j = self.bijector.inverse(z, context)
         return x, self.base.log_prob(z) - log_j
 
     def base_log_prob(self, z):
@@ -59,10 +63,10 @@ class Flow(nn.Module):
         """``n`` latent draws from the base distribution."""
         return self.base.sample(n, generator)
 
-    def sample(self, n: int, generator=None):
+    def sample(self, n: int, generator=None, context=None):
         """``n`` draws from the flow: base draws through the inverse."""
-        return self.bijector.inverse(self.sample_base(n, generator))[0]
+        return self.bijector.inverse(self.sample_base(n, generator), context)[0]
 
-    def sample_and_log_prob(self, n: int, generator=None):
+    def sample_and_log_prob(self, n: int, generator=None, context=None):
         """``n`` draws from the flow and their log-density."""
-        return self.inverse_and_log_prob(self.sample_base(n, generator))
+        return self.inverse_and_log_prob(self.sample_base(n, generator), context)

@@ -4,9 +4,13 @@
 ``LULinear`` and ``SVDLinear``, the ``Logit`` pre-transform and the
 masked autoregressive ``MaskedAffineAutoregressive``.
 
-``forward(x)`` maps data to latent and ``inverse(z)`` latent to data;
-both return ``(output, log_det)`` with ``log_det`` the per-row log of
-the Jacobian determinant of the applied direction.
+``forward(x, context=None)`` maps data to latent and ``inverse(z,
+context=None)`` latent to data; both return ``(output, log_det)`` with
+``log_det`` the per-row log of the Jacobian determinant of the applied
+direction. The context (``[n, context_features]``) reaches the couplings'
+conditioner nets, which then take ``[x_id, context]``; every other
+bijector takes it and ignores it, as in the JAX package
+(``nessai_tpu/flows/bijectors.py:77-343``).
 """
 
 import math
@@ -40,17 +44,17 @@ class Chain(nn.Module):
         super().__init__()
         self.bijectors = nn.ModuleList(bijectors)
 
-    def forward(self, x):
+    def forward(self, x, context=None):
         log_det = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         for b in self.bijectors:
-            x, ld = b(x)
+            x, ld = b(x, context)
             log_det = log_det + ld
         return x, log_det
 
-    def inverse(self, z):
+    def inverse(self, z, context=None):
         log_det = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
         for b in reversed(self.bijectors):
-            z, ld = b.inverse(z)
+            z, ld = b.inverse(z, context)
             log_det = log_det + ld
         return z, log_det
 
@@ -68,20 +72,30 @@ class Permutation(nn.Module):
         self.register_buffer("perm", perm)
         self.register_buffer("inv", torch.argsort(perm))
 
-    def forward(self, x):
+    def forward(self, x, context=None):
         return x[:, self.perm], torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
 
-    def inverse(self, z):
+    def inverse(self, z, context=None):
         return z[:, self.inv], torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
 
 
 class _Coupling(nn.Module):
     """The split of a coupling layer: the identity half (``mask > 0``)
     feeds a conditioner net with ``n_out`` outputs, which parameterise
-    the transform of the other half."""
+    the transform of the other half. With ``context_features`` the net
+    takes ``[x_id, context]``."""
 
     def __init__(
-        self, mask, n_out_per_dim, n_neurons, n_layers, net, activation, generator, dropout_probability=0.0
+        self,
+        mask,
+        n_out_per_dim,
+        n_neurons,
+        n_layers,
+        net,
+        activation,
+        generator,
+        dropout_probability=0.0,
+        context_features=None,
     ):
         super().__init__()
         mask = np.asarray(mask)
@@ -100,7 +114,7 @@ class _Coupling(nn.Module):
             ),
         )
         n_out = self.n_tr * n_out_per_dim
-        n_id = len(identity_idx)
+        n_id = len(identity_idx) + (context_features or 0)
         if net == "mlp":
             self.net = MLP(n_id, n_out, n_neurons, n_layers, activation, generator, dropout_probability)
         elif net == "resnet":
@@ -112,16 +126,16 @@ class _Coupling(nn.Module):
         """``(y_tr, row log-determinant)`` from the conditioner output."""
         raise NotImplementedError
 
-    def _transform(self, x, inverse: bool):
+    def _transform(self, x, inverse: bool, context=None):
         x_id = x[:, self.identity_idx]
-        y_tr, log_det = self._transform_half(x[:, self.transform_idx], self.net(x_id), inverse)
+        y_tr, log_det = self._transform_half(x[:, self.transform_idx], self.net(x_id, context), inverse)
         return torch.cat([x_id, y_tr], dim=1)[:, self.scatter_idx], log_det
 
-    def forward(self, x):
-        return self._transform(x, inverse=False)
+    def forward(self, x, context=None):
+        return self._transform(x, inverse=False, context=context)
 
-    def inverse(self, z):
-        return self._transform(z, inverse=True)
+    def inverse(self, z, context=None):
+        return self._transform(z, inverse=True, context=context)
 
 
 class AffineCoupling(_Coupling):
@@ -146,6 +160,7 @@ class AffineCoupling(_Coupling):
         volume_preserving: bool = False,
         scale_limit: float = 5.0,
         dropout_probability: float = 0.0,
+        context_features=None,
         generator=None,
     ):
         super().__init__(
@@ -157,6 +172,7 @@ class AffineCoupling(_Coupling):
             activation,
             generator,
             dropout_probability,
+            context_features,
         )
         self.volume_preserving = volume_preserving
         self.scale_limit = float(scale_limit)
@@ -166,10 +182,10 @@ class AffineCoupling(_Coupling):
             "transform_idx32", self.transform_idx.to(torch.int32), persistent=False
         )
 
-    def _transform(self, x, inverse: bool):
+    def _transform(self, x, inverse: bool, context=None):
         if self.volume_preserving:
-            return super()._transform(x, inverse)
-        out = self.net(x[:, self.identity_idx])
+            return super()._transform(x, inverse, context)
+        out = self.net(x[:, self.identity_idx], context)
         return affine_coupling_layer(x, out, self.transform_idx32, inverse, self.scale_limit)
 
     def _transform_half(self, x_tr, out, inverse: bool):
@@ -203,6 +219,7 @@ class RQSCoupling(_Coupling):
         activation: str = "relu",
         tails="linear",
         dropout_probability: float = 0.0,
+        context_features=None,
         generator=None,
     ):
         self.num_bins = int(num_bins)
@@ -215,6 +232,7 @@ class RQSCoupling(_Coupling):
             activation,
             generator,
             dropout_probability,
+            context_features,
         )
         self.tail_bound = float(tail_bound)
         self.tails = tails
@@ -241,11 +259,11 @@ class ActNorm(nn.Module):
         self.log_scale = nn.Parameter(torch.zeros(dim))
         self.shift = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x):
+    def forward(self, x, context=None):
         z = (x + self.shift) * torch.exp(self.log_scale)
         return z, torch.sum(self.log_scale) * torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
 
-    def inverse(self, z):
+    def inverse(self, z, context=None):
         x = z * torch.exp(-self.log_scale) - self.shift
         return x, -torch.sum(self.log_scale) * torch.ones(z.shape[0], dtype=z.dtype, device=z.device)
 
@@ -293,12 +311,12 @@ class LULinear(nn.Module):
         U = torch.triu(self.upper, 1) + torch.diag(torch.exp(self.log_diag))
         return L, U
 
-    def forward(self, x):
+    def forward(self, x, context=None):
         L, U = self._lu()
         z = x @ (L @ U).T + self.bias
         return z, _row_constant(torch.sum(self.log_diag), x)
 
-    def inverse(self, z):
+    def inverse(self, z, context=None):
         L, U = self._lu()
         # W x^T = (z - b)^T, by two triangular solves
         t = torch.linalg.solve_triangular(L, (z - self.bias).T, upper=False)
@@ -333,13 +351,13 @@ class SVDLinear(nn.Module):
             q = q - coeff * torch.outer(v, v @ q)
         return q
 
-    def forward(self, x):
+    def forward(self, x, context=None):
         u = self._householder_product(self.vs_u)
         v = self._householder_product(self.vs_v)
         z = ((x @ v) * torch.exp(self.log_s)) @ u.T + self.bias
         return z, _row_constant(torch.sum(self.log_s), x)
 
-    def inverse(self, z):
+    def inverse(self, z, context=None):
         u = self._householder_product(self.vs_u)
         v = self._householder_product(self.vs_v)
         x = (((z - self.bias) @ u) * torch.exp(-self.log_s)) @ v.T
@@ -355,12 +373,12 @@ class Logit(nn.Module):
         super().__init__()
         self.eps = eps
 
-    def forward(self, x):
+    def forward(self, x, context=None):
         x = torch.clamp(x, self.eps, 1 - self.eps)
         z = torch.log(x) - torch.log1p(-x)
         return z, torch.sum(-torch.log(x) - torch.log1p(-x), dim=-1)
 
-    def inverse(self, z):
+    def inverse(self, z, context=None):
         x = torch.sigmoid(z)
         return x, torch.sum(torch.log(x) + torch.log1p(-x), dim=-1)
 
@@ -438,11 +456,11 @@ class MaskedAffineAutoregressive(nn.Module):
         s = self.scale_limit * torch.tanh(raw_s / self.scale_limit)
         return s, t
 
-    def forward(self, x):
+    def forward(self, x, context=None):
         s, t = self._net(x)
         return x * torch.exp(s) + t, torch.sum(s, dim=-1)
 
-    def inverse(self, z):
+    def inverse(self, z, context=None):
         x = torch.zeros_like(z)
         log_det = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
         for i in range(self.dim):

@@ -5,7 +5,9 @@ The JAX package keeps a flow's parameters as a pytree
 ``{"bijector": [per-bijector dict, ...], "base": {}}``; here it is given
 and returned as numpy arrays. A dense layer is ``{"w": [n_in, n_out],
 "b": [n_out]}`` there and ``nn.Linear`` (weight ``[n_out, n_in]``) here,
-so weights are transposed. Permutations become buffers. A coupling
+so weights are transposed. A conditional net's first layer takes
+``[x_id, context]`` in both packages, so its wider weight maps column for
+column. Permutations become buffers. A coupling
 (affine or spline, either tails) is ``{"net": ...}``; a chain without
 ActNorm simply has no such entries. ``LULinear`` is ``{"lower", "upper",
 "log_diag", "bias"}``, ``SVDLinear`` ``{"vs_u", "vs_v", "log_s",

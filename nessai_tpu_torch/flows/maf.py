@@ -20,8 +20,8 @@ def build_maf_bijector(
     **kwargs,
 ):
     """The MAF chain; the coupling builders' keys (``linear_transform``,
-    ``pre_transform``, ``net``, ...) are accepted and ignored, as in the
-    JAX package."""
+    ``pre_transform``, ``net``, ``context_features``, ...) are accepted
+    and ignored, as in the JAX package: its nets take no context."""
     bijectors = []
     for i in range(n_blocks):
         if i > 0:

@@ -9,6 +9,12 @@ A ``dropout_probability`` above 0 adds inverted dropout where the JAX
 package's ``apply_mlp``/``apply_resnet`` drop (``nets.py:55-62,
 113-131``); it is active only in training mode (``module.train()``),
 which the flow model sets for its optimiser steps alone.
+
+A conditional net (``context_features`` in a coupling) has a first layer
+of ``n_in + context_features`` inputs and is called as ``net(x,
+context)``: its input is ``cat([x, context])``, as the JAX package's
+``apply_mlp``/``apply_resnet`` build it (``nets.py:74, 119``). Without a
+context the input is ``x`` alone.
 """
 
 import math
@@ -64,8 +70,10 @@ class MLP(nn.Module):
         self.out = _dense(dims[-1], n_out, zero=True)
         self.dropout = make_dropout(dropout_probability)
 
-    def forward(self, x):
+    def forward(self, x, context=None):
         act = ACTIVATIONS[self.activation]
+        if context is not None:
+            x = torch.cat([x, context], dim=-1)
         for layer in self.layers:
             x = act(layer(x))
             if self.dropout is not None:
@@ -97,8 +105,10 @@ class ResNet(nn.Module):
         self.final = _dense(n_neurons, n_out, zero=True)
         self.dropout = make_dropout(dropout_probability)
 
-    def forward(self, x):
+    def forward(self, x, context=None):
         act = ACTIVATIONS[self.activation]
+        if context is not None:
+            x = torch.cat([x, context], dim=-1)
         h = self.initial(x)
         for block in self.blocks:
             t = act(block.l1(act(h)))

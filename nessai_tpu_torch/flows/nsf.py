@@ -1,7 +1,8 @@
 """Neural spline flow builder (arXiv:1906.04032). Counterpart of
 ``nessai_tpu/flows/nsf.py``: (Logit →) ``n_blocks`` × [linear transform →
 RQSCoupling (→ ActNorm)], with 8 bins and linear tails on [-5, 5] by
-default."""
+default, each coupling's net conditioned on a context of
+``context_features`` columns where that is set."""
 
 from .bijectors import ActNorm, Chain, RQSCoupling
 from .realnvp import block_masks, make_linear_transform, make_pre_transform
@@ -24,6 +25,7 @@ def build_nsf_bijector(
     batch_norm_between_layers: bool = False,
     pre_transform=None,
     dropout_probability: float = 0.0,
+    context_features=None,
     generator=None,
     **kwargs,
 ):
@@ -43,6 +45,7 @@ def build_nsf_bijector(
                 net=net,
                 activation=activation,
                 dropout_probability=dropout_probability,
+                context_features=context_features,
                 generator=generator,
             )
         )

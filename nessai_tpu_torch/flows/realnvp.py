@@ -1,5 +1,7 @@
 """RealNVP builder. Counterpart of ``nessai_tpu/flows/realnvp.py``:
-(Logit →) ``n_blocks`` × [linear transform → AffineCoupling → ActNorm]."""
+(Logit →) ``n_blocks`` × [linear transform → AffineCoupling → ActNorm],
+each coupling's net conditioned on a context of ``context_features``
+columns where that is set."""
 
 import numpy as np
 
@@ -71,6 +73,7 @@ def build_realnvp_bijector(
     volume_preserving: bool = False,
     pre_transform=None,
     dropout_probability: float = 0.0,
+    context_features=None,
     generator=None,
     **kwargs,
 ):
@@ -88,6 +91,7 @@ def build_realnvp_bijector(
                 activation=activation,
                 volume_preserving=volume_preserving,
                 dropout_probability=dropout_probability,
+                context_features=context_features,
                 generator=generator,
             )
         )

@@ -1,8 +1,10 @@
 """Flow construction. Counterpart of ``nessai_tpu/flows/utils.py``
-(``get_n_neurons``, the builder registry, the base distributions by
-name, ``create_linear_transform``, ``create_pre_transform``,
-``configure_model``, ``reset_weights``, ``reset_permutations``) for the RealNVP, neural-spline
-and masked autoregressive families."""
+(``get_n_neurons``, the builder registry with ``register_flow``, the base
+distributions by name, ``create_linear_transform``,
+``create_pre_transform``, ``configure_model``, ``reset_weights``,
+``reset_permutations``) for the RealNVP, neural-spline and masked
+autoregressive families, conditional where ``context_features`` is set,
+and for flows that users register or pass as the ``flow`` key."""
 
 import copy
 
@@ -18,6 +20,9 @@ from .realnvp import build_realnvp_bijector, make_linear_transform
 __all__ = [
     "get_n_neurons",
     "get_flow_builder",
+    "get_native_flow_class",
+    "get_flow_class",
+    "register_flow",
     "get_base_distribution",
     "create_linear_transform",
     "create_pre_transform",
@@ -53,6 +58,7 @@ _BUILDER_KEYS = (
     "volume_preserving",
     "activation",
     "dropout_probability",
+    "context_features",
 )
 
 
@@ -77,6 +83,28 @@ def get_flow_builder(ftype: str):
     if name not in _BUILDERS:
         raise ValueError(f"Unknown flow: {name}. Known flows are: {sorted(_BUILDERS)}")
     return _BUILDERS[name]
+
+
+#: the JAX package's names of :func:`get_flow_builder`
+#: (``nessai_tpu/flows/utils.py:135-149``)
+get_native_flow_class = get_flow_builder
+get_flow_class = get_flow_builder
+
+
+def register_flow(name: str, builder) -> None:
+    """Register a flow architecture under an ``ftype`` name
+    (``nessai_tpu/flows/utils.py:152-165``).
+
+    ``builder(dim, n_blocks=..., n_neurons=..., n_layers=...,
+    generator=..., **kwargs)`` returns a bijector module (``forward(x,
+    context=None)`` and ``inverse(z, context=None)``, each giving
+    ``(output, log_det)``), which is combined with the configured base
+    distribution, or a whole :class:`~nessai_tpu_torch.flows.base.Flow`.
+    ``generator`` is the ``torch.Generator`` of the flow's seed; the
+    builder may draw its initial weights from it."""
+    if not callable(builder):
+        raise TypeError("builder must be callable")
+    _BUILDERS[name.lower()] = builder
 
 
 def create_linear_transform(linear_transform, features: int, generator=None) -> list:
@@ -129,28 +157,32 @@ def _make_base_distribution(name, dim: int, kwargs, generator=None):
 
 def configure_model(config: dict) -> Flow:
     """Build a :class:`Flow` from a flow config dict (keys ``n_inputs,
-    n_blocks, n_layers, n_neurons, ftype, distribution,
-    distribution_kwargs, kwargs, seed`` and the builder keys). Weights
-    and permutations are drawn from a ``torch.Generator`` seeded with
-    ``config['seed']`` (default 0), the bijectors' first and then the
-    base distribution's. The flow is returned in evaluation mode (no
-    dropout)."""
+    n_blocks, n_layers, n_neurons, ftype, flow, distribution,
+    distribution_kwargs, kwargs, seed`` and the builder keys, among them
+    ``context_features``: the width of the context that the couplings'
+    nets take). A callable ``flow`` is the builder and overrides
+    ``ftype`` (see :func:`register_flow`); it may return a whole
+    :class:`Flow`. Weights and permutations are drawn from a
+    ``torch.Generator`` seeded with ``config['seed']`` (default 0), the
+    bijectors' first and then the base distribution's. The flow is
+    returned in evaluation mode (no dropout)."""
     config = copy.deepcopy(config)
     dim = config.get("n_inputs")
     if not isinstance(dim, int):
         raise TypeError(f"Number of inputs (n_inputs) must be an int, got: {dim}")
-    builder = get_flow_builder(config.get("ftype") or "realnvp")
+    builder = config.get("flow")
+    if builder is None:
+        if "ftype" in config and config["ftype"] is None:
+            raise RuntimeError("Must specify either 'flow' or 'ftype'.")
+        builder = get_flow_builder(config.get("ftype") or "realnvp")
+    elif not callable(builder):
+        raise TypeError(f"'flow' must be callable, got {type(builder)}")
     extra = dict(config.get("kwargs") or {})
-    if config.get("context_features") or extra.get("context_features"):
-        raise NotImplementedError(
-            "context_features: no sampler passes a context, and the port's conditioners "
-            "take none yet (ROADMAP §1 item 2, the rest)"
-        )
     for k in _BUILDER_KEYS:
         if k in config:
             extra[k] = config[k]
     generator = torch.Generator().manual_seed(int(config.get("seed", 0)))
-    bijector = builder(
+    built = builder(
         dim,
         n_blocks=config.get("n_blocks", 4),
         n_neurons=get_n_neurons(config.get("n_neurons"), n_inputs=dim),
@@ -158,10 +190,12 @@ def configure_model(config: dict) -> Flow:
         generator=generator,
         **extra,
     )
+    if isinstance(built, Flow):
+        return built.eval()
     base = _make_base_distribution(
         config.get("distribution"), dim, config.get("distribution_kwargs"), generator
     )
-    return Flow(bijector, base, dim).eval()
+    return Flow(built, base, dim).eval()
 
 
 @torch.no_grad()

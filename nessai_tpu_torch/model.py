@@ -33,8 +33,8 @@ from .utils.multiprocessing import (
     batch_evaluate_function,
     check_vectorised_function,
     get_n_pool,
+    forking_pool,
     initialise_pool_variables,
-    initialise_pool_worker,
     log_likelihood_wrapper,
     log_prior_wrapper,
 )
@@ -330,16 +330,10 @@ class Model(ABC):
             if n is not None:
                 self.n_pool = n
         elif n_pool is not None:
-            import multiprocessing
-
             # forked workers share the model through a module global,
             # as in the JAX package, and run only host code
             initialise_pool_variables(self)
-            self.pool = multiprocessing.get_context("fork").Pool(
-                processes=n_pool,
-                initializer=initialise_pool_worker,
-                initargs=(self,),
-            )
+            self.pool = forking_pool(self, n_pool)
         self._pool_configured = self.pool is not None
 
     def close_pool(self, code=None) -> None:

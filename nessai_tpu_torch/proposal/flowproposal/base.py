@@ -2,7 +2,8 @@
 ``nessai_tpu/proposal/flowproposal/base.py``: owns the FlowModel and the
 reparameterisation stack (built from the user's spec), rescales between
 x and x' (on the prior's unit hypercube with ``map_to_unit_hypercube``),
-trains the flow and keeps the pool with an adaptive pool size."""
+trains the flow, passes points through it (``forward_pass``,
+``backward_pass``) and keeps the pool with an adaptive pool size."""
 
 import inspect
 import logging
@@ -168,15 +169,20 @@ class BaseFlowProposal(RejectionProposal):
         flow_config = dict(self.flow_config)
         flow_config["n_inputs"] = self.prime_dims
         flow_config = self.update_flow_config(flow_config)
-        self.flow = FlowModel(
+        self.flow = self.make_flow_model(flow_config)
+        self.flow.initialise()
+        self.initialised = True
+
+    def make_flow_model(self, flow_config: dict) -> FlowModel:
+        """The proposal's flow model on :attr:`device` (subclass hook: the
+        clustering proposal's is conditional)."""
+        return FlowModel(
             flow_config=flow_config,
             training_config=self.training_config,
             output=self.output,
             rng=self.rng,
             device=self.device,
         )
-        self.flow.initialise()
-        self.initialised = True
 
     def update_flow_config(self, flow_config: dict) -> dict:
         """Hook for subclasses to adjust the flow config (the augmented
@@ -393,10 +399,10 @@ class BaseFlowProposal(RejectionProposal):
         self._reparameterisation.update(x)
         x_prime, _ = self.rescale(x)
         x_prime = live_points_to_array(x_prime, self.prime_parameters)
-        history = self.flow.train(x_prime, save=self.save_flow_weights)
+        history, conditional = self._train_flow(x_prime)
         self.training_latent = self.training_log_q = None
         if self.requires_training_latent:
-            self.training_latent, self.training_log_q = self.flow.forward_and_log_prob(x_prime)
+            self.training_latent, self.training_log_q = self.flow.forward_and_log_prob(x_prime, conditional)
         if self._plot_training and plot and history["loss"]:
             try:
                 from ...plot import plot_loss
@@ -414,6 +420,66 @@ class BaseFlowProposal(RejectionProposal):
     #: whether :meth:`train` keeps the training data's forward images
     #: (a subclass whose truncation reads them says so)
     requires_training_latent = False
+
+    def _train_flow(self, x_prime):
+        """Train the flow on its columns ``x_prime``; returns the history
+        and the training points' conditional (None: the flow takes no
+        context)."""
+        return self.flow.train(x_prime, save=self.save_flow_weights), None
+
+    # ------------------------------------------------------------------
+    # Flow passes (``nessai_tpu/proposal/flowproposal/base.py:785-835``)
+    # ------------------------------------------------------------------
+    def forward_pass(self, x, rescale: bool = True, compute_radius: bool = False):
+        """x -> (z, log q(x)): through the reparameterisations (with
+        ``rescale``; else ``x`` holds the flow's columns) and the flow."""
+        log_j = 0.0
+        if rescale:
+            x_prime, log_j = self.rescale(x, compute_radius=compute_radius)
+            x_array = live_points_to_array(x_prime, self.prime_parameters)
+        else:
+            x_array = live_points_to_array(x, self.parameters)
+        z, log_q = self.flow.forward_and_log_prob(x_array)
+        return z, log_q + log_j
+
+    def backward_pass(
+        self,
+        z,
+        rescale: bool = True,
+        discard_nans: bool = True,
+        return_z: bool = False,
+        return_unit_hypercube: Optional[bool] = None,
+    ):
+        """z -> (x, log q(x)): the flow's inverse (at the latent
+        temperature, where the proposal has one) and the inverse
+        reparameterisations, keeping the points inside the prior bounds
+        (and, with ``discard_nans``, of finite log q). ``rescale`` is
+        taken as in the JAX package and the reparameterisations are
+        always inverted. With ``map_to_unit_hypercube`` the points stay
+        in the unit hypercube unless ``return_unit_hypercube`` is False.
+        ``return_z`` also returns the kept latent points."""
+        x_prime_array, log_q = self.flow.inverse_and_log_prob(
+            z, temperature=getattr(self, "latent_temperature", None)
+        )
+        x_prime = np.zeros(len(x_prime_array), dtype=self.x_prime_dtype)
+        for i, p in enumerate(self.prime_parameters):
+            x_prime[p] = x_prime_array[:, i]
+        x, log_j_inv = self.inverse_rescale(x_prime, return_unit_hypercube=True)
+        return self._keep_in_bounds(x, log_q - log_j_inv, z, discard_nans, return_z, return_unit_hypercube)
+
+    def _keep_in_bounds(self, x, log_q, z, discard_nans=True, return_z=False, return_unit_hypercube=None):
+        """The tail of :meth:`backward_pass`: the points inside the prior
+        bounds (the unit hypercube with ``map_to_unit_hypercube``) and,
+        with ``discard_nans``, of finite ``log_q``."""
+        keep = self.model.in_unit_hypercube(x) if self.map_to_unit_hypercube else self.model.in_bounds(x)
+        if discard_nans:
+            keep = keep & np.isfinite(log_q)
+        x, log_q, z = x[keep], log_q[keep], np.asarray(z)[keep]
+        if return_unit_hypercube is False and self.map_to_unit_hypercube:
+            x = self.model.from_unit_hypercube(x)
+        if return_z:
+            return x, log_q, z
+        return x, log_q
 
     def plot_pool(self, x) -> None:
         """Plot the pool's 1-D distributions to ``pool_<n>.png`` (logged

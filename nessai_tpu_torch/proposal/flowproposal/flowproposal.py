@@ -25,7 +25,13 @@ log-density, the inverse reparameterisation (each stack member's
 ``torch_inverse``), the prior-bounds check and, where the populate fuses
 it, the model's ``torch_log_likelihood``. The rules then cut the draws
 after the inverse and after the likelihood, and rejection sampling
-against the prior runs on the host.
+against the prior runs on the host. A proposal without a device
+inverse (``uses_device_inverse`` False: the clustering proposal, whose
+inverse is conditioned on sampled labels) passes each round through its
+:meth:`backward_pass` instead and evaluates the likelihood on the pool
+alone, as the JAX package's rounds do where it builds no device inverse
+(``nessai_tpu/proposal/flowproposal/flowproposal.py:1113-1114``); it never
+takes the device populate loop.
 """
 
 import datetime
@@ -87,6 +93,11 @@ class FlowProposal(BaseFlowProposal):
 
     #: cap on the acceptance-adaptive latent draw scale
     _max_draw_scale: float = 32.0
+    #: whether the populate inverts the flow and the reparameterisations
+    #: in one device call (:meth:`_fused_backward`), and may take the
+    #: device populate loop; else each round goes through
+    #: :meth:`backward_pass`
+    uses_device_inverse: bool = True
 
     def __init__(
         self,
@@ -361,15 +372,8 @@ class FlowProposal(BaseFlowProposal):
 
     def _flow_inverse(self, zt):
         """z -> (x', log q(x')) on the device, with the tempered latent
-        density ``base(z / sqrt(T)) - (d / 2) log T`` where
-        ``latent_temperature`` T is not 1."""
-        flow = self.flow.flow
-        if self.latent_temperature == 1.0:
-            return flow.inverse_and_log_prob(zt)
-        sqrt_t = float(np.sqrt(self.latent_temperature))
-        x_prime, log_j = flow.inverse(zt)
-        log_q = flow.base_log_prob(zt / sqrt_t) - zt.shape[-1] * float(np.log(sqrt_t))
-        return x_prime, log_q - log_j
+        density where ``latent_temperature`` is not 1."""
+        return self.flow.tempered_inverse(zt, self.latent_temperature)
 
     @torch.no_grad()
     def _fused_backward(self, z, with_likelihood: bool = True):
@@ -441,7 +445,7 @@ class FlowProposal(BaseFlowProposal):
         device (a ``torch_log_prior`` or a uniform box) with the
         auxiliary parameters' priors on the device too; one device."""
         reparam = self._reparameterisation
-        if self.flow is None or reparam is None:
+        if self.flow is None or reparam is None or not self.uses_device_inverse:
             return False
         if self.map_to_unit_hypercube or not self._can_fuse_populate or not reparam.has_torch_inverse:
             return False
@@ -739,7 +743,7 @@ class FlowProposal(BaseFlowProposal):
         n_proposed = 0
         n_accepted = 0
         accept = None
-        with_ll = self._resolve_fuse_likelihood()
+        with_ll = self.uses_device_inverse and self._resolve_fuse_likelihood()
         ll_in_pool = with_ll or scheme.requires_log_likelihood
         while n_accepted < n_samples:
             z = self.sample_latent_distribution(self._draw_n)
@@ -750,20 +754,24 @@ class FlowProposal(BaseFlowProposal):
                     logger.warning("Reached max samples (%s)", self.max_samples)
                     break
                 continue
-            st_lik = datetime.datetime.now()
-            x_arr, log_q, log_l, in_b = self._fused_backward(z, with_likelihood=with_ll)
-            ll_in_pool = log_l is not None or scheme.requires_log_likelihood
-            if log_l is not None:
-                self.model.likelihood_evaluation_time += datetime.datetime.now() - st_lik
-                self.model.likelihood_evaluations += len(z)
-            keep = in_b & np.isfinite(log_q)
-            x = empty_structured_array(int(keep.sum()), dtype=self.x_dtype)
-            for i, name in enumerate(self.parameters):
-                x[name] = x_arr[keep, i]
-            if log_l is not None:
-                x["logL"] = log_l[keep]
-            log_q = log_q[keep]
-            z = z[keep]
+            if self.uses_device_inverse:
+                st_lik = datetime.datetime.now()
+                x_arr, log_q, log_l, in_b = self._fused_backward(z, with_likelihood=with_ll)
+                ll_in_pool = log_l is not None or scheme.requires_log_likelihood
+                if log_l is not None:
+                    self.model.likelihood_evaluation_time += datetime.datetime.now() - st_lik
+                    self.model.likelihood_evaluations += len(z)
+                keep = in_b & np.isfinite(log_q)
+                x = empty_structured_array(int(keep.sum()), dtype=self.x_dtype)
+                for i, name in enumerate(self.parameters):
+                    x[name] = x_arr[keep, i]
+                if log_l is not None:
+                    x["logL"] = log_l[keep]
+                log_q = log_q[keep]
+                z = z[keep]
+            else:
+                x, log_q, z = self.backward_pass(z, return_z=True)
+                log_l = None
             x, log_q, z = scheme.apply_after_backward(self, x, log_q, z)
             if not len(x):
                 if n_proposed > self.max_samples:

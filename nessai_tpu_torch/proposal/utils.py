@@ -18,15 +18,9 @@ __all__ = [
 #: name that both hold
 PROPOSAL_ENTRY_POINT_GROUPS = ("nessai.proposals", "nessai_tpu_torch.proposals")
 
-#: the JAX package's proposals of ``experimental/`` (ROADMAP §1 item 9),
-#: with their own keyword arguments, which other classes tolerate
-NOT_PORTED = {
-    "mcmcflowproposal": (),
-    "clusteringflowproposal": ("max_clusters", "max_n_clusters"),
-}
-
 
 def _known_classes() -> dict:
+    from ..experimental.proposal import ClusteringFlowProposal, MCMCFlowProposal
     from .augmented import AugmentedFlowProposal
     from .flowproposal import FlowProposal
 
@@ -35,7 +29,18 @@ def _known_classes() -> dict:
         "flowproposal": FlowProposal,
         "defaultflowproposal": FlowProposal,
         "augmentedflowproposal": AugmentedFlowProposal,
+        "mcmcflowproposal": MCMCFlowProposal,
+        "clusteringflowproposal": ClusteringFlowProposal,
     }
+
+
+def _tolerated_classes() -> list:
+    """The classes whose keyword arguments another class drops with a
+    warning, as the JAX package lists them
+    (``nessai_tpu/proposal/utils.py:176-184``): the MCMC proposal's are
+    not among them."""
+    classes = _known_classes()
+    return [classes["flowproposal"], classes["augmentedflowproposal"], classes["clusteringflowproposal"]]
 
 
 def available_base_flow_proposal_classes() -> dict:
@@ -78,11 +83,6 @@ def get_flow_proposal_class(proposal_class):
         classes = _known_classes()
         if name in classes:
             return classes[name]
-        if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"{proposal_class} (the JAX package's experimental/) is not in the PyTorch port yet "
-                "(ROADMAP §1 item 9)"
-            )
         try:
             eps = _external_proposal_entry_points()
             if name in eps:
@@ -110,8 +110,8 @@ def _accepted_kwargs(ProposalClass) -> set:
 def check_proposal_kwargs(ProposalClass, kwargs, strict: bool = False) -> dict:
     """The ``kwargs`` that ``ProposalClass`` takes. The others: left-out
     defaults (None, {} or []) are dropped; with ``strict`` any other
-    raises; a keyword of another proposal class is dropped with a
-    warning; an unknown keyword raises."""
+    raises; a keyword of another of :func:`_tolerated_classes` is dropped
+    with a warning; an unknown keyword raises."""
     accepted = _accepted_kwargs(ProposalClass)
     out = {k: v for k, v in kwargs.items() if k in accepted}
     real = {
@@ -120,8 +120,8 @@ def check_proposal_kwargs(ProposalClass, kwargs, strict: bool = False) -> dict:
     if real:
         if strict:
             raise RuntimeError(f"Keyword arguments contain unknown keys: {set(real)}")
-        allowed_extra = {k for names in NOT_PORTED.values() for k in names}
-        for other in set(_known_classes().values()) - {ProposalClass}:
+        allowed_extra = set()
+        for other in set(_tolerated_classes()) - {ProposalClass}:
             allowed_extra |= _accepted_kwargs(other)
         invalid = set(real) - allowed_extra
         if invalid:

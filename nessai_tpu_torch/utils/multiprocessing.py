@@ -22,6 +22,7 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "initialise_pool_variables",
     "initialise_pool_worker",
+    "forking_pool",
     "get_n_pool",
     "check_multiprocessing_start_method",
     "log_likelihood_wrapper",
@@ -54,10 +55,31 @@ def initialise_pool_worker(model) -> None:
     parent's Python handlers; the sampler's would run in the worker on
     the pool's terminate (SIGTERM), write a checkpoint of the run as it
     was at the fork over the parent's, and exit holding whatever lock the
-    fork copied, so that the parent waits for it for ever."""
+    fork copied, so that the parent waits for it for ever. The worker
+    starts with these signals blocked (:func:`forking_pool`) and unblocks
+    them once its dispositions are set."""
     initialise_pool_variables(model)
     for signum, disposition in WORKER_SIGNALS.items():
         signal.signal(signum, disposition)
+    signal.pthread_sigmask(signal.SIG_UNBLOCK, WORKER_SIGNALS)
+
+
+def forking_pool(model, n_pool: int):
+    """A ``multiprocessing.Pool`` of ``n_pool`` forked workers sharing
+    ``model`` (:func:`initialise_pool_worker`). The signals of
+    :data:`WORKER_SIGNALS` are blocked while the pool and its threads are
+    made, so that every worker, forked then or later by the pool's
+    threads, holds a signal sent before its initializer ran (a terminate
+    of a pool whose workers are still starting) until its dispositions
+    are set: it then ends, where with the parent's handler it would run
+    that handler, live on and keep the pool's join waiting."""
+    blocked = signal.pthread_sigmask(signal.SIG_BLOCK, WORKER_SIGNALS)
+    try:
+        return multiprocessing.get_context("fork").Pool(
+            processes=n_pool, initializer=initialise_pool_worker, initargs=(model,)
+        )
+    finally:
+        signal.pthread_sigmask(signal.SIG_SETMASK, blocked)
 
 
 def check_multiprocessing_start_method() -> None:

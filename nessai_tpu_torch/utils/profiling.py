@@ -6,17 +6,19 @@ the launch overhead; the profiler's kernel records give the time the
 GPU spent. Run as a script on a GPU machine to trace the flagship runs::
 
     python -m nessai_tpu_torch.utils.profiling [realnvp] [nsf] [ins] [ins_mixture] \
-        [reparam_inversion] [reparam_angle] [ins_hypercube] [lu] [eggbox] [augmented]
+        [reparam_inversion] [reparam_angle] [ins_hypercube] [lu] [eggbox] [augmented] \
+        [mcmc] [clustering]
 
-It profiles the named runs, by default all ten: the RealNVP flagship,
+It profiles the named runs, by default all twelve: the RealNVP flagship,
 the neural-spline flagship, the importance nested sampler's flagship,
 its Gaussian-mixture configuration (with the final redraw), the
 half-Gaussian and angle examples through the reparameterisations, the
 importance nested sampler with its neural spline flow on the unit
 hypercube (``tails=None``, the Rosenbrock likelihood in 4 dimensions;
 its trace holds the GPU alone), the documented RealNVP with LU
-linear layers, and the egg-box and augmented-proposal examples (their
-traces hold the GPU alone). Each runs
+linear layers, the egg-box and augmented-proposal examples and the MCMC
+example (their traces hold the GPU alone), and the RealNVP flagship with
+the clustering flow proposal. Each runs
 three times in one process: a first run (which also pays for the CUDA
 context, the kernel build or load and the library handles), a run
 without tracing and a run under the profiler (the mixture's traces the
@@ -56,6 +58,8 @@ __all__ = [
     "FLAGSHIP_LU",
     "FLAGSHIP_EGGBOX",
     "FLAGSHIP_AUGMENTED",
+    "FLAGSHIP_MCMC",
+    "FLAGSHIP_CLUSTERING",
     "OWN_KERNELS",
     "populate_counters",
     "gpu_kernel_events",
@@ -222,6 +226,27 @@ FLAGSHIP_AUGMENTED = dict(
     flow_class="augmentedflowproposal",
     augment_dims=2,
 )
+
+#: ``examples/mcmc_example.py`` as written, on
+#: ``utils.testing.GaussianModel`` (host likelihood and prior): seed 1234,
+#: the MCMC flow proposal with 20 differential-evolution steps a populate,
+#: the standard sampler's defaults otherwise (nlive 2000, a RealNVP of
+#: 4 × [Permutation, AffineCoupling (resnet, 2 layers of 4 neurons),
+#: ActNorm], 500 epochs at most, patience 20).
+FLAGSHIP_MCMC = dict(
+    seed=1234,
+    resume=False,
+    plot=False,
+    checkpointing=False,
+    flow_class="mcmcflowproposal",
+    n_steps=20,
+    step_type="diff",
+)
+
+#: The RealNVP flagship with the clustering flow proposal at the JAX
+#: package's default of 8 clusters: every coupling's net takes the
+#: one-hot cluster label as its context.
+FLAGSHIP_CLUSTERING = dict(FLAGSHIP, flow_class="clusteringflowproposal", max_clusters=8)
 
 
 def gpu_kernel_events(prof):
@@ -421,7 +446,7 @@ def profile_flagship(
 
 
 def _main(names) -> None:
-    """Profile the named runs (all ten by default) and print one JSON
+    """Profile the named runs (all twelve by default) and print one JSON
     object for each."""
     from ..ops.coupling import affine_coupling
     from ..ops.rqs import rqs
@@ -430,6 +455,7 @@ def _main(names) -> None:
         BimodalGaussianModel,
         EggboxModel,
         GaussianMixture,
+        GaussianModel,
         HalfGaussianModel,
         RosenbrockModel,
     )
@@ -455,6 +481,8 @@ def _main(names) -> None:
         "lu": (dict(config=FLAGSHIP_LU), k1),
         "eggbox": (dict(config=FLAGSHIP_EGGBOX, model=EggboxModel, trace_cpu=False), k1),
         "augmented": (dict(config=FLAGSHIP_AUGMENTED, model=BimodalGaussianModel, trace_cpu=False), k1),
+        "mcmc": (dict(config=FLAGSHIP_MCMC, model=GaussianModel, trace_cpu=False), k1),
+        "clustering": (dict(config=FLAGSHIP_CLUSTERING), k1),
     }
     for name in names or runs:
         kwargs, (wrapper, prefix) = runs[name]

@@ -21,6 +21,7 @@ __all__ = [
     "EggboxModel",
     "eggbox_log_evidence",
     "BimodalGaussianModel",
+    "GaussianModel",
     "REPARAMETERISATION_CASES",
     "reparameterisation_case",
     "NS_SCAN_REGIMES",
@@ -189,6 +190,32 @@ class HalfGaussianModel(_UniformBoxModel):
     @property
     def analytic_log_evidence(self) -> float:
         return -np.log(200.0)
+
+
+class GaussianModel(Model):
+    """The model of ``examples/mcmc_example.py`` as written: a 2-D unit
+    normal likelihood (scipy, on the host) in x and y with a uniform prior
+    on [-10, 10]^2 (numpy, on the host), and no device functions.
+
+    Analytic log-evidence: ``-log 400``.
+    """
+
+    def __init__(self):
+        self.names = ["x", "y"]
+        self.bounds = {"x": [-10, 10], "y": [-10, 10]}
+
+    def log_prior(self, x):
+        log_p = np.log(self.in_bounds(x), dtype="float")
+        for n in self.names:
+            log_p -= np.log(np.ptp(self.bounds[n]))
+        return log_p
+
+    def log_likelihood(self, x):
+        return norm.logpdf(x["x"]) + norm.logpdf(x["y"])
+
+    @property
+    def analytic_log_evidence(self) -> float:
+        return -np.log(400.0)
 
 
 def eggbox_log_evidence(n: int = 4001, block: int = 1000) -> float:

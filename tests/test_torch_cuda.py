@@ -821,3 +821,74 @@ def test_device_stepping_on_the_card_matches_the_host_pass(cuda, tmp_path):
     assert launches > 0 and getattr(dev, "_n_device_steps", 0) > 0
     assert dev.iteration == host.iteration and dev.state.logZ == host.state.logZ
     assert dev.insertion_indices == host.insertion_indices
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["affine", "rqs"])
+@pytest.mark.parametrize("mask", [(1, 0), (0, 1, 1)])
+def test_conditioned_coupling_gpu_matches_cpu(cuda, kind, mask):
+    """A coupling whose net takes ``[x_id, context]`` (a one-hot of 8
+    labels): one K1 or K2 launch each way and one backward launch, and
+    its outputs and gradients on the GPU against the same weights on the
+    CPU (float32 for K1's plain version, float64 for the spline's)."""
+    import copy
+
+    from nessai_tpu_torch.flows import bijectors
+    from nessai_tpu_torch.ops import coupling, rqs
+
+    cls = bijectors.AffineCoupling if kind == "affine" else bijectors.RQSCoupling
+    cpu = cls(list(mask), n_neurons=8, context_features=8)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.1 * torch.randn_like(p))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    dtype = torch.float32 if kind == "affine" else torch.float64
+    cpu.to(dtype)
+    x = torch.randn(900, len(mask))
+    context = torch.eye(8)[torch.randint(0, 8, (900,))]
+    counter = coupling.affine_coupling if kind == "affine" else rqs
+    counter.launches = counter.backward_launches = 0
+    z, ld = gpu(x.to(cuda), context.to(cuda))
+    (z.square().sum() + ld.sum()).backward()
+    with torch.no_grad():
+        back, _ = gpu.inverse(z, context.to(cuda))
+    z_ref, ld_ref = cpu(x.to(dtype), context.to(dtype))
+    (z_ref.square().sum() + ld_ref.sum()).backward()
+    torch.cuda.synchronize()
+    assert counter.launches == 2 and counter.backward_launches == 1
+    torch.testing.assert_close(z.cpu().to(dtype), z_ref.detach(), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(ld.cpu().to(dtype), ld_ref.detach(), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(back.cpu(), x, atol=1e-5, rtol=1e-5)
+    for p_gpu, p_cpu in zip(gpu.parameters(), cpu.parameters()):
+        torch.testing.assert_close(p_gpu.grad.cpu().to(dtype), p_cpu.grad, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_clustering_flow_model_on_the_gpu(cuda, tmp_path):
+    """k-means on the GPU gives the CPU's labels on separated blobs from
+    the same generator, and the marginal log-density over the labels (one
+    batched flow call) matches the CPU's."""
+    import numpy as np
+
+    from nessai_tpu_torch.experimental.flowmodel import ClusteringFlowModel, kmeans
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3000, 2)) + np.array([[5.0, 5.0], [-5.0, -5.0], [5.0, -5.0]])[np.arange(3000) % 3]
+    _, labels_gpu = kmeans(x, 3, rng=np.random.default_rng(1), device=cuda)
+    _, labels_cpu = kmeans(x, 3, rng=np.random.default_rng(1), device="cpu")
+    assert np.array_equal(labels_gpu, labels_cpu)
+    models = []
+    for device in (cuda, "cpu"):
+        fm = ClusteringFlowModel(dict(n_inputs=2, n_blocks=4, n_neurons=8), output=str(tmp_path),
+                                 rng=np.random.default_rng(2), device=device)
+        fm.initialise()
+        models.append(fm)
+    state = {k: v + 0.05 * torch.randn(v.shape) if v.is_floating_point() else v
+             for k, v in models[1].flow.state_dict().items()}
+    for fm in models:
+        fm.flow.load_state_dict(state)
+        fm.train_clustering(x)
+    assert models[0].n_clusters == models[1].n_clusters == 3
+    z = rng.normal(size=(4096, 2))
+    np.testing.assert_allclose(models[0].log_prob_marginalised(z), models[1].log_prob_marginalised(z),
+                               atol=1e-4, rtol=1e-5)

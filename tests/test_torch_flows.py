@@ -252,8 +252,14 @@ def test_unknown_flow_options_raise():
         configure_model(dict(n_inputs=2, ftype="nsf", pre_transform="tanh"))
     with pytest.raises(ValueError, match="Unknown distribution"):
         configure_model(dict(n_inputs=2, distribution="cauchy"))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 2"):
-        configure_model(dict(n_inputs=2, context_features=3))
+    # a context no longer raises: the couplings' nets take [x_id, context]
+    flow = configure_model(dict(n_inputs=2, context_features=3))
+    assert flow.bijector.bijectors[1].net.initial.in_features == 1 + 3
+    context = torch.eye(3)[torch.tensor([0, 2, 1, 0])]
+    z, log_j = flow(torch.as_tensor(_x(4, 2)), context)
+    x, log_j_inv = flow.inverse(z, context)
+    _close(x, torch.as_tensor(_x(4, 2)))
+    _close(log_j, -log_j_inv)
 
 
 def test_realnvp_options_match_jax_layout():

@@ -273,3 +273,46 @@ def test_import_walk_reaches_the_device_stepping(module):
 
     names = {m.name for m in pkgutil.walk_packages(nessai_tpu_torch.__path__, "nessai_tpu_torch.")}
     assert f"nessai_tpu_torch.{module}" in names
+
+
+@pytest.mark.parametrize(
+    "module",
+    [
+        "experimental",
+        "experimental.flows",
+        "experimental.flowmodel.clustering",
+        "experimental.proposal.clustering",
+        "experimental.proposal.mcmc.proposal",
+        "experimental.proposal.mcmc.steps",
+        "experimental.proposal.mcmc.utils",
+    ],
+)
+def test_import_walk_reaches_the_experimental_package(module):
+    """The walk of ``test_import_every_module_without_jax`` imports the
+    experimental proposals, their flow model and the external-flow
+    adapters too: none of them imports JAX or the JAX package."""
+    import pkgutil
+
+    import nessai_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(nessai_tpu_torch.__path__, "nessai_tpu_torch.")}
+    assert f"nessai_tpu_torch.{module}" in names
+
+
+@pytest.mark.parametrize("entry", ["mcmc", "clustering", "clustering_flowmodel", "kmeans"])
+def test_experimental_entry_points_without_gpu_raise(entry, tmp_path, monkeypatch):
+    """The experimental entry points run on the GPU by default: without
+    one they raise, and with ``device="cpu"`` they build."""
+    from nessai_tpu_torch.experimental.flowmodel import ClusteringFlowModel, kmeans
+    from nessai_tpu_torch.experimental.proposal import ClusteringFlowProposal, MCMCFlowProposal
+
+    build = {
+        "mcmc": lambda **kw: MCMCFlowProposal(_model(), output=str(tmp_path), **kw),
+        "clustering": lambda **kw: ClusteringFlowProposal(_model(), output=str(tmp_path), **kw),
+        "clustering_flowmodel": lambda **kw: ClusteringFlowModel(dict(n_inputs=2), output=str(tmp_path), **kw),
+        "kmeans": lambda **kw: kmeans(np.random.default_rng(0).normal(size=(20, 2)), 2, **kw),
+    }[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="GPU"):
+        build()
+    assert build(device="cpu") is not None

@@ -10,6 +10,7 @@ import pickle
 import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -95,6 +96,54 @@ def test_workers_do_not_run_the_parents_signal_handlers(tmp_path):
             signal.signal(s, h)
     assert dispositions == [signal.SIG_DFL, signal.SIG_DFL, signal.SIG_IGN]
     assert not marker.exists()
+
+
+def test_a_terminate_while_the_workers_start_ends_them(tmp_path, monkeypatch):
+    """A worker forked with the signals of ``WORKER_SIGNALS`` blocked
+    holds a SIGTERM sent while it is still in its initializer (a worker
+    forked from a large process can start after the pool's first tasks
+    are done) until its dispositions are set, and then ends: the parent's
+    handler never runs in it, and terminating the pool does not wait for
+    it for ever."""
+    from nessai_tpu_torch.utils import multiprocessing as pool_utils
+
+    marker = tmp_path / "handled"
+    masks = tmp_path / "masks"
+    real = pool_utils.initialise_pool_variables
+
+    def slow_start(model):
+        with open(masks, "a") as f:
+            f.write(" ".join(str(int(s)) for s in signal.pthread_sigmask(signal.SIG_BLOCK, [])) + "\n")
+        time.sleep(1.0)
+        real(model)
+
+    def handler(signum, frame):
+        marker.write_text(f"{signum} {os.getpid()}")
+
+    monkeypatch.setattr(pool_utils, "initialise_pool_variables", slow_start)
+    previous = signal.signal(signal.SIGTERM, handler)
+    try:
+        model = _host_model()
+        model.configure_pool(n_pool=2)
+        workers = list(model.pool._pool)
+        # in a thread: a worker that outlives the terminate keeps the join
+        # waiting, and an alarm may land on another of this process's threads
+        closer = threading.Thread(target=model.close_pool, kwargs=dict(code=2), daemon=True)
+        closer.start()
+        closer.join(30)
+        stuck = closer.is_alive()
+        for worker in workers:
+            worker.kill()
+        closer.join(30)
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    assert not stuck, "terminating the pool waited for a worker that ran the parent's handler"
+    assert not marker.exists()
+    blocked = [set(map(int, line.split())) for line in masks.read_text().splitlines()]
+    assert len(blocked) == 2
+    assert all({int(s) for s in pool_utils.WORKER_SIGNALS} <= b for b in blocked)
+    # the parent's own mask is as it was
+    assert not set(pool_utils.WORKER_SIGNALS) & signal.pthread_sigmask(signal.SIG_BLOCK, [])
 
 
 def test_model_pickle_drops_the_pool():

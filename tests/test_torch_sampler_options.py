@@ -230,9 +230,37 @@ def test_flow_proposal_options_match_jax(tmp_path, caplog):
 
 
 @pytest.mark.parametrize("name", ["mcmcflowproposal", "clusteringflowproposal"])
-def test_experimental_proposals_name_their_item(tmp_path, name):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 9"):
-        NestedSampler(IntegrationTestModel(2), nlive=50, output=str(tmp_path), device="cpu", flow_class=name)
+def test_experimental_proposals_name_their_item(tmp_path, name, caplog):
+    """The experimental proposals resolve by name, as in the JAX package,
+    take their own keywords, and train and populate on the CPU. The MCMC
+    proposal drops the clustering proposal's keyword with the warning;
+    the clustering proposal refuses the MCMC proposal's, whose keywords
+    no other class tolerates (in both packages)."""
+    common = dict(nlive=50, output=str(tmp_path), flow_class=name, flow_config=dict(n_blocks=2, n_neurons=4),
+                  training_config=dict(max_epochs=5))
+    if name == "mcmcflowproposal":
+        common.update(n_steps=3, max_clusters=3)
+    else:
+        common.update(max_clusters=3)
+        for cls, model, extra in ((JaxNestedSampler, JaxModel, {}), (NestedSampler, IntegrationTestModel,
+                                                                     dict(device="cpu"))):
+            with pytest.raises(RuntimeError, match="Unknown kwargs for ClusteringFlowProposal"):
+                cls(model(2), n_steps=3, **common, **extra)
+    model = IntegrationTestModel(2)
+    with caplog.at_level(logging.WARNING):
+        ns = NestedSampler(model, device="cpu", **common)
+    assert ("Removing unused keyword arguments ({'max_clusters'})" in caplog.text) == (name == "mcmcflowproposal")
+    jns = JaxNestedSampler(JaxModel(2), **common)
+    assert type(ns.flow_proposal).__name__ == type(jns.flow_proposal).__name__
+    assert type(ns.flow_proposal).__name__.lower() == name
+    proposal = ns.flow_proposal
+    proposal.initialise()
+    x = model.new_point(100)
+    x["logL"] = model.batch_evaluate_log_likelihood(x)
+    proposal.train(x, plot=False)
+    proposal.populate(x[np.argsort(x["logL"])[10]], n_samples=50)
+    assert len(proposal.samples) > 0 and model.in_bounds(proposal.samples).all()
+    assert np.isfinite(proposal.samples["logL"]).all()
 
 
 def test_only_the_bookkeeping_options_stay_fixed(tmp_path):
