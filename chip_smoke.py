@@ -16,7 +16,10 @@ unfused path of gathers, copies and the bare kernel, and timed against
 it); the rational-quadratic spline
 kernels (K2: forward, inverse and the backward of the forward, with
 linear tails up to 40 bins and with ``tails=None`` on the unit box)
-against theirs; the nested-sampling consume/insert scan kernel
+against theirs, and K2's backward of the inverse direction against
+autograd of the plain inverse (``k2_inverse_backward_vs_plain``), then
+reached through the public flow API by a reverse-KL training of the NSF
+flagship's flow (``nsf_inverse_training``); the nested-sampling consume/insert scan kernel
 (``csrc/ns_scan.cu``) against its plain version and the host pass's
 ordering, bit for bit, on every memory path (registers, shared memory, ids
 or all in global scratch)
@@ -37,7 +40,12 @@ chained onto both (K1 or K2 counted inside the loop), the flagship again
 with each bookkeeping flag off and the same bits (``flagship_device_loop``,
 ``flagship_nsf_device_loop``), and on the rounds populate
 (``flagship_rounds``, with ``flagship_fuse_likelihood_false`` held to its
-bits); the importance nested sampler's flagship (``FlowSampler(..., importance_nested_sampler=True,
+bits); the device mesh: one data-parallel step of the RealNVP and NSF
+flagships' flows on a virtual mesh of two replicas on ``cuda:0`` and on
+``get_mesh()`` against the single-device step (``mesh_dp_step``), the
+RealNVP flagship on the virtual mesh (``flagship_mesh``: the rounds
+populate cut over the mesh, data-parallel training) and the importance
+nested sampler's flagship on it (``flagship_ins_mesh``); the importance nested sampler's flagship (``FlowSampler(..., importance_nested_sampler=True,
 device="cuda")``), its Gaussian-mixture configuration with the final
 redraw (``flagship_ins_mixture``) and capped runs of its flagship with
 the weighted flow training and the bootstrap, and with replace_all and
@@ -190,6 +198,51 @@ K2_SHAPES_MORE = [
 ]
 #: shape of the kernels-line numbers: an NSF flagship training step
 K2_MAIN_SHAPE = (900, 1, 8)
+#: K2's backward of the inverse direction, against autograd of the plain
+#: version's inverse (inputs from a generator of its own, so the rows
+#: above keep theirs): the NSF flagship's batch with linear tails, the
+#: unit-hypercube run's training batch with tails=None, linear tails at
+#: 24, 32 and 40 bins (one warp an element, then chunks of 32 bins) and a
+#: level's draws of 10,000 rows with tails=None; the first row is the
+#: kernels line's. Held to the forward-direction backward's float64
+#: tolerance (K2_F64_ATOL + K2_F64_RTOL against the float64 plain
+#: version); the distance from the float32 plain version is printed.
+K2_INVERSE_BACKWARD_SHAPES = [
+    (900, 1, 8, "linear"),
+    (1000, 2, 8, None),
+    (2048, 2, 24, "linear"),
+    (2048, 2, 32, "linear"),
+    (2048, 2, 40, "linear"),
+    (10000, 2, 8, None),
+]
+#: the flows' inverse under autograd through the public flow API: Adam
+#: steps of the reverse KL divergence of the NSF flagship's flow from a
+#: Gaussian, each through K2's inverse and its inverse backward
+NSF_INVERSE_TRAINING_STEPS = 20
+NSF_INVERSE_TRAINING_ROWS = 1000
+#: the data-parallel step against the single-device step, one Adam step
+#: (lr 1e-3) on a batch of the flagship's 900 rows: the loss to a
+#: relative 1e-5, the primary's summed gradient of each parameter tensor
+#: to 1e-5 of that tensor's largest single-device gradient (Adam's first
+#: step moves a parameter by about lr * sign(g), so the parameters alone
+#: would show the gradient's signs, not its size) and every parameter to
+#: 1e-6 (a thousandth of the step); the shards' sums and the replicas'
+#: summed gradients round otherwise than one pass over the batch (2e-7
+#: and 7e-8 at most on the CPU)
+MESH_DP_ROWS = 900
+MESH_DP_LOSS_RTOL, MESH_DP_GRAD_RTOL, MESH_DP_PARAM_ATOL = 1e-5, 1e-5, 1e-6
+#: the virtual mesh of the card: two replicas on one GPU
+VIRTUAL_MESH_DEVICES = ("cuda:0", "cuda:0")
+#: Depth cuts for the script's time limit (1200 s): with the mesh phases
+#: the whole script took 1164.0 s of phases on a slow host (868.7-893.0 s
+#: before them on a faster one), so the two largest runs are cut where the
+#: cut costs no gate, their training set (and so the batches an epoch) being
+#: what their time scales with: the unit-hypercube example at 4000 live
+#: points (10,000 as written) and the Gaussian mixture at 1000 live
+#: points, an ESS of 1500 and a redraw to 1000 (2000, 3000 and 2000 as
+#: written); each keeps its |pull| < 3 and its other gates.
+HYPERCUBE_SMOKE_NLIVE = 4000
+MIXTURE_SMOKE = dict(nlive=1000, ess=1500, n_posterior_samples=1000)
 #: and of the tails=None variant's: a training step of the unit-hypercube run
 K2_UNIT_MAIN_SHAPE = (1000, 2, 8)
 TAIL_BOUND = 5.0
@@ -797,6 +850,146 @@ def phase_k2():
         shapes=rows,
     )
     return max_err, main
+
+
+def phase_k2_inverse_backward():
+    """K2's backward of the inverse direction against autograd of the
+    plain version's inverse, on the card, at ``K2_INVERSE_BACKWARD_SHAPES``:
+    every gradient (in y and the three parameter sets, for a random linear
+    loss of both outputs) to the float64 plain version (its distance from
+    the float32 plain version, as a share of that version's largest
+    gradient, is printed beside the float32 version's own distance from
+    float64), one launch a backward; its time
+    (200 calls), its bound and the plain graph's time at every row."""
+    from nessai_tpu_torch.ops.rqs import _launch_backward, rqs, rqs_plain
+    from nessai_tpu_torch.utils.profiling import device_time_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(20261018)
+    rows = []
+    max_err = {"linear": 0.0, None: 0.0}
+    for n, d, K, tails in K2_INVERSE_BACKWARD_SHAPES:
+        row_start = time.perf_counter()
+        x, w, h, dd = _k2_inputs(gen, n, d, K, tails)
+        w_x = torch.randn(n, d, device="cuda", generator=gen)
+        w_ld = torch.randn(n, d, device="cuda", generator=gen)
+        grads, graphs = {}, {}
+        before = rqs.inverse_backward_launches
+        for name, f, dtype in (
+            ("kernel", rqs, torch.float32),
+            ("plain64", rqs_plain, torch.float64),
+            ("plain32", rqs_plain, torch.float32),
+        ):
+            args = [a.detach().to(dtype).requires_grad_(True) for a in (x, w, h, dd)]
+            out, ld = f(*args, True, TAIL_BOUND, tails)
+            cot = (w_x.to(dtype), w_ld.to(dtype))
+            grads[name] = torch.autograd.grad((out, ld), args, cot, retain_graph=True)
+            graphs[name] = (out, ld, args, cot)
+        torch.cuda.synchronize()
+        launches = rqs.inverse_backward_launches - before
+        if launches != 1:
+            raise RuntimeError(f"a gradient through rqs(..., inverse=True) launched the inverse backward {launches} times")
+        share = share_32 = 0.0
+        for g_k, g_64, g_32 in zip(grads["kernel"], grads["plain64"], grads["plain32"]):
+            torch.testing.assert_close(g_k.double(), g_64, atol=K2_F64_ATOL, rtol=K2_F64_RTOL)
+            if g_32.numel():
+                scale = max(g_32.abs().max().item(), 1e-30)
+                share = max(share, _max_err(g_k, g_32) / scale)
+                share_32 = max(share_32, _max_err(g_32, g_64) / scale)
+        err = max(_max_err(a, b) for a, b in zip(grads["kernel"], grads["plain64"]))
+        max_err[tails] = max(max_err[tails], err)
+        out, ld, args, cot = graphs["plain32"]
+        kernel = functools.partial(_launch_backward, x, w, h, dd, w_x, w_ld, TAIL_BOUND, tails, True)
+        plain = functools.partial(torch.autograd.grad, (out, ld), args, cot, retain_graph=True)
+        ms, _, timer = device_time_ms(kernel)
+        plain_ms, plain_kernels, plain_timer = device_time_ms(plain, calls=K2_PLAIN_PROFILE_CALLS)
+        bound, bound_by = k2_bound_ms(x, K, backward=True, tails=tails)
+        rows.append(
+            {
+                "n": n,
+                "d": d,
+                "K": K,
+                "tails": tails,
+                "launches_per_call": launches,
+                "max_abs_err": err,
+                "max_share_of_largest_float32_plain_gradient": share,
+                "float32_plain_share_from_float64": share_32,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "timer": timer,
+                "plain_timer": plain_timer,
+                "plain_kernels_per_call": plain_kernels,
+                "bound_ms": bound,
+                "bound_by": bound_by,
+                "seconds": time.perf_counter() - row_start,
+            }
+        )
+        del graphs, grads
+    emit(
+        "k2_inverse_backward_vs_plain",
+        tolerance={
+            "vs_float64_plain_atol": K2_F64_ATOL,
+            "vs_float64_plain_rtol": K2_F64_RTOL,
+        },
+        timing=(
+            "ms, plain_ms: GPU time per call from torch.profiler over 200 kernel calls and "
+            f"{K2_PLAIN_PROFILE_CALLS} plain calls (autograd of the float32 plain inverse's graph), or "
+            f"{EVENT_FALLBACK} (timer, plain_timer); bound_ms by k2_bound_ms's rule for the backward"
+        ),
+        shapes=rows,
+    )
+    return max_err, rows[0]
+
+
+def phase_nsf_inverse_training():
+    """The flows' inverse under autograd through the public flow API, the
+    path that reaches K2's inverse backward: ``NSF_INVERSE_TRAINING_STEPS``
+    Adam steps of the reverse KL divergence of the NSF flagship's flow
+    (``Flow.sample_and_log_prob``) from N((1, -1), 4 I), with every count
+    set to 0 just before and read just after. Fails unless every step
+    launched the inverse backward once a coupling and the divergence
+    fell."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_NSF
+
+    counters = _k1_counters()
+    flow = _flagship_flow("cuda", FLAGSHIP_NSF, seed=3)
+    n_couplings = sum(type(b).__name__ == "RQSCoupling" for b in flow.bijector.bijectors)
+    optimiser = torch.optim.Adam(flow.parameters(), lr=1e-2)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mu = torch.tensor([1.0, -1.0], device="cuda")
+    losses = []
+    for wrapper, attr in counters.values():
+        setattr(wrapper, attr, 0)
+    start = time.perf_counter()
+    for _ in range(NSF_INVERSE_TRAINING_STEPS):
+        optimiser.zero_grad(set_to_none=True)
+        x, log_q = flow.sample_and_log_prob(NSF_INVERSE_TRAINING_ROWS, gen)
+        log_p = -0.5 * (((x - mu) / 2.0) ** 2).sum(dim=1) - 2 * math.log(2.0) - math.log(2 * math.pi)
+        loss = (log_q - log_p).mean()
+        loss.backward()
+        optimiser.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = {key: int(getattr(w, a)) for key, (w, a) in counters.items()}
+    losses = torch.stack(losses).tolist()
+    result = dict(
+        steps=NSF_INVERSE_TRAINING_STEPS,
+        rows=NSF_INVERSE_TRAINING_ROWS,
+        couplings=n_couplings,
+        first_losses=losses[:3],
+        last_losses=losses[-3:],
+        wall_s=wall,
+        **launches,
+    )
+    emit("nsf_inverse_training", **result)
+    if launches["rqs_inverse_backward_launches"] != NSF_INVERSE_TRAINING_STEPS * n_couplings:
+        raise RuntimeError(
+            f"{NSF_INVERSE_TRAINING_STEPS} steps through {n_couplings} couplings launched the inverse backward "
+            f"{launches['rqs_inverse_backward_launches']} times"
+        )
+    if not all(math.isfinite(v) for v in losses) or not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise RuntimeError(f"the reverse KL did not fall: {losses}")
+    return result
 
 
 #: the row of the kernels line (the flagship's live set and pool,
@@ -1438,13 +1631,16 @@ def _k1_counters():
 
 def _rqs_unit_counters():
     """The counts of K2's tails=None variant (forward and inverse, the
-    inverse among them, backward)."""
+    inverse among them, backward) and of its backward of the inverse
+    direction (all tails, then tails=None)."""
     from nessai_tpu_torch.ops import rqs
 
     return {
         "rqs_unit_launches": (rqs, "unit_launches"),
         "rqs_unit_inverse_launches": (rqs, "unit_inverse_launches"),
         "rqs_unit_backward_launches": (rqs, "unit_backward_launches"),
+        "rqs_inverse_backward_launches": (rqs, "inverse_backward_launches"),
+        "rqs_unit_inverse_backward_launches": (rqs, "unit_inverse_backward_launches"),
     }
 
 
@@ -1493,9 +1689,9 @@ def phase_flagship_lu():
 
 def phase_flagship_ins_hypercube():
     """``FLAGSHIP_INS_HYPERCUBE``, the example
-    ``examples/importance_nested_sampler/nsf_unit_hypercube.py`` as
-    written (nlive 10,000, the 4-D Rosenbrock likelihood, a neural spline
-    flow with tails=None on a uniform base), in full. Fails unless
+    ``examples/importance_nested_sampler/nsf_unit_hypercube.py`` (the 4-D
+    Rosenbrock likelihood, a neural spline flow with tails=None on a
+    uniform base) in full at ``HYPERCUBE_SMOKE_NLIVE`` live points. Fails unless
     |pull| < 3 against the quadrature's log-evidence with the sampler's
     own error, the samples lie in [-5, 5]^4, and K2's tails=None variant
     launched forward, inverse and backward."""
@@ -1504,12 +1700,14 @@ def phase_flagship_ins_hypercube():
 
     # the transfer-matrix quadrature: -15.1016907 at 4001, 8001 and 16001 points
     analytic = rosenbrock_log_evidence(4, n=8001)
-    fs, model, samples, wall, launches = _drive(FLAGSHIP_INS_HYPERCUBE, _k1_counters(), model=RosenbrockModel(4))
+    config = dict(FLAGSHIP_INS_HYPERCUBE, nlive=HYPERCUBE_SMOKE_NLIVE)
+    fs, model, samples, wall, launches = _drive(config, _k1_counters(), model=RosenbrockModel(4))
     ns = fs.ns
     err = float(fs.logZ_error)
     pull = (fs.logZ - analytic) / err
     times = phase_times(fs)
     result = dict(
+        nlive=HYPERCUBE_SMOKE_NLIVE,
         levels=times.pop("levels"),
         logZ=fs.logZ,
         logZ_err=err,
@@ -1590,6 +1788,235 @@ def phase_flagship_ins():
     return result
 
 
+def _virtual_mesh():
+    from nessai_tpu_torch.parallel import get_mesh
+
+    return get_mesh(devices=list(VIRTUAL_MESH_DEVICES))
+
+
+def _dp_step_case(config, mesh, kernel, seed):
+    """One data-parallel Adam step of ``config``'s flow on ``mesh``
+    against one single-device step of the same flow on the same batch of
+    ``MESH_DP_ROWS`` rows; ``kernel`` is the count (``k1`` or ``rqs``) that
+    must be the replicas' number times the single-device count."""
+    import copy
+
+    from nessai_tpu_torch.parallel import make_dp_train_step
+
+    counters = _k1_counters()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    single = _flagship_flow("cuda", config, seed=seed)
+    with torch.no_grad():
+        # weights off the identity, as in a trained flow
+        for p in single.parameters():
+            p.add_(0.05 * torch.randn(p.shape, device="cuda", generator=gen))
+    dp = copy.deepcopy(single)
+    x = torch.randn(MESH_DP_ROWS, 2, device="cuda", generator=gen)
+    opt_single = torch.optim.Adam(single.parameters(), lr=1e-3)
+    opt_dp = torch.optim.Adam(dp.parameters(), lr=1e-3)
+    step = make_dp_train_step(dp, opt_dp, mesh)
+
+    def counted(fn):
+        for wrapper, attr in counters.values():
+            setattr(wrapper, attr, 0)
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - start, {k: int(getattr(w, a)) for k, (w, a) in counters.items()}
+
+    def single_step():
+        opt_single.zero_grad(set_to_none=True)
+        loss = -single.log_prob(x).mean()
+        loss.backward()
+        opt_single.step()
+        return loss.detach()
+
+    loss_single, single_s, launches_single = counted(single_step)
+    loss_dp, dp_s, launches_dp = counted(lambda: step(x))
+    param_err = max((a - b).abs().max().item() for a, b in zip(single.parameters(), dp.parameters(), strict=True))
+    # the optimiser step leaves the summed gradient in the primary's .grad
+    grad_share = max(
+        (a.grad - b.grad).abs().max().item() / max(a.grad.abs().max().item(), 1e-30)
+        for a, b in zip(single.parameters(), dp.parameters(), strict=True)
+        if a.grad is not None
+    )
+    replica_err = max(
+        (
+            (a - b.to(a.device)).abs().max().item()
+            for replica in step.replicas[1:]
+            for a, b in zip(dp.parameters(), replica.parameters(), strict=True)
+        ),
+        default=0.0,
+    )
+    result = dict(
+        replicas=mesh.size,
+        devices=[str(d) for d in mesh.devices],
+        loss_single=float(loss_single),
+        loss_dp=float(loss_dp),
+        max_param_err=param_err,
+        max_grad_err_share=grad_share,
+        max_replica_err=replica_err,
+        single_step_s=single_s,
+        dp_step_s=dp_s,
+        launches_single={k: launches_single[k] for k in (f"{kernel}_launches", f"{kernel}_backward_launches")},
+        launches_dp={k: launches_dp[k] for k in (f"{kernel}_launches", f"{kernel}_backward_launches")},
+    )
+    if not abs(result["loss_dp"] - result["loss_single"]) <= MESH_DP_LOSS_RTOL * abs(result["loss_single"]):
+        raise RuntimeError(f"data-parallel loss {result['loss_dp']} against {result['loss_single']}")
+    if not grad_share <= MESH_DP_GRAD_RTOL:
+        raise RuntimeError(f"data-parallel gradient {grad_share} of the largest single-device gradient away")
+    if not param_err <= MESH_DP_PARAM_ATOL or replica_err != 0.0:
+        raise RuntimeError(f"data-parallel step: parameters {param_err} from the single step, replicas {replica_err}")
+    for key, count in result["launches_single"].items():
+        if not count or result["launches_dp"][key] != mesh.size * count:
+            raise RuntimeError(f"{key}: {result['launches_dp'][key]} on {mesh.size} replicas, {count} on one device")
+    return result
+
+
+def phase_mesh_dp_step():
+    """``make_dp_train_step`` on the virtual mesh (two replicas on
+    ``cuda:0``) and on ``get_mesh()`` (every GPU), for the RealNVP and the
+    NSF flagship's flows: the loss, the summed gradient and every
+    parameter after one Adam step against the single-device step
+    (``MESH_DP_LOSS_RTOL``, ``MESH_DP_GRAD_RTOL``,
+    ``MESH_DP_PARAM_ATOL``), the replicas equal to the primary after it,
+    and K1 (K2) launched the replicas' number times the single-device
+    count."""
+    from nessai_tpu_torch.parallel import get_mesh
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP, FLAGSHIP_NSF
+
+    cases = {}
+    for mesh_name, mesh in (("virtual", _virtual_mesh()), ("get_mesh", get_mesh())):
+        for flow_name, config, kernel in (("realnvp", FLAGSHIP, "k1"), ("nsf", FLAGSHIP_NSF, "rqs")):
+            cases[f"{flow_name}_{mesh_name}"] = _dp_step_case(config, mesh, kernel, seed=len(cases) + 1)
+    tolerance = {"loss_rtol": MESH_DP_LOSS_RTOL, "grad_rtol_of_max": MESH_DP_GRAD_RTOL, "param_atol": MESH_DP_PARAM_ATOL}
+    emit("mesh_dp_step", tolerance=tolerance,
+         rows=MESH_DP_ROWS, **cases)
+    return cases
+
+
+class _CountTrainingSteps:
+    """Counts ``FlowModel._train_step`` calls while it is entered, and
+    those taken on a mesh."""
+
+    def __enter__(self):
+        from nessai_tpu_torch.flowmodel.base import FlowModel
+
+        self.steps = self.mesh_steps = 0
+        self._original = FlowModel._train_step
+        counter = self
+
+        def counted(model, *args, **kwargs):
+            counter.steps += 1
+            counter.mesh_steps += model.mesh is not None
+            return counter._original(model, *args, **kwargs)
+
+        FlowModel._train_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        from nessai_tpu_torch.flowmodel.base import FlowModel
+
+        FlowModel._train_step = self._original
+
+
+def phase_flagship_mesh(flagship):
+    """``FLAGSHIP`` with ``mesh`` the virtual mesh: the device populate
+    loop is off (the rounds populate, its device call cut over the
+    mesh) and every training step is data-parallel. Fails unless the run
+    made no device-loop call, every training step was on the mesh with K1
+    backward launched once a coupling on each replica, and on a pull of 3
+    sigma. Prints its wall, training share, populates and trainings beside
+    the single-device flagship's."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP
+
+    mesh = _virtual_mesh()
+    with _CountTrainingSteps() as steps:
+        result, nested, fs = _flagship_run(dict(FLAGSHIP, mesh=mesh), _k1_counters())
+    flow = fs.ns.flow_proposal.flow
+    couplings = sum(type(b).__name__ == "AffineCoupling" for b in flow.flow.bijector.bijectors)
+    result.update(
+        replicas=mesh.size,
+        devices=[str(d) for d in mesh.devices],
+        training_steps=steps.steps,
+        mesh_training_steps=steps.mesh_steps,
+        couplings=couplings,
+        training_share=result["training_time_s"] / result["wall_s"],
+        can_device_loop=bool(fs.ns.flow_proposal._can_device_loop),
+        single_device={k: flagship[k] for k in ("logZ", "pull", "wall_s", "training_time_s", "populates",
+                                                 "trainings", "population_time_s", "k1_launches",
+                                                 "k1_backward_launches")},
+    )
+    result["single_device"]["training_share"] = flagship["training_time_s"] / flagship["wall_s"]
+    emit("flagship_mesh", **result)
+    if result["device_loop_calls"] or result["can_device_loop"]:
+        raise RuntimeError(f"the mesh run called the device populate loop {result['device_loop_calls']} times")
+    if not steps.steps or steps.mesh_steps != steps.steps:
+        raise RuntimeError(f"{steps.mesh_steps} of {steps.steps} training steps were on the mesh")
+    if result["k1_backward_launches"] != mesh.size * couplings * steps.steps:
+        raise RuntimeError(
+            f"K1 backward launched {result['k1_backward_launches']} times in {steps.steps} steps of "
+            f"{couplings} couplings on {mesh.size} replicas"
+        )
+    _check_run(result, nested, fs)
+    return result
+
+
+def phase_flagship_ins_mesh(flagship_ins):
+    """``FLAGSHIP_INS`` with ``mesh`` the virtual mesh: every level trains
+    data-parallel and ``log_prob_all`` cuts its rows over the mesh. Fails
+    on a pull of 3 sigma, unless every ``log_prob_all`` call and every
+    training step was on the mesh."""
+    from nessai_tpu_torch.flowmodel.importance import ImportanceFlowModel
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP_INS, phase_times
+
+    mesh = _virtual_mesh()
+    calls = {"log_prob_all": 0, "sharded": 0}
+    original = ImportanceFlowModel.log_prob_all
+
+    def counted(model, x):
+        calls["log_prob_all"] += 1
+        calls["sharded"] += model.mesh is not None and model.n_models > 0
+        return original(model, x)
+
+    ImportanceFlowModel.log_prob_all = counted
+    try:
+        with _CountTrainingSteps() as steps:
+            fs, model, samples, wall, launches = _drive(dict(FLAGSHIP_INS, mesh=mesh), _k1_counters())
+    finally:
+        ImportanceFlowModel.log_prob_all = original
+    ns = fs.ns
+    analytic = float(model.analytic_log_evidence)
+    err = float(fs.logZ_error)
+    pull = (fs.logZ - analytic) / err
+    times = phase_times(fs)
+    result = dict(
+        logZ=fs.logZ,
+        logZ_err=err,
+        analytic=analytic,
+        pull=pull,
+        replicas=mesh.size,
+        iterations=int(ns.iteration),
+        samples=int(len(samples)),
+        wall_s=wall,
+        **times,
+        training_share=times["training_time_s"] / wall,
+        training_steps=steps.steps,
+        mesh_training_steps=steps.mesh_steps,
+        log_prob_all_calls=calls["log_prob_all"],
+        log_prob_all_sharded=calls["sharded"],
+        **launches,
+        single_device={k: flagship_ins[k] for k in ("logZ", "pull", "wall_s", "training_time_s", "levels",
+                                                     "log_prob_all_time_s", "k1_launches")},
+    )
+    emit("flagship_ins_mesh", **result)
+    if not math.isfinite(pull) or abs(pull) >= PULL_LIMIT:
+        raise RuntimeError(f"INS logZ pull {pull} on the mesh is not within {PULL_LIMIT} sigma")
+    if not calls["sharded"] or steps.mesh_steps != steps.steps or not steps.steps:
+        raise RuntimeError(f"on the mesh: log_prob_all {calls}, training steps {steps.mesh_steps} of {steps.steps}")
+    return result
+
+
 def _in_bounds(samples, model):
     return bool(
         len(samples)
@@ -1614,19 +2041,24 @@ class _Messages(logging.Handler):
 
 def phase_flagship_ins_mixture():
     """The Gaussian-mixture configuration of the importance nested sampler
-    (``FLAGSHIP_INS_MIXTURE``: nlive 2000, ratio and ESS criteria, then
-    the final redraw to a posterior ESS of 2000) in full on the GPU."""
+    (``FLAGSHIP_INS_MIXTURE``: the ratio and ESS criteria, then the final
+    redraw) in full on the GPU, at ``MIXTURE_SMOKE``'s live points, ESS
+    and redraw ESS (the example's 2000, 3000 and 2000 cut for the
+    script's time)."""
     from nessai_tpu_torch.utils.profiling import FLAGSHIP_INS_MIXTURE, FLAGSHIP_INS_MIXTURE_RUN, phase_times
     from nessai_tpu_torch.utils.stats import effective_sample_size
     from nessai_tpu_torch.utils.testing import GaussianMixture
 
-    n_post = FLAGSHIP_INS_MIXTURE_RUN["n_posterior_samples"]
+    run_kwargs = dict(FLAGSHIP_INS_MIXTURE_RUN, n_posterior_samples=MIXTURE_SMOKE["n_posterior_samples"])
+    n_post = run_kwargs["n_posterior_samples"]
     sampler_log = logging.getLogger("nessai_tpu_torch.samplers.importancesampler")
     messages = _Messages()
     sampler_log.addHandler(messages)
     try:
+        config = dict(FLAGSHIP_INS_MIXTURE, nlive=MIXTURE_SMOKE["nlive"],
+                      tolerance=[FLAGSHIP_INS_MIXTURE["tolerance"][0], MIXTURE_SMOKE["ess"]])
         fs, model, samples, wall, launches = _drive(
-            FLAGSHIP_INS_MIXTURE, _k1_counters(), model=GaussianMixture(2), run_kwargs=FLAGSHIP_INS_MIXTURE_RUN
+            config, _k1_counters(), model=GaussianMixture(2), run_kwargs=run_kwargs
         )
     finally:
         sampler_log.removeHandler(messages)
@@ -1636,6 +2068,7 @@ def phase_flagship_ins_mixture():
     redraw_ess = float(effective_sample_size(ns.final_log_w))
     times = phase_times(fs)
     result = dict(
+        **MIXTURE_SMOKE,
         levels=times.pop("levels"),
         samples=int(len(samples)),
         sampler_logZ=fs.initial_logZ,
@@ -2701,6 +3134,9 @@ def main():
         max_err = timed(seconds, "k1_vs_plain", phase_k1)
         max_err_layer, main_layer = timed(seconds, "k1_layer_vs_plain", phase_k1_layer)
         max_err_k2, main_k2 = timed(seconds, "k2_vs_plain", phase_k2)
+        max_err_k2_inverse, main_k2_inverse = timed(seconds, "k2_inverse_backward_vs_plain",
+                                                    phase_k2_inverse_backward)
+        nsf_inverse = timed(seconds, "nsf_inverse_training", phase_nsf_inverse_training)
         main_scan = timed(seconds, "ns_scan_vs_plain", phase_ns_scan)
         timed(seconds, "flow_realnvp", phase_flow, FLAGSHIP, "realnvp", scale=0.05)
         # the reference in float64: the plain spline in float32 strays
@@ -2717,12 +3153,15 @@ def main():
               reference_dtype=torch.float64, context_features=CONTEXT_FEATURES)
         timed(seconds, "ins_flow", phase_ins_flow)
         timed(seconds, "reparam_inverse", phase_reparam_inverse)
+        timed(seconds, "mesh_dp_step", phase_mesh_dp_step)
         flagship = timed(seconds, "flagship", phase_flagship)
+        flagship_mesh = timed(seconds, "flagship_mesh", phase_flagship_mesh, flagship)
         bookkeeping = timed(seconds, "flagship_device_loop", phase_flagship_device_loop, flagship)
         flagship_nsf = timed(seconds, "flagship_nsf", phase_flagship_nsf)
         rounds = timed(seconds, "flagship_rounds", phase_flagship_rounds)
         split = timed(seconds, "flagship_fuse_likelihood_false", phase_flagship_fuse_likelihood_false, rounds)
         flagship_ins = timed(seconds, "flagship_ins", phase_flagship_ins)
+        flagship_ins_mesh = timed(seconds, "flagship_ins_mesh", phase_flagship_ins_mesh, flagship_ins)
         mixture = timed(seconds, "flagship_ins_mixture", phase_flagship_ins_mixture)
         options = timed(seconds, "ins_options", phase_ins_options)
         inversion = timed(seconds, "flagship_reparam_inversion", phase_flagship_reparam_inversion)
@@ -2744,11 +3183,13 @@ def main():
     kernels = []
     runs = {
         "flagship": flagship,
+        "flagship_mesh": flagship_mesh,
         **{f"flagship_{name}": r for name, r in bookkeeping.items()},
         "flagship_nsf": flagship_nsf,
         "flagship_rounds": rounds,
         "flagship_fuse_likelihood_false": split,
         "flagship_ins": flagship_ins,
+        "flagship_ins_mesh": flagship_ins_mesh,
         "flagship_ins_mixture": mixture,
         **options,
         "flagship_reparam_inversion": inversion,
@@ -2765,6 +3206,7 @@ def main():
         # the resumed processes' runs
         "resume_standard": resumed["resume_standard"],
         "resume_ins": resumed["resume_ins"],
+        "nsf_inverse_training": nsf_inverse,
     }
     for name, replaces, key in (
         ("affine_coupling", "nessai_tpu/ops/coupling_pallas.py:56", "k1_launches"),
@@ -2849,6 +3291,30 @@ def main():
                 "card": smi,
             }
         )
+    kernels.append(
+        {
+            "name": "rqs_inverse_backward",
+            "route": "cuda",
+            "source": "nessai_tpu_torch/csrc/rqs.cu",
+            # the JAX package's backward in the inverse direction: jax.vjp
+            # of the jnp reference with inverse=True
+            "replaces": "nessai_tpu/ops/rqs_pallas.py:228",
+            "variant": "the inverse direction (rqs_inverse_backward_launch); no sampler trains through it",
+            "launches": nsf_inverse["rqs_inverse_backward_launches"],
+            "launches_run": "nsf_inverse_training",
+            "launches_by_run": {run: r["rqs_inverse_backward_launches"] for run, r in runs.items()},
+            "max_abs_err": max(max_err_k2_inverse.values()),
+            "ms": main_k2_inverse["ms"],
+            "plain_ms": main_k2_inverse["plain_ms"],
+            "bound_ms": main_k2_inverse["bound_ms"],
+            "bound_by": main_k2_inverse["bound_by"],
+            "library_ms": None,
+            "timer": main_k2_inverse["timer"],
+            "plain_timer": main_k2_inverse["plain_timer"],
+            "shape": list(K2_INVERSE_BACKWARD_SHAPES[0][:3]),
+            "card": smi,
+        }
+    )
     kernels.append(
         {
             "name": "ns_scan",

@@ -1,7 +1,9 @@
 """Global configuration: live-point layout and numerical constants.
 
-Counterpart of ``nessai_tpu/config.py`` without the JAX compute knobs
-(the port always runs its kernels on CUDA tensors).
+Counterpart of ``nessai_tpu/config.py``. Of the JAX compute knobs only
+the names the port reads or that users set are kept: the data axis of a
+device mesh and the dtype name (the port always runs its kernels on
+CUDA tensors, in float32).
 """
 
 from dataclasses import dataclass, field
@@ -9,7 +11,7 @@ from typing import List
 
 import numpy as np
 
-__all__ = ["livepoints", "plotting", "general"]
+__all__ = ["livepoints", "plotting", "general", "compute"]
 
 
 @dataclass
@@ -81,6 +83,18 @@ class GeneralConfig:
     eps: float = 1e-8
 
 
+@dataclass
+class ComputeConfig:
+    """Compute settings (``nessai_tpu/config.py:156-177``)."""
+
+    #: the flows' dtype, a name kept as the JAX package keeps it: both
+    #: compute in float32
+    default_dtype: str = "float32"
+    #: the axis name of a :class:`~nessai_tpu_torch.parallel.Mesh`
+    data_axis: str = "data"
+
+
 livepoints = LivepointsConfig()
 plotting = PlottingConfig()
 general = GeneralConfig()
+compute = ComputeConfig()

@@ -1,12 +1,14 @@
 // Rational-quadratic spline for Hopper (sm_90a): the forward or inverse
-// transform, and the backward of the forward, with linear tails on
+// transform, and the backward of either direction, with linear tails on
 // [-B, B] or on the unit box [0, 1] (tails=None), for any number of bins.
 //
 // Replaces the Pallas TPU kernel nessai_tpu/ops/rqs_pallas.py (rqs_pallas,
 // pallas_call at line 180; the math is _spline_math_kt, lines 32-121).
 // The JAX package has no backward kernel: its rqs_pallas_vjp (lines
-// 207-244) differentiates the jnp reference. rqs_backward_launch below is
-// that gradient written out by hand. The unit box is the jnp spline of
+// 207-244) differentiates the jnp reference, in either direction
+// (_rqs_bwd, line 228). rqs_backward_launch below is that gradient of the
+// forward written out by hand, rqs_inverse_backward_launch that of the
+// inverse. The unit box is the jnp spline of
 // nessai_tpu/flows/rqs.py:28-158 with tails=None, which the JAX package
 // runs outside Pallas (flows/bijectors.py:318 takes Pallas for linear
 // tails only).
@@ -495,6 +497,67 @@ __device__ __forceinline__ BinGrad bin_backward(double xv, const Bin& b,
   return g;
 }
 
+// Gradient of an element's inverse transform, x = C_k + w theta with
+// theta the root of y = D_k + h nu(theta) / denom(theta) and the
+// log-derivative -(2 log s + log q(theta) - 2 log denom(theta)), given the
+// cotangents gx of x and gl of the log-derivative. theta is taken as the
+// forward's inverse computes it; its gradient is the implicit one, which
+// equals that of the quadratic's root wherever the root is simple, as it
+// is in a monotone bin (dy/dtheta = h s q / denom^2 > 0):
+//   lambda = (gx w - gl dlogd/dtheta) / (dy/dtheta)
+// is the gradient in y, and the parameters see -lambda as a cotangent of
+// the forward's y (through theta) beside the direct terms of x and of
+// the log-derivative at fixed theta: so bin_backward's coefficients with
+// gy -> -lambda and gl -> -gl, and x's own gx on C_k and gx theta on w.
+// Where the root was clamped to [0, 1] theta is a constant, as the clamp
+// makes it in the plain version: lambda = 0.
+__device__ __forceinline__ BinGrad bin_backward_inverse(double yv, const Bin& b,
+                                                        double gx, double gl, int K) {
+  const double s = b.h / b.w;
+  const double delta = b.dk + b.dk1 - 2.0 * s;
+  const double y_rel = yv - b.ch;
+  const double a = b.h * (s - b.dk) + y_rel * delta;
+  const double bq = b.h * b.dk - y_rel * delta;
+  const double c = -s * y_rel;
+  const double disc = fmax(bq * bq - 4.0 * a * c, 0.0);
+  const double raw_theta = (2.0 * c) / (-bq - sqrt(disc));
+  const bool in_range = raw_theta >= 0.0 && raw_theta <= 1.0;
+  const double t = fmin(fmax(raw_theta, 0.0), 1.0);
+  const double omt = 1.0 - t;
+  const double t1 = t * omt;
+  const double denom = s + delta * t1;
+  const double nu = s * (t * t) + b.dk * t1;
+  const double q = b.dk1 * (t * t) + 2.0 * s * t1 + b.dk * (omt * omt);
+  const double inv_den = 1.0 / denom;
+  const double ratio = nu * inv_den;
+  const double one_m_2t = 1.0 - 2.0 * t;
+  const double dlogd_dt = (2.0 * b.dk1 * t + 2.0 * s * one_m_2t - 2.0 * b.dk * omt) / q -
+                          2.0 * delta * one_m_2t * inv_den;
+  const double dy_dt = b.h * s * q * inv_den * inv_den;
+  const double lambda = in_range ? (gx * b.w - gl * dlogd_dt) / dy_dt : 0.0;
+  // the forward's coefficients for the cotangents (-lambda, -gl)
+  const double gyf = -lambda;
+  const double glf = -gl;
+  const double c_nu = gyf * b.h * inv_den;
+  const double c_den = -gyf * b.h * ratio * inv_den - 2.0 * glf * inv_den;
+  const double c_q = glf / q;
+  const double g_s = c_nu * (t * t) + c_den * (1.0 - 2.0 * t1) + c_q * 2.0 * t1 + 2.0 * glf / s;
+  BinGrad g;
+  g.dk = (c_nu + c_den) * t1 + c_q * (omt * omt);
+  g.dk1 = c_den * t1 + c_q * (t * t);
+  g.x = lambda;
+  // x = C_k + w theta, s = h / w
+  const double g_cw = gx;
+  const double g_w = -g_s * s / b.w + gx * t;
+  const double g_h = gyf * ratio + g_s / b.w;
+  const double g_ch = gyf;
+  g.a_w = b.k >= 1 ? g_cw - g_w : 0.0;
+  g.b_w = b.k + 1 <= K - 1 ? g_w : 0.0;
+  g.a_h = b.k >= 1 ? g_ch - g_h : 0.0;
+  g.b_h = b.k + 1 <= K - 1 ? g_h : 0.0;
+  return g;
+}
+
 // A raw width's (or raw height's) gradient for bin k with share p_k.
 // C_j = lo + sum_{i<j} W_i, W_i = (min + scale p_i) * S, p = softmax(u):
 // dW_i = a [i < bin] + b [i <= bin] and du_k = c p_k (dW_k - sum_i p_i
@@ -629,7 +692,10 @@ __global__ void __launch_bounds__(kThreads, kForwardBlocksPerSM)
   }
 }
 
-template <int G, bool kUnit>
+// The backward of the forward (kInverse false) or of the inverse (true):
+// the inverse finds the bin by the height knots and takes
+// bin_backward_inverse; the rest is shared.
+template <int G, bool kUnit, bool kInverse>
 __global__ void __launch_bounds__(kThreads) rqs_backward_kernel(
     const float* __restrict__ x, const float* __restrict__ u, int64_t su,
     const float* __restrict__ v, int64_t sv, const float* __restrict__ r,
@@ -660,9 +726,10 @@ __global__ void __launch_bounds__(kThreads) rqs_backward_kernel(
     const float* ri = r + row * sr;
     LaneShares own;
     WarpShares shares;
-    const Bin b = element_bin<G, kUnit, true>(xv, valid, ui, vi, ri, k, lane, p, false,
+    const Bin b = element_bin<G, kUnit, true>(xv, valid, ui, vi, ri, k, lane, p, kInverse,
                                               &own, &shares);
-    const BinGrad g = bin_backward(xv, b, gyv, glv, K);
+    const BinGrad g = kInverse ? bin_backward_inverse(xv, b, gyv, glv, K)
+                               : bin_backward(xv, b, gyv, glv, K);
     if (valid && k == 0)
       // outside the box: dx = gy, no parameter gradient
       gx[i] = inside ? static_cast<float>(g.x) : static_cast<float>(gyv);
@@ -773,13 +840,20 @@ const ForwardKernel kForward[2][2][5] = {
      {rqs_forward_kernel<2, true, true>, rqs_forward_kernel<4, true, true>,
       rqs_forward_kernel<8, true, true>, rqs_forward_kernel<16, true, true>,
       rqs_forward_kernel<32, true, true>}}};
-const BackwardKernel kBackward[2][5] = {
-    {rqs_backward_kernel<2, false>, rqs_backward_kernel<4, false>,
-     rqs_backward_kernel<8, false>, rqs_backward_kernel<16, false>,
-     rqs_backward_kernel<32, false>},
-    {rqs_backward_kernel<2, true>, rqs_backward_kernel<4, true>,
-     rqs_backward_kernel<8, true>, rqs_backward_kernel<16, true>,
-     rqs_backward_kernel<32, true>}};
+// indexed by [inverse][tails][lane_shift - 1]
+const BackwardKernel kBackward[2][2][5] = {
+    {{rqs_backward_kernel<2, false, false>, rqs_backward_kernel<4, false, false>,
+      rqs_backward_kernel<8, false, false>, rqs_backward_kernel<16, false, false>,
+      rqs_backward_kernel<32, false, false>},
+     {rqs_backward_kernel<2, true, false>, rqs_backward_kernel<4, true, false>,
+      rqs_backward_kernel<8, true, false>, rqs_backward_kernel<16, true, false>,
+      rqs_backward_kernel<32, true, false>}},
+    {{rqs_backward_kernel<2, false, true>, rqs_backward_kernel<4, false, true>,
+      rqs_backward_kernel<8, false, true>, rqs_backward_kernel<16, false, true>,
+      rqs_backward_kernel<32, false, true>},
+     {rqs_backward_kernel<2, true, true>, rqs_backward_kernel<4, true, true>,
+      rqs_backward_kernel<8, true, true>, rqs_backward_kernel<16, true, true>,
+      rqs_backward_kernel<32, true, true>}}};
 
 // The lane shift of K bins with these tails.
 int shift_for(int K, int tails) { return lane_shift(tails ? K + 1 : K); }
@@ -820,6 +894,34 @@ extern "C" int rqs_forward_launch(const void* x, const void* u, int64_t su,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+// Either backward of m elements (see the launches below).
+int launch_backward(int inverse, const void* x, const void* u, int64_t su,
+                    const void* v, int64_t sv, const void* r, int64_t sr,
+                    const void* gy, const void* gl, void* gx, void* gu, void* gv,
+                    void* gr, int64_t m, int K, double B, double min_w,
+                    double min_h, double min_d, double shift, int tails,
+                    void* stream) {
+  if (K < 1 || (tails != 0 && tails != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0) return 0;
+  const int shift_g = shift_for(K, tails);
+  int64_t resident = 0;
+  const cudaError_t err = resident_threads(&resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kBackward[inverse][tails][shift_g - 1]<<<grid_for(m << shift_g, resident), kThreads, 0,
+                                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(u), su,
+      static_cast<const float*>(v), sv, static_cast<const float*>(r), sr,
+      static_cast<const float*>(gy), static_cast<const float*>(gl),
+      static_cast<float*>(gx), static_cast<float*>(gu),
+      static_cast<float*>(gv), static_cast<float*>(gr), m,
+      make_params(K, B, min_w, min_h, min_d, shift, tails));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // Backward of the forward transform: from x, the parameters and the
 // cotangents gy, gl (contiguous [m]) to gx [m] and the contiguous
 // gradients gu [m, K], gv [m, K], gr [m, K - 1] (tails = 0) or
@@ -831,19 +933,20 @@ extern "C" int rqs_backward_launch(const void* x, const void* u, int64_t su,
                                    int64_t m, int K, double B, double min_w,
                                    double min_h, double min_d, double shift,
                                    int tails, void* stream) {
-  if (K < 1 || (tails != 0 && tails != 1)) return static_cast<int>(cudaErrorInvalidValue);
-  if (m <= 0) return 0;
-  const int shift_g = shift_for(K, tails);
-  int64_t resident = 0;
-  const cudaError_t err = resident_threads(&resident);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kBackward[tails][shift_g - 1]<<<grid_for(m << shift_g, resident), kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(u), su,
-      static_cast<const float*>(v), sv, static_cast<const float*>(r), sr,
-      static_cast<const float*>(gy), static_cast<const float*>(gl),
-      static_cast<float*>(gx), static_cast<float*>(gu),
-      static_cast<float*>(gv), static_cast<float*>(gr), m,
-      make_params(K, B, min_w, min_h, min_d, shift, tails));
-  return static_cast<int>(cudaGetLastError());
+  return launch_backward(0, x, u, su, v, sv, r, sr, gy, gl, gx, gu, gv, gr, m, K, B,
+                         min_w, min_h, min_d, shift, tails, stream);
+}
+
+// Backward of the inverse transform, with the arguments of
+// rqs_backward_launch: x is the inverse's input (a y of the forward), gy
+// and gl the cotangents of its output and of its log-derivative.
+extern "C" int rqs_inverse_backward_launch(const void* x, const void* u, int64_t su,
+                                           const void* v, int64_t sv, const void* r,
+                                           int64_t sr, const void* gy, const void* gl,
+                                           void* gx, void* gu, void* gv, void* gr,
+                                           int64_t m, int K, double B, double min_w,
+                                           double min_h, double min_d, double shift,
+                                           int tails, void* stream) {
+  return launch_backward(1, x, u, su, v, sv, r, sr, gy, gl, gx, gu, gv, gr, m, K, B,
+                         min_w, min_h, min_d, shift, tails, stream);
 }

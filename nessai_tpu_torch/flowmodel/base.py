@@ -19,6 +19,21 @@ A conditional flow (``context_features`` in the flow config) takes a
 shuffles and splits it with them and feeds it to the loss and to the
 ActNorm initialisation, and every inference call passes it to the flow
 (``nessai_tpu/flowmodel/base.py:422-503, 813-865, 1176-1260``).
+
+On a device mesh (``mesh``, :mod:`nessai_tpu_torch.parallel`) the flow
+lives on ``mesh.devices[0]`` with one replica on each further entry: the
+batch size is rounded up to a multiple of the mesh's size (nothing is
+padded), every training step is data-parallel
+(:func:`~nessai_tpu_torch.parallel.make_dp_train_step`), and the
+inference calls cut their rows over the mesh and gather them in order
+(``nessai_tpu/flowmodel/base.py:410-412, 965-966, 1162-1168``). Every
+change to the primary's weights (initialisation, resets, the ActNorm
+data initialisation over the whole first batch, a LARS base's updates,
+loaded weights) is copied to the replicas at once. Dropout draws each
+replica's masks from its device's generator, so a run with dropout
+agrees with a single-device run only statistically. Without a mesh the
+inference calls take the same path (:meth:`FlowModel.sharded`) over a
+one-entry mesh of ``device``.
 """
 
 import copy
@@ -34,6 +49,8 @@ from ..flows import configure_model
 from ..flows.utils import reset_permutations, reset_weights
 from ..flows.bijectors import ActNorm, Chain
 from ..flows.distributions import ResampledGaussian
+from ..parallel.mesh import _dp_backward, _sync_replicas, get_mesh, replicated_sharding, shard_batch
+from ..utils.distance import compute_minimum_distances
 from ..utils.device import get_device
 from .config import (
     FlowConfig,
@@ -105,9 +122,22 @@ class FlowModel:
 
     #: ``torch.Generator`` attributes, pickled as their states
     _generators = ("_device_generator",)
+    #: no mesh: the defaults of a model unpickled from before meshes
+    mesh = None
+    _replicas = ()
 
-    def __init__(self, flow_config=None, training_config=None, output=None, rng=None, device=None):
-        self.device = get_device(device)
+    def __init__(self, flow_config=None, training_config=None, output=None, rng=None, device=None, mesh=None):
+        #: an optional :class:`~nessai_tpu_torch.parallel.Mesh`: the flow
+        #: lives on its first device, a replica on each further one
+        self.mesh = mesh
+        if mesh is None:
+            self.device = get_device(device)
+        else:
+            if device is not None and torch.device(device).type != mesh.devices[0].type:
+                raise ValueError(f"device {device} is not of the type of the mesh's first device, {mesh.devices[0]}")
+            self.device = mesh.devices[0]
+        #: the flow's copies on ``mesh.devices[1:]``
+        self._replicas = []
         self.output = os.getcwd() if output is None else output
         os.makedirs(self.output, exist_ok=True)
         self.flow_config: FlowConfig = update_flow_config(flow_config)
@@ -136,8 +166,22 @@ class FlowModel:
         cfg = flow_config_to_dict(self.flow_config)
         cfg["seed"] = int(self.rng.integers(0, 2**31 - 1))
         self.flow = configure_model(cfg).to(self.device)
+        if self.mesh is not None:
+            self._replicas = replicated_sharding(self.mesh).place(self.flow)[1:]
         self.reset_optimiser()
         self.initialised = True
+
+    @property
+    def replicas(self) -> list:
+        """The flow and its replicas, one a mesh entry (the flow alone
+        without a mesh)."""
+        return [self.flow] + list(self._replicas)
+
+    def refresh_replicas(self) -> None:
+        """Copy the flow's weights and buffers to its replicas (nothing
+        without a mesh)."""
+        if self.mesh is not None and self.flow is not None:
+            _sync_replicas(self.replicas)
 
     def reset_optimiser(self, lr=None) -> None:
         """A fresh optimiser of ``training_config.optimiser`` (with its
@@ -162,6 +206,7 @@ class FlowModel:
             self._actnorm_done = False
         if permutations:
             reset_permutations(self.flow, config, generator)
+        self.refresh_replicas()
         self.reset_optimiser()
 
     # ------------------------------------------------------------------
@@ -207,6 +252,11 @@ class FlowModel:
             raise RuntimeError(f"Unknown batch size: {batch_size}")
         if batch_size == 1:
             raise ValueError("Cannot use a batch size of 1!")
+        if self.mesh is not None:
+            # a multiple of the mesh's size, as the JAX package rounds it;
+            # the port pads nothing, so the last batch may be shorter
+            n_dev = self.mesh.size
+            batch_size = -(-int(batch_size) // n_dev) * n_dev
         batch_size = min(int(batch_size), n_train)
         train = self._to_device(samples[:n_train])
         batches = list(torch.split(train, batch_size))
@@ -256,6 +306,7 @@ class FlowModel:
         bases."""
         if isinstance(self.flow.base, ResampledGaussian):
             self.flow.end_iteration(self.device_generator())
+            self.refresh_replicas()
 
     def finalise(self) -> None:
         """A LARS base's final normalisation estimate
@@ -263,18 +314,24 @@ class FlowModel:
         bases."""
         if isinstance(self.flow.base, ResampledGaussian):
             self.flow.finalise(self.device_generator())
+            self.refresh_replicas()
 
     def _train_step(self, x, w=None, context=None) -> torch.Tensor:
         """One optimiser step on the batch ``x`` (with weights ``w`` and
         its ``context``); returns its loss (a device scalar, no host
         synchronisation)."""
-        self.optimiser.zero_grad(set_to_none=True)
-        loss = self._loss(x, w) if context is None else self._loss(x, w, context)
-        loss.backward()
+        if self.mesh is None:
+            self.optimiser.zero_grad(set_to_none=True)
+            loss = self._loss(x, w) if context is None else self._loss(x, w, context)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            loss = _dp_backward(self.replicas, self.mesh, x, w, context)
         if self.training_config.clip_grad_norm:
             _clip_by_global_norm(self._trainable(), self.training_config.clip_grad_norm)
         self.optimiser.step()
-        return loss.detach()
+        self.refresh_replicas()
+        return loss
 
     def _noise_sigma(self, batches):
         """The scale of the Gaussian noise added to each training row
@@ -287,12 +344,8 @@ class FlowModel:
         if tc.noise_type == "constant":
             return [torch.full((len(b), 1), float(tc.noise_scale), device=b.device) for b in batches]
         if tc.noise_type == "adaptive":
-            from scipy.spatial.distance import cdist
-
             x = torch.cat(batches).cpu().numpy()
-            d = cdist(x, x)
-            np.fill_diagonal(d, np.inf)
-            sigma = self._to_device(tc.noise_scale * d.min(axis=1))[:, None]
+            sigma = self._to_device(tc.noise_scale * compute_minimum_distances(x))[:, None]
             return list(torch.split(sigma, [len(b) for b in batches]))
         raise ValueError(f"Unknown noise type: {tc.noise_type}")
 
@@ -311,6 +364,7 @@ class FlowModel:
                     b.data_init(h)
                 h, _ = b(h, context)
         self._actnorm_done = True
+        self.refresh_replicas()
 
     def train(
         self,
@@ -395,6 +449,7 @@ class FlowModel:
         if isinstance(self.flow.base, ResampledGaussian):
             # a larger estimate from scratch, as the JAX package's
             self.flow.base.update_log_z(50_000, decay=0.0, generator=self.device_generator())
+        self.refresh_replicas()
         logger.debug("Trained %d epochs (best %d)", len(history["loss"]), best_it)
         self.history["loss"].extend(history["loss"])
         self.history["val_loss"].extend(history["val_loss"])
@@ -416,51 +471,90 @@ class FlowModel:
         out = torch.cat([points, per_row[:, None]], dim=1).double().cpu().numpy()
         return out[:, :-1], out[:, -1]
 
+    def sharded(self, fn, *tensors, flows=None):
+        """``fn(flow, *shards)`` on every entry of the mesh (a one-entry
+        mesh of :attr:`device` without one): the rows of each of
+        ``tensors`` (tensors or arrays; None passes through) cut in order
+        over the mesh, each shard on its device with that device's
+        replica (or the entry's flow of ``flows``). Each output of ``fn``
+        must lie on its shard's device; they are gathered in order on
+        ``devices[0]``. The first entry always runs, so zero rows give
+        empty outputs."""
+        flows = self.replicas if flows is None else flows
+        mesh = get_mesh(devices=[self.device]) if self.mesh is None else self.mesh
+        cut = [shard_batch(t, mesh) if t is not None else [None] * mesh.size for t in tensors]
+        parts = []
+        for r, (flow, device) in enumerate(zip(flows, mesh.devices, strict=True)):
+            shards = [c[r] for c in cut]
+            if r and not len(shards[0]):
+                continue
+            if isinstance(flow, torch.nn.Module) and flow is not flows[0]:
+                flow.train(flows[0].training)
+            out = fn(flow, *(None if s is None else s.to(torch.float32) for s in shards))
+            out = out if isinstance(out, tuple) else (out,)
+            for o in out:
+                if o.device != device:
+                    raise RuntimeError(f"a shard of the mesh computed on {o.device}, not on its device {device}")
+            parts.append(out)
+        if len(parts) == 1:
+            gathered = parts[0]
+        else:
+            gathered = tuple(torch.cat([p[i].to(self.device) for p in parts]) for i in range(len(parts[0])))
+        return gathered if len(gathered) > 1 else gathered[0]
+
     @torch.no_grad()
     def forward_and_log_prob(self, x, conditional=None):
         """x -> (z, log q(x)) as float64 numpy arrays."""
-        z, log_q = self.flow.forward_and_log_prob(self._to_device(x), self._to_device_or_none(conditional))
-        return self._to_host(z, log_q)
+        return self._to_host(*self.sharded(lambda f, a, c: f.forward_and_log_prob(a, c), _f32(x), _f32(conditional)))
 
     @torch.no_grad()
     def forward(self, x, conditional=None):
         """x -> (z, log|dz/dx|) as float64 numpy arrays."""
-        return self._to_host(*self.flow(self._to_device(x), self._to_device_or_none(conditional)))
+        return self._to_host(*self.sharded(lambda f, a, c: f(a, c), _f32(x), _f32(conditional)))
 
     @torch.no_grad()
     def inverse(self, z, conditional=None):
         """z -> (x, log|dx/dz|) as float64 numpy arrays."""
-        return self._to_host(*self.flow.inverse(self._to_device(z), self._to_device_or_none(conditional)))
+        return self._to_host(*self.sharded(lambda f, a, c: f.inverse(a, c), _f32(z), _f32(conditional)))
 
-    def tempered_inverse(self, zt, temperature=1.0, context=None):
+    def tempered_inverse(self, zt, temperature=1.0, context=None, flow=None):
         """Device tensors ``zt`` -> ``(x, log q(x))``, with the tempered
         latent density ``base(z / sqrt(T)) - (d / 2) log T`` where the
         ``temperature`` T is not 1 (``nessai_tpu/flowmodel/base.py:
-        1196-1222``)."""
+        1196-1222``). ``flow`` is a replica to run it on (by default the
+        flow); :meth:`sharded_tempered_inverse` cuts it over the mesh."""
+        flow = self.flow if flow is None else flow
         if temperature in (None, 1.0):
-            return self.flow.inverse_and_log_prob(zt, context)
+            return flow.inverse_and_log_prob(zt, context)
         sqrt_t = float(np.sqrt(temperature))
-        x, log_j = self.flow.inverse(zt, context)
-        log_q = self.flow.base_log_prob(zt / sqrt_t) - zt.shape[-1] * float(np.log(sqrt_t))
+        x, log_j = flow.inverse(zt, context)
+        log_q = flow.base_log_prob(zt / sqrt_t) - zt.shape[-1] * float(np.log(sqrt_t))
         return x, log_q - log_j
+
+    def sharded_tempered_inverse(self, zt, temperature=1.0, context=None):
+        """:meth:`tempered_inverse` with the rows cut over the mesh."""
+        return self.sharded(lambda f, z, c: self.tempered_inverse(z, temperature, c, flow=f), zt, context)
 
     @torch.no_grad()
     def inverse_and_log_prob(self, z, conditional=None, temperature=None):
         """z -> (x, log q(x)) as float64 numpy arrays, the latent density
         tempered at ``temperature`` (see :meth:`tempered_inverse`)."""
-        x, log_q = self.tempered_inverse(self._to_device(z), temperature, self._to_device_or_none(conditional))
+        x, log_q = self.sharded_tempered_inverse(_f32(z), temperature, _f32(conditional))
         return self._to_host(x, log_q)
 
     @torch.no_grad()
     def log_prob(self, x, conditional=None):
-        return self.flow.log_prob(self._to_device(x), self._to_device_or_none(conditional)).double().cpu().numpy()
+        out = self.sharded(lambda f, a, c: f.log_prob(a, c), _f32(x), _f32(conditional))
+        return out.double().cpu().numpy()
 
     @torch.no_grad()
     def sample(self, n: int = 1, conditional=None):
         """``n`` draws from the flow (given ``conditional``, one row per
         draw) as a float64 numpy array; the latent draws come from
-        :meth:`device_generator`."""
-        x = self.flow.sample(int(n), self.device_generator(), self._to_device_or_none(conditional))
+        :meth:`device_generator` on the first device, then inverted shard
+        by shard)."""
+        z = self.flow.sample_base(int(n), self.device_generator())
+        x = self.sharded(lambda f, a, c: f.inverse(a, c)[0], z, _f32(conditional))
         return x.double().cpu().numpy()
 
     @torch.no_grad()
@@ -486,6 +580,7 @@ class FlowModel:
             self.initialise()
         state = torch.load(weights_file, map_location=self.device, weights_only=True)
         self.flow.load_state_dict(state)
+        self.refresh_replicas()
         self.weights_file = weights_file
         self._actnorm_done = True
 
@@ -506,6 +601,10 @@ class FlowModel:
         state["flow"] = None
         state["optimiser"] = None
         state["initialised"] = False
+        # no device of a mesh in the pickle: a resumed model runs on one
+        # device, as the JAX proposal drops its mesh
+        state["mesh"] = None
+        state["_replicas"] = []
         for name in self._generators:
             gen = state.pop(name, None)
             state[name + "_state"] = None if gen is None else (gen.get_state(), str(gen.device))
@@ -529,6 +628,12 @@ class FlowModel:
                 gen = torch.Generator(device=gen_state[1])
                 gen.set_state(gen_state[0])
                 setattr(self, name, gen)
+
+
+def _f32(x):
+    """A host array as float32 numpy (None passes through), ready to cut
+    over a mesh."""
+    return None if x is None else np.asarray(x, np.float32)
 
 
 def _cpu_state_dict(flow) -> dict:

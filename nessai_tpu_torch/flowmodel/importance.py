@@ -9,6 +9,11 @@ the GPU, through the affine-coupling kernel) and copies the stacked
 vmapped program and its level and row padding are TPU workarounds and
 are not carried over. Inputs go to the flows as float32, log-densities
 come back as float64, as in the JAX package.
+
+On a device mesh every level trains data-parallel (``FlowModel.train``)
+and is frozen with one copy a further mesh entry; ``log_prob_all`` cuts
+its rows over the mesh and runs every level on each shard, and a
+level's draws are inverted shard by shard.
 """
 
 import copy
@@ -42,16 +47,21 @@ class ImportanceFlowModel(FlowModel):
     """
 
     _generators = FlowModel._generators + ("_weights_generator", "_sample_generator")
+    #: no mesh: the default of a model unpickled from before meshes
+    _level_replicas = ()
 
-    def __init__(self, flow_config=None, training_config=None, output=None, rng=None, device=None):
+    def __init__(self, flow_config=None, training_config=None, output=None, rng=None, device=None, mesh=None):
         super().__init__(
             flow_config=flow_config,
             training_config=training_config,
             output=output,
             rng=rng,
             device=device,
+            mesh=mesh,
         )
         self.models: List[Flow] = []
+        #: each level's copies on ``mesh.devices[1:]``, level by level
+        self._level_replicas: List[list] = []
         #: wall time in :meth:`log_prob_all`
         self.log_prob_all_time = datetime.timedelta()
         self._weights_generator = None
@@ -87,12 +97,19 @@ class ImportanceFlowModel(FlowModel):
         else:
             self.flow.load_state_dict(self.models[-1].state_dict())
             self._actnorm_done = True
+        self.refresh_replicas()
         self.reset_optimiser()
 
     def add_level(self, flow: Flow) -> None:
         """Freeze a copy of ``flow`` as the next level."""
         level = copy.deepcopy(flow).requires_grad_(False)
         self.models.append(level.eval())
+        if self.mesh is not None:
+            self._level_replicas.append([copy.deepcopy(level).to(d) for d in self.mesh.devices[1:]])
+
+    def level_replicas(self, i: int) -> list:
+        """Level ``i`` and its copies, one a mesh entry."""
+        return [self.models[i]] + (list(self._level_replicas[i]) if self.mesh is not None else [])
 
     def train(self, samples, weights=None, **kwargs):
         """Train the current level on ``samples`` (with the weighted loss
@@ -133,6 +150,7 @@ class ImportanceFlowModel(FlowModel):
         if not self.initialised:
             self.initialise()
         self.models = []
+        self._level_replicas = []
         while os.path.exists(path := self._level_file(output, self.n_models)):
             self.flow.load_state_dict(torch.load(path, map_location=self.device, weights_only=True))
             self.add_level(self.flow)
@@ -158,6 +176,7 @@ class ImportanceFlowModel(FlowModel):
         generators' states go in as CPU byte tensors with their devices."""
         state = super().__getstate__()
         state["models"] = []
+        state["_level_replicas"] = []
         return state
 
     # ------------------------------------------------------------------
@@ -169,8 +188,14 @@ class ImportanceFlowModel(FlowModel):
         if not self.models:
             return np.empty((len(x), 0))
         st = datetime.datetime.now()
-        x = self._to_device(x)
-        out = torch.stack([flow.log_prob(x) for flow in self.models], dim=1)
+        # each entry runs every level's copy on its shard
+        levels = [self.level_replicas(i) for i in range(self.n_models)]
+        by_entry = [list(entry) for entry in zip(*levels)]
+        out = self.sharded(
+            lambda levels_r, a: torch.stack([f.log_prob(a) for f in levels_r], dim=1),
+            np.asarray(x, np.float32),
+            flows=by_entry,
+        )
         out = out.double().cpu().numpy()
         self.log_prob_all_time += datetime.datetime.now() - st
         return out
@@ -186,7 +211,8 @@ class ImportanceFlowModel(FlowModel):
         host arrays: latent draws from the level's base distribution (one
         ``torch.randn`` for a unit Gaussian) on the device generator,
         mapped through the level's inverse on the device."""
-        x, log_prob = self.models[i].sample_and_log_prob(int(N), self._sample_generator)
+        z = self.models[i].sample_base(int(N), self._sample_generator)
+        x, log_prob = self.sharded(lambda f, a: f.inverse_and_log_prob(a), z, flows=self.level_replicas(i))
         return x.double().cpu().numpy(), log_prob.double().cpu().numpy()
 
     def sample_ith(self, i: int, N: int = 1) -> np.ndarray:

@@ -5,6 +5,7 @@ from .base import Flow
 from .bijectors import (
     ActNorm,
     AffineCoupling,
+    Bijector,
     Chain,
     Logit,
     LULinear,
@@ -27,10 +28,13 @@ from .utils import (
     get_n_neurons,
     get_native_flow_class,
     register_flow,
+    reset_permutations,
+    reset_weights,
 )
 
 __all__ = [
     "Flow",
+    "Bijector",
     "Chain",
     "AffineCoupling",
     "RQSCoupling",
@@ -57,4 +61,6 @@ __all__ = [
     "get_n_neurons",
     "params_from_jax",
     "params_to_jax",
+    "reset_weights",
+    "reset_permutations",
 ]

@@ -25,6 +25,7 @@ from .nets import ACTIVATIONS, MLP, ResNet, make_dropout
 from .rqs import n_derivatives
 
 __all__ = [
+    "Bijector",
     "Chain",
     "Permutation",
     "AffineCoupling",
@@ -37,7 +38,21 @@ __all__ = [
 ]
 
 
-class Chain(nn.Module):
+class Bijector(nn.Module):
+    """The base of the bijectors: ``forward(x, context=None)`` and
+    ``inverse(z, context=None)``, each returning ``(output, per-row
+    log|det J|)`` of its direction. The parameters live on the module
+    (the JAX package's ``Bijector`` keeps them apart, in a tree that its
+    ``init(key)`` makes)."""
+
+    def forward(self, x, context=None):
+        raise NotImplementedError
+
+    def inverse(self, z, context=None):
+        raise NotImplementedError
+
+
+class Chain(Bijector):
     """Composition; ``forward`` applies the bijectors in order."""
 
     def __init__(self, bijectors):
@@ -59,7 +74,7 @@ class Chain(nn.Module):
         return z, log_det
 
 
-class Permutation(nn.Module):
+class Permutation(Bijector):
     """Fixed permutation of the columns (volume preserving)."""
 
     def __init__(self, dim: int, permutation=None, generator=None):
@@ -79,7 +94,7 @@ class Permutation(nn.Module):
         return z[:, self.inv], torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
 
 
-class _Coupling(nn.Module):
+class _Coupling(Bijector):
     """The split of a coupling layer: the identity half (``mask > 0``)
     feeds a conditioner net with ``n_out`` outputs, which parameterise
     the transform of the other half. With ``context_features`` the net
@@ -249,7 +264,7 @@ class RQSCoupling(_Coupling):
         return y_tr, torch.sum(log_det, dim=-1)
 
 
-class ActNorm(nn.Module):
+class ActNorm(Bijector):
     """Per-dimension affine normalisation with a data-dependent
     initialisation (Glow-style): ``z = (x + shift) * exp(log_scale)``."""
 
@@ -282,7 +297,7 @@ def _row_constant(value, x):
     return value * torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
 
 
-class LULinear(nn.Module):
+class LULinear(Bijector):
     """Invertible linear layer ``z = x W^T + b`` with ``W = L U``: ``L``
     unit lower triangular, ``U`` upper triangular with diagonal
     ``exp(log_diag)`` (``nessai_tpu/flows/bijectors.py:346-404``; the
@@ -324,7 +339,7 @@ class LULinear(nn.Module):
         return x, _row_constant(-torch.sum(self.log_diag), z)
 
 
-class SVDLinear(nn.Module):
+class SVDLinear(Bijector):
     """Invertible linear layer ``z = x W^T + b`` with ``W = U diag(exp(
     log_s)) V^T``, ``U`` and ``V`` products of ``num_householder``
     Householder reflections (``nessai_tpu/flows/bijectors.py:406-485``).
@@ -364,7 +379,7 @@ class SVDLinear(nn.Module):
         return x, _row_constant(-torch.sum(self.log_s), z)
 
 
-class Logit(nn.Module):
+class Logit(Bijector):
     """Forward the logit of ``[0, 1]`` (inputs clipped to ``[eps, 1 -
     eps]``), inverse the sigmoid (``nessai_tpu/flows/bijectors.py:
     545-562``): the pre-transform of flows on unit-interval data."""
@@ -400,7 +415,7 @@ def made_masks(dim: int, n_neurons: int, n_layers: int):
     return masks
 
 
-class MaskedAffineAutoregressive(nn.Module):
+class MaskedAffineAutoregressive(Bijector):
     """Masked affine autoregressive transform (MAF, arXiv:1705.07057; a
     MADE conditioner; ``nessai_tpu/flows/bijectors.py:564-657``).
 

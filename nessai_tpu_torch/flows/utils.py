@@ -2,9 +2,10 @@
 (``get_n_neurons``, the builder registry with ``register_flow``, the base
 distributions by name, ``create_linear_transform``,
 ``create_pre_transform``, ``configure_model``, ``reset_weights``,
-``reset_permutations``) for the RealNVP, neural-spline and masked
-autoregressive families, conditional where ``context_features`` is set,
-and for flows that users register or pass as the ``flow`` key."""
+``reset_permutations``, ``get_activation_function``) for the RealNVP,
+neural-spline and masked autoregressive families, conditional where
+``context_features`` is set, and for flows that users register or pass
+as the ``flow`` key."""
 
 import copy
 
@@ -18,6 +19,7 @@ from .nsf import build_nsf_bijector
 from .realnvp import build_realnvp_bijector, make_linear_transform
 
 __all__ = [
+    "get_activation_function",
     "get_n_neurons",
     "get_flow_builder",
     "get_native_flow_class",
@@ -30,6 +32,16 @@ __all__ = [
     "reset_weights",
     "reset_permutations",
 ]
+
+def get_activation_function(name: str):
+    """The activation function of ``name`` (``relu``, ``tanh``,
+    ``silu``/``swish``, ``gelu``, ``sigmoid``)."""
+    from .nets import ACTIVATIONS
+
+    if name not in ACTIVATIONS:
+        raise ValueError(f"Unknown activation: {name}")
+    return ACTIVATIONS[name]
+
 
 #: ``ftype`` names and their builders (``nessai_tpu/flows/utils.py:42-52``);
 #: the glasflow-prefixed names map to the same builders.

@@ -15,9 +15,12 @@ __all__ = [
     "reset_extra_live_points_parameters",
     "get_dtype",
     "empty_structured_array",
+    "parameters_to_live_point",
     "numpy_array_to_live_points",
     "live_points_to_array",
     "live_points_to_dict",
+    "dict_to_live_points",
+    "dataframe_to_live_points",
     "unstructured_view",
 ]
 
@@ -51,26 +54,29 @@ def reset_extra_live_points_parameters():
     config.livepoints.reset()
 
 
-def get_dtype(names, array_dtype=None) -> np.dtype:
+def get_dtype(names, array_dtype=None, non_sampling_parameters: bool = True) -> np.dtype:
     """Structured dtype with the sampling parameters followed by the
-    non-sampling fields (logP, logL, it and any extra fields)."""
+    non-sampling fields (logP, logL, it and any extra fields; none with
+    ``non_sampling_parameters=False``)."""
     if array_dtype is None:
         array_dtype = config.livepoints.default_float_dtype
     fields = [(n, array_dtype) for n in names]
-    fields += list(
-        zip(
-            config.livepoints.non_sampling_parameters,
-            config.livepoints.non_sampling_dtype,
+    if non_sampling_parameters:
+        fields += list(
+            zip(
+                config.livepoints.non_sampling_parameters,
+                config.livepoints.non_sampling_dtype,
+            )
         )
-    )
     return np.dtype(fields)
 
 
-def empty_structured_array(n: int, names=None, dtype=None):
+def empty_structured_array(n: int, names=None, dtype=None, non_sampling_parameters: bool = True):
     """Structured array of length ``n`` with parameters set to NaN and
-    the non-sampling fields set to their defaults."""
+    the non-sampling fields set to their defaults (without them where
+    ``non_sampling_parameters`` is False)."""
     if dtype is None:
-        dtype = get_dtype(names)
+        dtype = get_dtype(names, non_sampling_parameters=non_sampling_parameters)
     elif names is None:
         names = [
             f
@@ -82,11 +88,23 @@ def empty_structured_array(n: int, names=None, dtype=None):
         return out
     for name in names:
         out[name] = np.nan
-    for f, v in zip(
-        config.livepoints.non_sampling_parameters,
-        config.livepoints.non_sampling_defaults,
-    ):
-        out[f] = v
+    if non_sampling_parameters:
+        for f, v in zip(
+            config.livepoints.non_sampling_parameters,
+            config.livepoints.non_sampling_defaults,
+        ):
+            out[f] = v
+    return out
+
+
+def parameters_to_live_point(parameters, names, non_sampling_parameters: bool = True):
+    """One live point from a sequence of parameter values (an empty
+    array for no values)."""
+    if not len(parameters):
+        return empty_structured_array(0, names, non_sampling_parameters=non_sampling_parameters)
+    out = empty_structured_array(1, names=names, non_sampling_parameters=non_sampling_parameters)
+    for n, v in zip(names, parameters):
+        out[n] = v
     return out
 
 
@@ -122,6 +140,26 @@ def live_points_to_dict(live_points, names=None) -> dict:
     if names is None:
         names = live_points.dtype.names
     return {n: np.asarray(live_points[n]) for n in names}
+
+
+def dict_to_live_points(d: dict, non_sampling_parameters: bool = True):
+    """A dict of arrays (one per field) as live points: the keys that are
+    not non-sampling fields are the parameters; non-sampling keys fill
+    their fields where the dtype has them."""
+    names = [k for k in d.keys() if k not in config.livepoints.non_sampling_parameters]
+    n = np.atleast_1d(np.asarray(d[names[0]])).size
+    out = empty_structured_array(n, names=names, non_sampling_parameters=non_sampling_parameters)
+    for k, v in d.items():
+        if k in out.dtype.names:
+            out[k] = v
+    return out
+
+
+def dataframe_to_live_points(df, non_sampling_parameters: bool = True):
+    """A ``pandas.DataFrame`` (one column per field) as live points."""
+    return dict_to_live_points(
+        {c: df[c].to_numpy() for c in df.columns}, non_sampling_parameters=non_sampling_parameters
+    )
 
 
 def unstructured_view(x, names=None):

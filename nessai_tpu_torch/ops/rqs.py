@@ -5,9 +5,11 @@ Replaces the Pallas TPU kernel ``nessai_tpu/ops/rqs_pallas.py``
 (``rqs_pallas``, ``pl.pallas_call`` at line 180, and its training
 wrapper ``rqs_pallas_vjp``). The kernels are ``csrc/rqs.cu``, built with
 nvcc for ``sm_90a`` and bound with ctypes (see ``_build.py``):
-``rqs_forward_launch`` (the forward or inverse transform) and
-``rqs_backward_launch`` (the gradient of the forward transform, which
-the JAX package takes by autodiff of its jnp reference). Both take
+``rqs_forward_launch`` (the forward or inverse transform),
+``rqs_backward_launch`` (the gradient of the forward transform) and
+``rqs_inverse_backward_launch`` (that of the inverse), the gradients the
+JAX package takes by autodiff of its jnp reference in either direction
+(``rqs_pallas_vjp``, ``_rqs_bwd`` at line 228). All take
 ``tails``: linear tails on ``[-B, B]`` (the Pallas kernel's spline), or
 ``tails=None``, the spline of ``nessai_tpu/flows/rqs.py:28-158`` on the
 unit box with all ``K + 1`` knot derivatives learned, which the JAX
@@ -55,9 +57,6 @@ from ..flows.rqs import (
 )
 
 __all__ = ["rqs", "rqs_plain", "RQSFunction", "on_card"]
-
-#: The queue item that would add the gradient of the inverse direction.
-_INVERSE_GRAD_ITEM = "ROADMAP §2 (b) (the inverse-direction gradient of K2)"
 
 #: The kernels' ``tails`` flag.
 _TAILS_FLAG = {"linear": 0, None: 1}
@@ -119,11 +118,13 @@ def _kernels():
     # ..., inverse, tails, stream
     fwd.argtypes = [ptr, ptr, i64, ptr, i64, ptr, i64, ptr, ptr, *params, i32, i32, ptr]
     fwd.restype = ctypes.c_int
-    bwd = lib.rqs_backward_launch
-    # ..., tails, stream
-    bwd.argtypes = [ptr, ptr, i64, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr, *params, i32, ptr]
-    bwd.restype = ctypes.c_int
-    return fwd, bwd
+    backward = []
+    for bwd in (lib.rqs_backward_launch, lib.rqs_inverse_backward_launch):
+        # ..., tails, stream
+        bwd.argtypes = [ptr, ptr, i64, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr, *params, i32, ptr]
+        bwd.restype = ctypes.c_int
+        backward.append(bwd)
+    return (fwd, *backward)
 
 
 def _spline_args(m, K, tail_bound):
@@ -152,7 +153,7 @@ def _launch(x, w, h, d, inverse: bool, tail_bound: float, tails="linear"):
     y = torch.empty_like(xf)
     ld = torch.empty_like(xf)
     if m:
-        fwd, _ = _kernels()
+        fwd = _kernels()[0]
         with torch.cuda.device(x.device):
             err = fwd(
                 xf.data_ptr(),
@@ -174,10 +175,12 @@ def _launch(x, w, h, d, inverse: bool, tail_bound: float, tails="linear"):
     return y.reshape(x.shape), ld.reshape(x.shape)
 
 
-def _launch_backward(x, w, h, d, gy, gl, tail_bound: float, tails="linear"):
-    """Launch ``rqs_backward_launch``: the gradients of the forward
-    transform for the cotangents ``gy`` (of y) and ``gl`` (of the
-    log-derivative). Returns ``(dx, dw, dh, dd)`` shaped as the inputs."""
+def _launch_backward(x, w, h, d, gy, gl, tail_bound: float, tails="linear", inverse: bool = False):
+    """Launch ``rqs_backward_launch`` (``rqs_inverse_backward_launch``
+    with ``inverse``): the gradients of the forward (inverse) transform
+    at ``x`` for the cotangents ``gy`` (of its output) and ``gl`` (of
+    its log-derivative). Returns ``(dx, dw, dh, dd)`` shaped as the
+    inputs."""
     K = w.shape[-1]
     n_d = n_derivatives(K, tails)
     m = x.numel()
@@ -190,7 +193,7 @@ def _launch_backward(x, w, h, d, gy, gl, tail_bound: float, tails="linear"):
     dh = torch.empty_like(dw)
     dd = torch.empty(m, n_d, dtype=x.dtype, device=x.device)
     if m:
-        _, bwd = _kernels()
+        bwd = _kernels()[2 if inverse else 1]
         with torch.cuda.device(x.device):
             err = bwd(
                 xf.data_ptr(),
@@ -205,15 +208,19 @@ def _launch_backward(x, w, h, d, gy, gl, tail_bound: float, tails="linear"):
             )
         if err != 0:
             raise RuntimeError(f"rqs backward kernel launch failed with cudaError {err}")
-        rqs.backward_launches += 1
-        if tails is None:
-            rqs.unit_backward_launches += 1
+        if inverse:
+            rqs.inverse_backward_launches += 1
+            rqs.unit_inverse_backward_launches += int(tails is None)
+        else:
+            rqs.backward_launches += 1
+            rqs.unit_backward_launches += int(tails is None)
     return dx.reshape(x.shape), dw.reshape(w.shape), dh.reshape(h.shape), dd.reshape(d.shape)
 
 
 class RQSFunction(torch.autograd.Function):
-    """Forward through ``rqs_forward_launch``; backward (forward direction
-    only) through ``rqs_backward_launch``."""
+    """Forward through ``rqs_forward_launch``; backward through
+    ``rqs_backward_launch``, or ``rqs_inverse_backward_launch`` for the
+    inverse direction."""
 
     @staticmethod
     def forward(ctx, x, w, h, d, inverse, tail_bound, tails):
@@ -227,14 +234,10 @@ class RQSFunction(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, gy, gl):
-        if ctx.inverse:
-            raise NotImplementedError(
-                f"rqs: no gradient through the inverse direction on the GPU; {_INVERSE_GRAD_ITEM}"
-            )
         # an output without a gradient arrives as zeros (autograd
         # materialises them by default)
         x, w, h, d = ctx.saved_tensors
-        dx, dw, dh, dd = _launch_backward(x, w, h, d, gy, gl, ctx.tail_bound, ctx.tails)
+        dx, dw, dh, dd = _launch_backward(x, w, h, d, gy, gl, ctx.tail_bound, ctx.tails, ctx.inverse)
         return dx, dw, dh, dd, None, None, None
 
 
@@ -244,35 +247,38 @@ def rqs(x, w, h, d, inverse: bool = False, tail_bound: float = 5.0, tails="linea
     K - 1]`` (linear tails on ``[-tail_bound, tail_bound]``) or ``[...,
     K + 1]`` (``tails=None``: the unit box, where ``tail_bound`` is
     unused), all of one dtype. Returns ``(y, log-derivative)``, both
-    shaped as ``x``; differentiable in all four inputs in the forward
+    shaped as ``x``; differentiable in all four inputs in either
     direction.
 
     CUDA tensors launch ``csrc/rqs.cu`` (each forward or inverse launch
-    adds one to ``rqs.launches``, each backward launch one to
-    ``rqs.backward_launches``; with ``tails=None`` also one to
-    ``rqs.unit_launches`` (and, inverse, ``rqs.unit_inverse_launches``) or
-    ``rqs.unit_backward_launches``); they must be float32, and a gradient
-    through the inverse direction raises. CPU tensors (float32 or
-    float64) use the plain version, with autograd through it."""
+    adds one to ``rqs.launches``, each backward launch of the forward one
+    to ``rqs.backward_launches``, of the inverse one to
+    ``rqs.inverse_backward_launches``; with ``tails=None`` also one to
+    ``rqs.unit_launches`` (and, inverse, ``rqs.unit_inverse_launches``),
+    ``rqs.unit_backward_launches`` or
+    ``rqs.unit_inverse_backward_launches``); they must be float32. CPU
+    tensors (float32 or float64) use the plain version, with autograd
+    through it."""
     _check_inputs(x, w, h, d, tails)
     if not on_card(x):
         return rqs_plain(x, w, h, d, inverse, tail_bound, tails)
     if x.dtype != torch.float32:
         raise TypeError(f"rqs: the CUDA kernel takes float32, got {x.dtype}")
-    if inverse and torch.is_grad_enabled() and any(a.requires_grad for a in (x, w, h, d)):
-        raise NotImplementedError(
-            f"rqs: no gradient through the inverse direction on the GPU; {_INVERSE_GRAD_ITEM}"
-        )
     return RQSFunction.apply(x, w, h, d, inverse, tail_bound, tails)
 
 
 #: Forward and inverse kernel launches since the count was last set to 0.
 rqs.launches = 0
-#: Backward kernel launches since the count was last set to 0.
+#: Backward kernel launches of the forward direction since the count was
+#: last set to 0,
 rqs.backward_launches = 0
+#: and of the inverse direction.
+rqs.inverse_backward_launches = 0
 #: Of those, the forward and inverse launches with ``tails=None``,
 rqs.unit_launches = 0
 #: the inverse ones among them,
 rqs.unit_inverse_launches = 0
-#: and the backward launches with ``tails=None``.
+#: the backward launches of the forward direction with ``tails=None``,
 rqs.unit_backward_launches = 0
+#: and those of the inverse direction.
+rqs.unit_inverse_backward_launches = 0

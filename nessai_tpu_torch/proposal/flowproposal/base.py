@@ -40,12 +40,16 @@ class BaseFlowProposal(RejectionProposal):
     ``update_poolsize``; ``save_training_data`` saves each training set;
     ``map_to_unit_hypercube`` runs the reparameterisations and the flow
     on the prior's unit hypercube; ``accept_all`` keeps every draw that
-    survives the truncation (no rejection sampling).
+    survives the truncation (no rejection sampling); ``mesh`` (a
+    :class:`~nessai_tpu_torch.parallel.Mesh`) puts the flow model on a
+    device mesh (``nessai_tpu/proposal/flowproposal/base.py:93,280``).
     """
 
     #: whether :meth:`add_default_reparameterisations` is applied;
     #: subclasses may flip this
     use_default_reparameterisations = False
+    #: no mesh: the default of a proposal unpickled from before meshes
+    mesh = None
 
     def __init__(
         self,
@@ -67,9 +71,12 @@ class BaseFlowProposal(RejectionProposal):
         accept_all: bool = False,
         plot="min",
         device=None,
+        mesh=None,
     ):
         super().__init__(model, rng=rng)
         self.device = get_device(device)
+        #: the device mesh the flow trains and runs on (None: one device)
+        self.mesh = mesh
         self.configure_poolsize(poolsize if poolsize is not None else 1000, update_poolsize, max_poolsize_scale)
         self.ns_acceptance = 1.0
         self.output = output
@@ -182,6 +189,7 @@ class BaseFlowProposal(RejectionProposal):
             output=self.output,
             rng=self.rng,
             device=self.device,
+            mesh=self.mesh,
         )
 
     def update_flow_config(self, flow_config: dict) -> dict:
@@ -514,6 +522,8 @@ class BaseFlowProposal(RejectionProposal):
         state["_weights_file"] = flow.weights_file if flow is not None else None
         state["flow"] = None
         state["_initialised"] = False
+        # as the JAX proposal does: a resumed run is on one device
+        state["mesh"] = None
         return state
 
     def resume(self, model, flow_config=None, training_config=None, weights_file=None) -> None:

@@ -32,6 +32,16 @@ inverse is conditioned on sampled labels) passes each round through its
 alone, as the JAX package's rounds do where it builds no device inverse
 (``nessai_tpu/proposal/flowproposal/flowproposal.py:1113-1114``); it never
 takes the device populate loop.
+
+On a device mesh (the flow model's ``mesh``) the rounds populate's device
+call is cut over the mesh: the latent draws are made as on one device,
+then each mesh entry inverts its shard through its replica of the flow,
+the reparameterisations, the bound check and the device likelihood, and
+the outputs are gathered in order, so the pool is the single-device
+pool; without a mesh the same call runs over a one-entry mesh. The
+device populate loop is off on a mesh, as in the JAX package
+(``flowproposal.py:636``); a model without a device likelihood is
+evaluated on the host for the pool alone.
 """
 
 import datetime
@@ -371,9 +381,10 @@ class FlowProposal(BaseFlowProposal):
         return z
 
     def _flow_inverse(self, zt):
-        """z -> (x', log q(x')) on the device, with the tempered latent
-        density where ``latent_temperature`` is not 1."""
-        return self.flow.tempered_inverse(zt, self.latent_temperature)
+        """z -> (x', log q(x')) on the device (cut over the mesh on one),
+        with the tempered latent density where ``latent_temperature`` is
+        not 1."""
+        return self.flow.sharded_tempered_inverse(zt, self.latent_temperature)
 
     @torch.no_grad()
     def _fused_backward(self, z, with_likelihood: bool = True):
@@ -387,29 +398,53 @@ class FlowProposal(BaseFlowProposal):
         stack member without a device inverse, the unit hypercube, an
         augmented flow), the flow inverse still runs here and the rest
         on the host (:meth:`_host_backward`)."""
-        device = self.device
+        zt = torch.as_tensor(np.asarray(z, np.float32), device=self.device)
+        if self._can_fuse_populate and self._reparameterisation.has_torch_inverse:
+
+            def shard(flow, z):
+                x_prime, log_q = self.flow.tempered_inverse(z, self.latent_temperature, flow=flow)
+                return self._device_backward(x_prime, log_q, with_likelihood)
+
+            return self._backward_to_host(self.flow.sharded(shard, zt), with_likelihood)
+        return self._host_backward(*self._flow_inverse(zt))
+
+    def _device_backward(self, x_prime, log_q, with_likelihood):
+        """The device inverse of the flow's output on its device: ``[n, P
+        + 2 (+ 1)]`` columns (x, log q, the in-bounds mask as 0 or 1, and
+        logL with the likelihood); every stack member inverts on the
+        device."""
         model = self.model
-        zt = torch.as_tensor(np.asarray(z, np.float32), device=device)
-        x_prime, log_q = self._flow_inverse(zt)
-        if not self._can_fuse_populate:
-            return self._host_backward(x_prime, log_q)
+        device = x_prime.device
         cols = {pp: x_prime[:, i] for i, pp in enumerate(self.prime_parameters)}
-        inverted = self._reparameterisation.torch_inverse(cols)
-        if inverted is None:
-            return self._host_backward(x_prime, log_q)
-        cols, log_j = inverted
+        cols, log_j = self._reparameterisation.torch_inverse(cols)
         log_q = log_q - log_j
         x = torch.stack([cols[p] for p in self.parameters], dim=1)
         x_model = x[:, : len(model.names)]
-        lower = torch.as_tensor(model.lower_bounds, dtype=torch.float32, device=device)
-        upper = torch.as_tensor(model.upper_bounds, dtype=torch.float32, device=device)
+        lower, upper = self._bounds_on(device)
         in_b = torch.all((x_model >= lower) & (x_model <= upper), dim=1)
         columns = [x, log_q[:, None], in_b[:, None].to(x.dtype)]
         if with_likelihood:
             columns.append(model.torch_log_likelihood(x_model)[:, None])
-        # one device -> host copy for everything
-        out = torch.cat(columns, dim=1).cpu().numpy().astype(np.float64)
-        d = x.shape[1]
+        return torch.cat(columns, dim=1)
+
+    def _bounds_on(self, device):
+        """The prior box as float32 tensors on ``device``, made once a
+        device."""
+        cache = self.__dict__.setdefault("_bounds_cache", {})
+        if device not in cache:
+            model = self.model
+            cache[device] = (
+                torch.as_tensor(model.lower_bounds, dtype=torch.float32, device=device),
+                torch.as_tensor(model.upper_bounds, dtype=torch.float32, device=device),
+            )
+        return cache[device]
+
+    def _backward_to_host(self, columns, with_likelihood):
+        """The columns of :meth:`_device_backward` as float64 numpy
+        ``(x, log_q, log_l or None, in_bounds)``, in one device-to-host
+        copy."""
+        out = columns.cpu().numpy().astype(np.float64)
+        d = out.shape[1] - (3 if with_likelihood else 2)
         log_l = out[:, d + 2] if with_likelihood else None
         return out[:, :d], out[:, d], log_l, out[:, d + 1] > 0.5
 
@@ -443,9 +478,12 @@ class FlowProposal(BaseFlowProposal):
         stack's), neither the unit hypercube nor ``accept_all`` nor
         ``accumulate_weights``, latent-radius rules only, a prior on the
         device (a ``torch_log_prior`` or a uniform box) with the
-        auxiliary parameters' priors on the device too; one device."""
+        auxiliary parameters' priors on the device too; one device (no
+        mesh, ``flowproposal.py:636``)."""
         reparam = self._reparameterisation
         if self.flow is None or reparam is None or not self.uses_device_inverse:
+            return False
+        if self.flow.mesh is not None:
             return False
         if self.map_to_unit_hypercube or not self._can_fuse_populate or not reparam.has_torch_inverse:
             return False
@@ -745,6 +783,19 @@ class FlowProposal(BaseFlowProposal):
         accept = None
         with_ll = self.uses_device_inverse and self._resolve_fuse_likelihood()
         ll_in_pool = with_ll or scheme.requires_log_likelihood
+        if (
+            self.flow.mesh is not None
+            and not self.model.has_torch_likelihood
+            and not getattr(self, "_logged_host_likelihood_on_mesh", False)
+        ):
+            # the JAX package's split of a host likelihood out of the
+            # sharded program (``flowproposal.py:1056-1075``), said once
+            logger.info(
+                "Host likelihood on a %d-entry mesh: the flow inverse, the reparameterisations and the "
+                "bounds run sharded; the likelihood is evaluated on the host for the pool alone",
+                self.flow.mesh.size,
+            )
+            self._logged_host_likelihood_on_mesh = True
         while n_accepted < n_samples:
             z = self.sample_latent_distribution(self._draw_n)
             n_proposed += len(z)
@@ -874,4 +925,6 @@ class FlowProposal(BaseFlowProposal):
         state.pop("_pending_ns_scan", None)
         state.pop("_ns_scan_request", None)
         state.pop("_early_perm", None)
+        # tensors on the devices of this process
+        state.pop("_bounds_cache", None)
         return state

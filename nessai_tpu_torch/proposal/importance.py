@@ -44,10 +44,16 @@ class ImportanceFlowProposal(Proposal):
 
     ``reset_flow`` is a bool (fresh weights for every level, or a copy of
     the previous level) or an int N (fresh weights every N levels).
-    ``device`` (default CUDA) is where the flows train and run. With
+    ``device`` (default CUDA) is where the flows train and run; with a
+    ``mesh`` (:mod:`nessai_tpu_torch.parallel`) each level trains
+    data-parallel over it and ``log_prob_all`` cuts its rows over it (the
+    pickle holds no mesh: a resumed run is on one device). With
     ``weighted_kl`` each level trains on its samples weighted by their
     importance weights (the sampler passes False by default).
     """
+
+    #: no mesh: the default of a proposal unpickled from before meshes
+    mesh = None
 
     def __init__(
         self,
@@ -60,6 +66,7 @@ class ImportanceFlowProposal(Proposal):
         reset_flow=True,
         rng=None,
         device=None,
+        mesh=None,
     ):
         if reparameterisation not in ("logit", None, "none"):
             raise ValueError(f"Unknown reparameterisation: {reparameterisation}")
@@ -72,12 +79,15 @@ class ImportanceFlowProposal(Proposal):
         self.flow_config = dict(flow_config or {}, n_inputs=model.dims)
         self.training_config = training_config
         self.device = get_device(device)
+        #: the device mesh the levels train and run on (None: one device)
+        self.mesh = mesh
         self.flow = ImportanceFlowModel(
             flow_config=self.flow_config,
             training_config=training_config,
             output=output,
             rng=self.rng,
             device=self.device,
+            mesh=mesh,
         )
         #: proposal weights keyed by level (-1 = prior)
         self._weights = {-1: 1.0}
@@ -147,6 +157,7 @@ class ImportanceFlowProposal(Proposal):
         files."""
         state = super().__getstate__()
         state["flow"] = None
+        state["mesh"] = None
         return state
 
     def verify_rescaling(self, n: int = 1000, rtol: float = 1e-08, atol: float = 1e-08) -> None:

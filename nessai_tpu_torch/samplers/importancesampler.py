@@ -185,8 +185,10 @@ class OrderedSamples:
 class ImportanceNestedSampler(BaseNestedSampler):
     """The importance nested sampler.
 
-    ``device`` (default CUDA) is where the flows train and run; the
-    sampling loop runs on the host in float64. It checkpoints only at
+    ``device`` (default CUDA) is where the flows train and run; further
+    keyword arguments go to the proposal (``ImportanceFlowProposal``), as
+    in the JAX package: ``mesh`` among them, the device mesh its levels
+    train and run on. The sampling loop runs on the host in float64. It checkpoints only at
     the end of a level (:meth:`checkpoint`).
     """
 
@@ -250,6 +252,7 @@ class ImportanceNestedSampler(BaseNestedSampler):
         reset_flow=True,
         reparameterisation: Optional[str] = "logit",
         device=None,
+        **kwargs,
     ):
         self.add_fields()
         super().__init__(
@@ -312,6 +315,7 @@ class ImportanceNestedSampler(BaseNestedSampler):
             reset_flow=reset_flow,
             rng=self.rng,
             device=self.device,
+            **kwargs,
         )
         self.training_samples = OrderedSamples(
             strict_threshold=strict_threshold, replace_all=replace_all, save_log_q=save_log_q

@@ -23,7 +23,7 @@ from ..ops.ns_scan import INT32_MAX, ns_scan
 from ..utils.device import get_device
 from ..utils.sampling import _bucket_size
 
-__all__ = ["chain_scan", "run_ns_scan", "scan_outputs_to_host"]
+__all__ = ["chain_scan", "run_ns_scan", "scan_consume", "scan_outputs_to_host"]
 
 
 def scan_outputs_to_host(mask, consumed, ins, final_ids, n_acc, k=None):
@@ -41,6 +41,17 @@ def scan_outputs_to_host(mask, consumed, ins, final_ids, n_acc, k=None):
         packed[1 + 3 * kb :].astype(np.int64),
         int(packed[0]),
     )
+
+
+def scan_consume(live_logl, pool_logl, max_accepts):
+    """The consume/insert scan on device tensors: ``live_logl`` ([n],
+    float32, sorted ascending) against ``pool_logl`` ([K], float32, in pop
+    order), accepting at most ``max_accepts``. Returns ``(mask[K],
+    consumed_ids[K], insertion_idx[K], final_live_ids[n], n_accepted)`` on
+    the device, the ids indexing ``concat(live, pool_in_pop_order)``: the
+    scan kernel's outputs (``ops.ns_scan``; its plain version on the
+    CPU)."""
+    return ns_scan(live_logl, pool_logl, min(int(max_accepts), INT32_MAX))
 
 
 def chain_scan(log_l, perm, live32, max_accepts: int) -> dict:

@@ -3,7 +3,7 @@
 
 import numpy as np
 
-__all__ = ["compute_indices_ks_test"]
+__all__ = ["bonferroni_correction", "compute_indices_ks_test"]
 
 
 def compute_indices_ks_test(indices, nlive: int, mode: str = "D+"):
@@ -23,3 +23,14 @@ def compute_indices_ks_test(indices, nlive: int, mode: str = "D+"):
         raise RuntimeError(f"Invalid mode: {mode}")
     p = np.exp(-2.0 * indices.size * D**2)
     return float(D), float(min(max(p, 0.0), 1.0))
+
+
+def bonferroni_correction(p_values, alpha: float = 0.05):
+    """The Bonferroni correction of ``p_values`` at level ``alpha``:
+    ``(rejected, corrected p-values, corrected alpha)``."""
+    p_values = np.asarray(p_values, dtype=float)
+    n = len(p_values)
+    corrected_alpha = alpha / n
+    corrected_p = np.minimum(p_values * n, 1.0)
+    rejected = p_values < corrected_alpha
+    return rejected, corrected_p, corrected_alpha

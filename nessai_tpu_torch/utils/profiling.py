@@ -37,8 +37,11 @@ in the ``update_log_q`` passes, in ``log_prob_all`` and in the final
 redraw.
 """
 
+import contextlib
 import functools
 import json
+import logging
+import os
 import subprocess
 import sys
 import tempfile
@@ -66,7 +69,11 @@ __all__ = [
     "event_time_ms",
     "device_time_ms",
     "profile_flagship",
+    "profile_region",
+    "annotate",
 ]
+
+logger = logging.getLogger(__name__)
 
 #: The flagship configuration of ``bench.py`` (lines 51-63): the 2-D
 #: unit Gaussian of ``IntegrationTestModel(2)`` with nlive = 1000 and a
@@ -247,6 +254,41 @@ FLAGSHIP_MCMC = dict(
 #: package's default of 8 clusters: every coupling's net takes the
 #: one-hot cluster label as its context.
 FLAGSHIP_CLUSTERING = dict(FLAGSHIP, flow_class="clusteringflowproposal", max_clusters=8)
+
+
+@contextlib.contextmanager
+def profile_region(logdir: str, enabled: bool = True):
+    """Trace the enclosed region with ``torch.profiler`` (the CPU and,
+    where there is one, the GPU) and write its Chrome trace to
+    ``logdir/trace.json``; with ``enabled=False`` nothing is traced, so a
+    caller can pass a flag through without branching::
+
+        with profile_region("outdir/profile"):
+            fs.run()
+    """
+    if not enabled:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    with profile(activities=activities) as prof:
+        logger.info("torch.profiler trace started (logdir=%s)", logdir)
+        yield
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("torch.profiler trace written to %s", path)
+
+
+def annotate(name: str):
+    """A named span in the profiler's timeline for a sub-region
+    (``torch.profiler.record_function``)::
+
+        with annotate("populate"):
+            proposal.populate(...)
+    """
+    return torch.profiler.record_function(name)
 
 
 def gpu_kernel_events(prof):

@@ -13,6 +13,10 @@ __all__ = [
     "_bucket_size",
     "compute_radius",
     "draw_surface_nsphere",
+    "draw_nsphere",
+    "draw_uniform",
+    "draw_gaussian",
+    "draw_truncated_gaussian",
     "NDimensionalTruncatedGaussian",
 ]
 
@@ -42,6 +46,46 @@ def draw_surface_nsphere(dims, r=1.0, N=1000, rng=None):
     x = rng.standard_normal((int(N), dims))
     x /= np.linalg.norm(x, axis=1, keepdims=True)
     return r * x
+
+
+def draw_nsphere(dims, r=1.0, N=1000, fuzz=1.0, rng=None):
+    """Uniform points inside an n-ball of radius ``r * fuzz``."""
+    if rng is None:
+        rng = np.random.default_rng()
+    x = draw_surface_nsphere(dims, r=1.0, N=N, rng=rng)
+    u = rng.uniform(0, 1, (int(N), 1)) ** (1.0 / dims)
+    return r * fuzz * u * x
+
+
+def draw_uniform(dims, r=1.0, N=1000, fuzz=1.0, rng=None):
+    """Uniform points in the unit hypercube (``r`` and ``fuzz`` are
+    unused, kept for a common signature)."""
+    if rng is None:
+        rng = np.random.default_rng()
+    return rng.uniform(0, 1, (int(N), dims))
+
+
+def draw_gaussian(dims, r=1.0, N=1000, fuzz=1.0, rng=None, temperature=1):
+    """Standard Gaussian draws scaled by ``sqrt(temperature)``."""
+    if rng is None:
+        rng = np.random.default_rng()
+    return np.sqrt(temperature) * rng.standard_normal((int(N), dims))
+
+
+def draw_truncated_gaussian(dims, r, N=1000, fuzz=1.0, var=1.0, rng=None):
+    """Gaussian draws of variance ``var`` truncated to the radius
+    ``r * fuzz``, by rejection."""
+    if rng is None:
+        rng = np.random.default_rng()
+    sigma = np.sqrt(var)
+    r_max = r * fuzz
+    out = np.empty((0, dims))
+    n_target = int(N)
+    while out.shape[0] < n_target:
+        x = sigma * rng.standard_normal((n_target, dims))
+        keep = np.linalg.norm(x, axis=1) < r_max
+        out = np.concatenate([out, x[keep]], axis=0)
+    return out[:n_target]
 
 
 class NDimensionalTruncatedGaussian:

@@ -1,11 +1,11 @@
 """Statistics helpers. Counterpart of ``nessai_tpu/utils/stats.py``
-(``effective_sample_size`` and ``weighted_quantile``, numpy and scipy
-as there)."""
+(``effective_sample_size``, ``rolling_mean`` and ``weighted_quantile``,
+numpy and scipy as there)."""
 
 import numpy as np
 from scipy.special import betainc, logsumexp
 
-__all__ = ["effective_sample_size", "weighted_quantile"]
+__all__ = ["effective_sample_size", "rolling_mean", "weighted_quantile"]
 
 
 def effective_sample_size(log_w: np.ndarray) -> float:
@@ -14,6 +14,14 @@ def effective_sample_size(log_w: np.ndarray) -> float:
     if not log_w.size:
         return np.nan
     return float(np.exp(2 * logsumexp(log_w) - logsumexp(2 * log_w)))
+
+
+def rolling_mean(x: np.ndarray, N: int = 10) -> np.ndarray:
+    """The mean over a window of ``N`` points, the ends padded with the
+    first and last values so the output has the input's length."""
+    x = np.asarray(x, dtype=float)
+    padded = np.concatenate([np.full(N // 2, x[0]), x, np.full(N - N // 2 - 1, x[-1])])
+    return np.convolve(padded, np.ones(N) / N, mode="valid")
 
 
 def weighted_quantile(

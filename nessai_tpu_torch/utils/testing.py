@@ -261,7 +261,7 @@ class EggboxModel(_UniformBoxModel):
     @property
     def analytic_log_evidence(self) -> float:
         if len(self.names) != 2:
-            raise NotImplementedError("the egg-box quadrature is two-dimensional")
+            raise ValueError("the egg-box quadrature is two-dimensional")
         return eggbox_log_evidence()
 
     def modes(self) -> np.ndarray:

@@ -382,6 +382,36 @@ def test_rqs_backward_kernel_matches_autograd_of_plain(cuda, n, d, K):
         torch.testing.assert_close(g_k.double(), g_p, atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,K,tails", [(900, 1, 8, "linear"), (13, 3, 40, "linear"), (1000, 2, 8, None)])
+def test_rqs_inverse_backward_kernel_matches_autograd_of_plain(cuda, n, d, K, tails):
+    """The gradient through the inverse direction launches the inverse
+    backward kernel once and matches autograd of the plain inverse in
+    float64 (atol 1e-6 + rtol 1e-6)."""
+    from nessai_tpu_torch.ops.rqs import rqs, rqs_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(3 * n + K)
+    if tails == "linear":
+        y = 12.0 * torch.rand(n, d, device=cuda, generator=gen) - 6.0
+        out = torch.randn(n, d, 3 * K - 1, device=cuda, generator=gen)
+    else:
+        y = 1.2 * torch.rand(n, d, device=cuda, generator=gen) - 0.1
+        out = torch.randn(n, d, 3 * K + 1, device=cuda, generator=gen)
+    inputs = (y, out[..., :K], out[..., K : 2 * K], out[..., 2 * K :])
+    w_x, w_ld = (torch.randn(n, d, device=cuda, generator=gen) for _ in range(2))
+    grads = []
+    before = rqs.inverse_backward_launches
+    for f, dtype in ((rqs, torch.float32), (rqs_plain, torch.float64)):
+        args = [a.detach().to(dtype).requires_grad_(True) for a in inputs]
+        x, ld = f(*args, True, 5.0, tails)
+        grads.append(torch.autograd.grad((x, ld), args, (w_x.to(dtype), w_ld.to(dtype))))
+    torch.cuda.synchronize()
+    assert rqs.inverse_backward_launches == before + 1
+    for g_k, g_p in zip(*grads):
+        assert g_k.dtype == torch.float32
+        torch.testing.assert_close(g_k.double(), g_p, atol=1e-6, rtol=1e-6)
+
+
 def _spline_grads(f, dtype, inputs, w_y, w_ld):
     args = [a.detach().to(dtype).requires_grad_(True) for a in inputs]
     y, ld = f(*args)
@@ -495,8 +525,12 @@ def test_rqs_kernel_rejects_bad_input(cuda):
         rqs(x, w, h, w)
     with pytest.raises(ValueError, match="shape"):
         rqs(x, w, h, dd, tails=None)  # K - 1 derivatives for the unit box
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rqs(x, w.detach().requires_grad_(True), h, dd, inverse=True)
+    # the gradient through the inverse direction launches its kernel
+    before = rqs.inverse_backward_launches
+    w_grad = w.detach().requires_grad_(True)
+    y, ld = rqs(x, w_grad, h, dd, inverse=True)
+    (y.sum() + ld.sum()).backward()
+    assert rqs.inverse_backward_launches == before + 1
 
 
 @pytest.mark.cuda

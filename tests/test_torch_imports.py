@@ -72,11 +72,17 @@ def test_import_every_module_without_jax():
         "utils.information",
         "utils.structures",
         "utils.optimise",
+        "parallel",
+        "parallel.mesh",
+        "utils.distance",
+        "utils.distributions",
+        "flowmodel.utils",
     ],
 )
 def test_import_walk_reaches_the_importance_sampler(module):
     """The walk of ``test_import_every_module_without_jax`` imports the
-    importance nested sampler's modules too."""
+    importance nested sampler's modules too, the device mesh and the
+    helper modules."""
     import pkgutil
 
     import nessai_tpu_torch

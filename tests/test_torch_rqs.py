@@ -148,6 +148,36 @@ def test_gradients_match_jax(n, d, K):
         np.testing.assert_allclose(a.grad.numpy(), np.asarray(g), atol=GRAD_ATOL, rtol=GRAD_RTOL)
 
 
+@pytest.mark.parametrize("tails", ["linear", None])
+@pytest.mark.parametrize("K", [8, 40])
+def test_inverse_gradients_match_jax(K, tails):
+    """The plain version's gradients through the inverse direction (the
+    reference the inverse backward kernel is held to on the card) against
+    the JAX package's: ``rqs_pallas_vjp(..., inverse=True,
+    interpret=True)`` for linear tails (its backward is ``jax.vjp`` of
+    the jnp spline in that direction, ``_rqs_bwd``), and ``jax.vjp`` of
+    the jnp spline with ``tails=None``, which the JAX package runs outside
+    Pallas. Inputs over the box and beyond it; GRAD_ATOL and GRAD_RTOL."""
+    x, w, h, dd = _inputs((40, 3), K, tails, seed=K)
+    rng = np.random.default_rng(K + 1)
+    w_x = rng.standard_normal(x.shape).astype(np.float32)
+    w_ld = rng.standard_normal(x.shape).astype(np.float32)
+
+    def loss_jax(a, b, c, e):
+        if tails == "linear":
+            y, ld = rqs_pallas_vjp(a, b, c, e, True, 5.0, True)
+        else:
+            y, ld = jax_spline(a, b, c, e, inverse=True, tails=None)
+        return jnp.sum(y * w_x) + jnp.sum(ld * w_ld)
+
+    g_jax = jax.grad(loss_jax, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in (x, w, h, dd)))
+    args = [a.requires_grad_(True) for a in _t(x, w, h, dd)]
+    y, ld = rqs_ops.rqs(*args, inverse=True, tails=tails)
+    (torch.sum(y * torch.as_tensor(w_x)) + torch.sum(ld * torch.as_tensor(w_ld))).backward()
+    for a, g in zip(args, g_jax):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(g), atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
 def test_outside_the_tails_passes_through_with_unit_gradient():
     x = torch.tensor([-9.0, -5.5, 5.5, 12.0], requires_grad=True)
     w, h = (torch.randn(4, 6, requires_grad=True) for _ in range(2))
@@ -223,13 +253,25 @@ def pretend_cuda(monkeypatch):
     monkeypatch.setattr(rqs_ops, "_launch", no_launch)
 
 
-def test_inverse_gradient_on_cuda_raises(pretend_cuda):
-    """The gradient through the inverse direction and float64 are
-    refused on the card; more than 16 bins (the limit of the first
-    kernels) go to the kernel."""
+def test_inverse_gradient_on_cuda_reaches_the_inverse_backward_launch(pretend_cuda, monkeypatch):
+    """On the card the gradient through the inverse direction goes to the
+    inverse-direction backward launch (a stand-in here that records its
+    direction), float64 is refused, and more than 16 bins (the limit of
+    the first kernels) go to the kernel."""
+    calls = []
+
+    def launch_backward(x, w, h, d, gy, gl, bound, tails, inverse):
+        calls.append(inverse)
+        return gy, torch.zeros_like(w), torch.zeros_like(h), torch.zeros_like(d)
+
+    monkeypatch.setattr(rqs_ops, "_launch_backward", launch_backward)
     x, w, h, d = _t(*_inputs((6, 1), 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP §2 \\(b\\)"):
-        rqs_ops.rqs(x, w.requires_grad_(True), h, d, inverse=True)
+    w = w.requires_grad_(True)
+    with monkeypatch.context() as m:
+        m.setattr(rqs_ops, "_launch", lambda x, *args: (x.clone(), torch.zeros_like(x)))
+        y, ld = rqs_ops.rqs(x, w, h, d, inverse=True)
+    (y.sum() + ld.sum()).backward()
+    assert calls == [True] and w.grad is not None
     with pytest.raises(AssertionError, match="the kernel was launched"):
         rqs_ops.rqs(*_t(*_inputs((6, 1), 17)))
     with pytest.raises(TypeError, match="CUDA kernel takes float32"):
