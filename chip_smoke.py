@@ -65,12 +65,26 @@ proposal (``flagship_clustering``); short runs of the standard sampler's options
 (``standard_options_*``: the truncation rules, the likelihood split,
 the iteration cap, the training schedule, the uninformed proposal, the
 shrinkage, the optimisers and training options, the augmented marginal,
-the unit hypercube); a ``kernels`` summary. The
+the unit hypercube); the GW examples (``nessai_tpu_torch/examples/gw``):
+each device likelihood against its float64 host likelihood at 4096 prior
+draws (``gw_likelihood_gpu_vs_host``), the basic model in full against the
+JAX package's logZ measured on a CPU (``gw_basic``), its host-likelihood
+twin with ``likelihood_callback`` (``gw_callback``) and the importance
+nested sampler on it with the redraw (``gw_ins``), both against
+``gw_basic``, and the 9-parameter sky-location model (12 prime
+dimensions), the toy chirp and the calibration model at full width to an
+iteration cap (``gw_full``, ``gw_toy_cbc``, ``gw_calibration``); a
+``kernels`` summary. From ``flagship_mesh`` on, the INS mixture, its
+option runs, the hypercube run and the standard sampler's option runs
+(``BACKGROUND_PHASES``) run in a second process beside the others. The
 last line is ``{"ok": true, "device": {...}}``. Any failing phase ends
 the script with a non-zero exit code and without that line. Without a
 GPU the script exits with code 2 at once. ``python3 chip_smoke.py
 --eggbox-in-full`` builds the kernels and runs the egg-box example to
-its end (about 40 minutes), with the pull's gate.
+its end (about 40 minutes), with the pull's gate; ``python3 chip_smoke.py
+--gw-in-full`` runs the full, toy, calibration and INS GW examples to
+their ends, each against the JAX package's CPU logZ where one was
+measured.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -81,6 +95,7 @@ import json
 import logging
 import math
 import os
+import shutil
 import signal
 import statistics
 import subprocess
@@ -124,8 +139,9 @@ K1_SHAPES = [
 #: D = 2 and D = 3 (the angle run's alternating masks), then the
 #: augmented proposal's 4-D flow (two real and two augment columns, the
 #: fixed mask) at 2000 rows, then the device populate loop's batches of
-#: the flagship (4096 rows) and of the egg-box (8192 rows); new rows go
-#: last, so that the rows before them keep their inputs
+#: the flagship (4096 rows) and of the egg-box (8192 rows), then
+#: ``K1_LAYER_GW_SHAPES``; new rows go last, so that the rows before them
+#: keep their inputs
 K1_LAYER_SHAPES = [
     (900, 2, (1, 0)),
     (900, 2, (0, 1)),
@@ -142,9 +158,28 @@ K1_LAYER_SHAPES = [
     (4096, 2, (1, 0)),
     (8192, 2, (0, 1)),
 ]
+#: the GW examples' training batches: the basic model's 5-D flow (900
+#: rows, both alternating masks, two and three transformed columns) and
+#: the full model's 12-D flow (batches of 1000 rows, six transformed
+#: columns: the 16-byte loads)
+K1_LAYER_GW_SHAPES = [
+    (900, 5, (0, 1, 0, 1, 0)),
+    (900, 5, (1, 0, 1, 0, 1)),
+    (1000, 12, (0, 1) * 6),
+    (1000, 12, (1, 0) * 6),
+]
+K1_LAYER_SHAPES += K1_LAYER_GW_SHAPES
 #: shape of the kernels-line numbers of both K1 kernels: a flagship
 #: training step's coupling
 K1_LAYER_MAIN_SHAPE = (900, 2, (1, 0))
+#: the rows whose fused kernels are timed (every row is checked): the main
+#: shape, the augmented flow's and the GW examples' (the others are
+#: checked only, for the script's time; their times are in PERF.md)
+K1_LAYER_FUSED_TIMED_SHAPES = (K1_LAYER_MAIN_SHAPE, (2000, 4, (1, 1, 0, 0))) + tuple(
+    row for row in K1_LAYER_SHAPES if row[1] in (5, 12)
+)
+#: the bare K1's timed shape (every shape is checked)
+K1_TIMED_SHAPE = (900, 1)
 #: calls in each profile of the plain and unfused paths of the coupling
 #: layer (11-39 GPU records a call); the fused kernels keep 200
 K1_LAYER_OTHER_PROFILE_CALLS = 50
@@ -160,6 +195,18 @@ Y_ATOL, Y_RTOL, LD_ATOL = 1e-6, 1e-5, 1e-5
 #: 1.52 over the rows on the H100; both round in float32, and where
 #: x e^s and t cancel their errors are of one size, PERF.md)
 K1_Y_VS_FLOAT64_MULTIPLE = 2.0
+#: the rows of the GW examples' training batches (appended last, D = 5
+#: and 12) are held to the float64 function by two statistics of
+#: ``float64_distances``, each against the float32 plain version's. The
+#: largest absolute distance is one or two elements' of the largest |y|
+#: (an ulp of s moves y by y ulps): its ratio read 3.912 at most over 300
+#: fresh inputs of each of the six shape rows of ``tools/k1_accuracy.py``
+#: in each direction (3600 in all; 0-1.7% of each 300 above 2, the median
+#: 1.0), so its limit is 5. The mean of |y - y64| / max(|y64|, 1) over
+#: the row read 1.071 at most there (0.918-1.046 over this script's
+#: rows), so its limit is 1.25.
+K1_GW_Y_VS_FLOAT64_MAX_MULTIPLE = 5.0
+K1_GW_Y_VS_FLOAT64_MEAN_MULTIPLE = 1.25
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
 FLOW_ATOL, FLOW_RTOL = 1e-5, 1e-5
 PULL_LIMIT = 3.0
@@ -240,7 +287,10 @@ VIRTUAL_MESH_DEVICES = ("cuda:0", "cuda:0")
 #: what their time scales with: the unit-hypercube example at 4000 live
 #: points (10,000 as written) and the Gaussian mixture at 1000 live
 #: points, an ESS of 1500 and a redraw to 1000 (2000, 3000 and 2000 as
-#: written); each keeps its |pull| < 3 and its other gates.
+#: written); each keeps its |pull| < 3 and its other gates. Neither is cut
+#: further for the GW phases: the mixture at 600 live points took
+#: 7 levels and 59.1 s against 5 and 35.2 s, and the hypercube at 2000
+#: ended with an ESS of 29 against 1408 (PERF.md).
 HYPERCUBE_SMOKE_NLIVE = 4000
 MIXTURE_SMOKE = dict(nlive=1000, ess=1500, n_posterior_samples=1000)
 #: and of the tails=None variant's: a training step of the unit-hypercube run
@@ -261,9 +311,8 @@ K2_F32_Y_ATOL, K2_F32_LD_ATOL, K2_F32_GRAD_SHARE = 2e-3, 1e-2, 1e-3
 K2_RT_X, K2_RT_LD = 1e-6, 1e-3
 #: K2's timing runs: the plain version launches 90-184 kernels a call, so
 #: its profiles take 20 calls, and only at the two main shapes (the
-#: kernels are timed at every shape with 200 calls; the plain version
-#: was timed at every shape with 50 until the egg-box and option runs
-#: joined the script)
+#: kernels are timed with 200 calls at the main shapes and the rows of
+#: K2_SHAPES_MORE; every shape is checked)
 K2_PLAIN_PROFILE_CALLS = 20
 K2_EVENT_TIMING = dict(inner=10, repeats=10)
 #: weight perturbation of the NSF in the flow check: the splines move
@@ -451,8 +500,9 @@ def phase_k1():
                 torch.testing.assert_close(g_k, g_p, atol=GRAD_ATOL, rtol=GRAD_RTOL)
             kernel = functools.partial(coupling._launch, x, raw_s, t, inverse, 5.0)
             plain = functools.partial(coupling.affine_coupling_plain, x, raw_s, t, inverse)
-            ms, _, timer = device_time_ms(kernel)
-            plain_ms, plain_kernels, plain_timer = device_time_ms(plain)
+            timed = (n, d) == K1_TIMED_SHAPE
+            ms, _, timer = device_time_ms(kernel) if timed else (None, None, None)
+            plain_ms, plain_kernels, plain_timer = device_time_ms(plain) if timed else (None, None, None)
             bound, bound_by = k1_bound_ms(n, d)
             row[tag] = {
                 "max_abs_err": err,
@@ -461,8 +511,8 @@ def phase_k1():
                 "timer": timer,
                 "plain_timer": plain_timer,
                 "plain_kernels_per_call": plain_kernels,
-                "call_ms": time_ms(kernel, repeats=K1_EVENT_REPEATS),
-                "plain_call_ms": time_ms(plain, repeats=K1_EVENT_REPEATS),
+                "call_ms": time_ms(kernel, repeats=K1_EVENT_REPEATS) if timed else None,
+                "plain_call_ms": time_ms(plain, repeats=K1_EVENT_REPEATS) if timed else None,
                 "bound_ms": bound,
                 "bound_by": bound_by,
             }
@@ -481,7 +531,7 @@ def phase_k1():
             "ms, plain_ms: GPU kernel time per call from torch.profiler over "
             f"200 calls, or {EVENT_FALLBACK} (timer, plain_timer); call_ms, "
             f"plain_call_ms: CUDA-event time per call, median of {K1_EVENT_REPEATS} samples "
-            "of 50 back-to-back calls"
+            f"of 50 back-to-back calls; at {list(K1_TIMED_SHAPE)} only (None elsewhere)"
         ),
         shapes=rows,
     )
@@ -609,7 +659,8 @@ def phase_k1_layer():
             }
             with torch.no_grad():
                 times = {
-                    name: device_time_ms(call) if name in ("forward_fused", "backward_fused")
+                    name: device_time_ms(call)
+                    if name in ("forward_fused", "backward_fused") and (n, D, mask) in K1_LAYER_FUSED_TIMED_SHAPES
                     else device_time_ms(call, calls=K1_LAYER_OTHER_PROFILE_CALLS)
                     if (n, D, mask) in K1_LAYER_TIMED_SHAPES else (None, None, None)
                     for name, call in timed_calls.items()
@@ -617,10 +668,13 @@ def phase_k1_layer():
             del graph, timed_calls
             fwd_bound, fwd_by = k1_layer_bound_ms(n, D, n_tr)
             bwd_bound, bwd_by = k1_layer_bound_ms(n, D, n_tr, backward=True, inverse=inverse)
+            d64 = float64_distances(y, y_ref, y64)
             row[tag] = {
                 "max_abs_err": err,
-                "y_max_abs_err_vs_float64": _max_err(y, y64),
-                "plain_y_max_abs_err_vs_float64": _max_err(y_ref, y64),
+                "y_max_abs_err_vs_float64": d64["max_abs"],
+                "plain_y_max_abs_err_vs_float64": d64["plain_max_abs"],
+                "y_mean_scaled_err_vs_float64": d64["mean_scaled"],
+                "plain_y_mean_scaled_err_vs_float64": d64["plain_mean_scaled"],
                 "backward_max_abs_err": grad_err,
                 "backward_bitwise_equal_to_unfused_ops": _bitwise(g_k, g_u),
                 "backward_max_abs_diff_from_unfused_ops": max(_max_err(a, b) for a, b in zip(g_k, g_u)),
@@ -632,12 +686,17 @@ def phase_k1_layer():
                 "backward_bound_ms": bwd_bound,
                 "backward_bound_by": bwd_by,
             }
-            err64, plain_err64 = row[tag]["y_max_abs_err_vs_float64"], row[tag]["plain_y_max_abs_err_vs_float64"]
-            if err64 > K1_Y_VS_FLOAT64_MULTIPLE * plain_err64:
-                raise RuntimeError(
-                    f"k1 layer at {(n, D, mask)} {tag}: {err64} from the float64 function, over "
-                    f"{K1_Y_VS_FLOAT64_MULTIPLE} x the float32 plain version's {plain_err64}"
-                )
+            limits = (
+                {"max_abs": K1_GW_Y_VS_FLOAT64_MAX_MULTIPLE, "mean_scaled": K1_GW_Y_VS_FLOAT64_MEAN_MULTIPLE}
+                if (n, D, mask) in K1_LAYER_GW_SHAPES else {"max_abs": K1_Y_VS_FLOAT64_MULTIPLE}
+            )
+            for stat, multiple in limits.items():
+                err64, plain_err64 = d64[stat], d64[f"plain_{stat}"]
+                if err64 > multiple * plain_err64:
+                    raise RuntimeError(
+                        f"k1 layer at {(n, D, mask)} {tag}: {err64} from the float64 function ({stat}), over "
+                        f"{multiple} x the float32 plain version's {plain_err64}"
+                    )
             if (n, D, mask) == K1_LAYER_MAIN_SHAPE and not inverse:
                 r = row[tag]
                 main["affine_coupling"] = dict(
@@ -656,10 +715,16 @@ def phase_k1_layer():
         tolerance={"y_atol": Y_ATOL, "y_rtol": Y_RTOL, "ld_atol": LD_ATOL,
                    "grad_atol": GRAD_ATOL, "grad_rtol": GRAD_RTOL,
                    "forward_vs_unfused_path": "bitwise",
-                   "y_vs_float64_multiple_of_plain_float32": K1_Y_VS_FLOAT64_MULTIPLE},
+                   "y_vs_float64_multiple_of_plain_float32": K1_Y_VS_FLOAT64_MULTIPLE,
+                   "y_vs_float64_distance": "the largest |y - y64|",
+                   "gw_rows": [list(s[:2]) + [list(s[2])] for s in K1_LAYER_GW_SHAPES],
+                   "gw_rows_y_vs_float64_multiples_of_plain_float32": {
+                       "largest |y - y64|": K1_GW_Y_VS_FLOAT64_MAX_MULTIPLE,
+                       "mean of |y - y64| / max(|y64|, 1)": K1_GW_Y_VS_FLOAT64_MEAN_MULTIPLE}},
         timing=(
             "*_ms, *_records_per_call: GPU time and GPU records per call from "
-            f"torch.profiler over 200 calls (fused) or {K1_LAYER_OTHER_PROFILE_CALLS} "
+            f"torch.profiler over 200 calls (fused; None outside {list(K1_LAYER_FUSED_TIMED_SHAPES)}) or "
+            f"{K1_LAYER_OTHER_PROFILE_CALLS} "
             f"(plain, unfused; None outside {list(K1_LAYER_TIMED_SHAPES)}), or {EVENT_FALLBACK} "
             "(timers); fused: "
             "the layer kernels; plain: affine_coupling_layer_plain and "
@@ -691,6 +756,21 @@ def _max_err(a, b):
     return (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
 
 
+def float64_distances(y, y_plain, y64) -> dict:
+    """How far the kernel's ``y`` and the float32 plain version's
+    ``y_plain`` are from ``y64``, the plain version run in float64 on the
+    same inputs: the largest absolute distance and the mean of
+    ``|y - y64| / max(|y64|, 1)`` over every element, for each."""
+    y64 = y64.double()
+    scale = torch.clamp(y64.abs(), min=1.0)
+    out = {}
+    for key, value in (("", y), ("plain_", y_plain)):
+        d = (value.double() - y64).abs()
+        out[f"{key}max_abs"] = float(d.max()) if d.numel() else 0.0
+        out[f"{key}mean_scaled"] = float((d / scale).mean()) if d.numel() else 0.0
+    return out
+
+
 def phase_k2():
     from nessai_tpu_torch.ops.rqs import _launch, _launch_backward, rqs, rqs_plain
     from nessai_tpu_torch.utils.profiling import device_time_ms
@@ -706,6 +786,9 @@ def phase_k2():
         row = {"n": n, "d": d, "K": K, "tails": tails}
         kind = "rqs" if tails == "linear" else "rqs_unit"
         is_main = (n, d, K) == (K2_MAIN_SHAPE if tails == "linear" else K2_UNIT_MAIN_SHAPE)
+        # the kernels are timed at the main shapes and the rows of
+        # K2_SHAPES_MORE
+        timed = is_main or (n, d, K, tails) in K2_SHAPES_MORE
         for inverse in (False, True):
             tag = "inverse" if inverse else "forward"
             with torch.no_grad():
@@ -728,7 +811,7 @@ def phase_k2():
             max_err[kind] = max(max_err[kind], err)
             kernel = functools.partial(_launch, x, w, h, dd, inverse, TAIL_BOUND, tails)
             plain = functools.partial(rqs_plain, x, w, h, dd, inverse, TAIL_BOUND, tails)
-            ms, _, timer = device_time_ms(kernel)
+            ms, _, timer = device_time_ms(kernel) if timed else (None, None, None)
             plain_ms, plain_kernels, plain_timer = (
                 device_time_ms(plain, calls=K2_PLAIN_PROFILE_CALLS) if is_main else (None, None, None)
             )
@@ -742,7 +825,7 @@ def phase_k2():
                 "timer": timer,
                 "plain_timer": plain_timer,
                 "plain_kernels_per_call": plain_kernels,
-                "call_ms": time_ms(kernel, **K2_EVENT_TIMING),
+                "call_ms": time_ms(kernel, **K2_EVENT_TIMING) if timed else None,
                 "plain_call_ms": time_ms(plain, **K2_EVENT_TIMING) if is_main else None,
                 "bound_ms": bound,
                 "bound_by": bound_by,
@@ -785,7 +868,7 @@ def phase_k2():
         yy, ll, args, cot = graphs["plain32"]
         kernel = functools.partial(_launch_backward, x, w, h, dd, w_y, w_ld, TAIL_BOUND, tails)
         plain = functools.partial(torch.autograd.grad, (yy, ll), args, cot, retain_graph=True)
-        ms, _, timer = device_time_ms(kernel)
+        ms, _, timer = device_time_ms(kernel) if timed else (None, None, None)
         plain_ms, plain_kernels, plain_timer = (
             device_time_ms(plain, calls=K2_PLAIN_PROFILE_CALLS) if is_main else (None, None, None)
         )
@@ -799,7 +882,7 @@ def phase_k2():
             "timer": timer,
             "plain_timer": plain_timer,
             "plain_kernels_per_call": plain_kernels,
-            "call_ms": time_ms(kernel, **K2_EVENT_TIMING),
+            "call_ms": time_ms(kernel, **K2_EVENT_TIMING) if timed else None,
             "plain_call_ms": time_ms(plain, **K2_EVENT_TIMING) if is_main else None,
             "bound_ms": bound,
             "bound_by": bound_by,
@@ -859,8 +942,8 @@ def phase_k2_inverse_backward():
     loss of both outputs) to the float64 plain version (its distance from
     the float32 plain version, as a share of that version's largest
     gradient, is printed beside the float32 version's own distance from
-    float64), one launch a backward; its time
-    (200 calls), its bound and the plain graph's time at every row."""
+    float64), one launch a backward; its time (200 calls) and its bound at
+    every row, the plain graph's time at the first (the kernels line's)."""
     from nessai_tpu_torch.ops.rqs import _launch_backward, rqs, rqs_plain
     from nessai_tpu_torch.utils.profiling import device_time_ms
 
@@ -901,7 +984,11 @@ def phase_k2_inverse_backward():
         kernel = functools.partial(_launch_backward, x, w, h, dd, w_x, w_ld, TAIL_BOUND, tails, True)
         plain = functools.partial(torch.autograd.grad, (out, ld), args, cot, retain_graph=True)
         ms, _, timer = device_time_ms(kernel)
-        plain_ms, plain_kernels, plain_timer = device_time_ms(plain, calls=K2_PLAIN_PROFILE_CALLS)
+        # the plain graph's time at the kernels line's row
+        plain_ms, plain_kernels, plain_timer = (
+            device_time_ms(plain, calls=K2_PLAIN_PROFILE_CALLS)
+            if (n, d, K, tails) == K2_INVERSE_BACKWARD_SHAPES[0] else (None, None, None)
+        )
         bound, bound_by = k2_bound_ms(x, K, backward=True, tails=tails)
         rows.append(
             {
@@ -2258,16 +2345,19 @@ EGGBOX_MODE_RADIUS = 1.0
 #: The egg-box example in full takes about 40 minutes on the H100 (its
 #: last 5,000 of about 19,000 iterations retrain the flow every few
 #: iterations, each training an eager step of 10-20 ms an epoch; PERF.md),
-#: past this script's time limit. Here it stops at this iteration (dlogZ
-#: about 4, some 110 s); ``python3 chip_smoke.py --eggbox-in-full`` runs
-#: it to its end with the same checks and the pull's gate.
-EGGBOX_SMOKE_ITERATIONS = 12_000
+#: past this script's time limit. Here it stops at this iteration: past
+#: the 9th training (at iteration 8939 on the H100), so the reset before
+#: it is checked, about 11 s (to 12,000 it took 36 trainings and 91-145
+#: s, the trainings after the 16th most of it; PERF.md);
+#: ``python3 chip_smoke.py --eggbox-in-full`` runs it to its end with the
+#: same checks and the pull's gate.
+EGGBOX_SMOKE_ITERATIONS = 9_000
 #: the egg-box's numbers on the rounds populate with the hard 1e6 cap
 #: (PERF.md §5, H100 80GB HBM3 at 700 W), reported beside this run's
 #: under the device populate loop's soft budget: to 12,000 iterations
 #: and in full
 EGGBOX_ROUNDS_POPULATE = {
-    EGGBOX_SMOKE_ITERATIONS: dict(trainings=18, population_time_s=8.179491, likelihood_evaluations=9_380_683),
+    12_000: dict(trainings=18, population_time_s=8.179491, likelihood_evaluations=9_380_683),
     None: dict(trainings=699, population_time_s=229.731533, likelihood_evaluations=304_669_073,
                wall_s=2605.004081696),
 }
@@ -2455,6 +2545,390 @@ def phase_flagship_clustering():
         raise RuntimeError(f"the clustering run called the device populate loop {result['device_loop_calls']} times")
     if result["conditioner_inputs"] != [1 + flow.max_clusters] * len(couplings):
         raise RuntimeError(f"the couplings' nets take {result['conditioner_inputs']} inputs, not x_id and the label")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# The GW examples (nessai_tpu_torch/examples/gw, the scripts of examples/gw)
+# ---------------------------------------------------------------------------
+#: the JAX package's logZ of each GW example's configuration as its script
+#: runs it, measured on a CPU (the JAX package does not run on the card)
+#: by ``tools/gw_jax_reference.py`` (the script's arguments, plots and
+#: checkpoints off) under JAX 0.9.0 on an Intel Xeon, two threads a run,
+#: at commit 1d1badc; seconds of that run. The port's run is held to it by
+#: the pull (logZ - logZ_jax) / sqrt(sigma^2 + sigma_jax^2).
+GW_JAX_CPU_LOGZ = {
+    "gw_basic": dict(logZ=-1830.3832506048425, sigma=0.08621499854964289, seconds=127.7, seed=170817),
+    "gw_callback": dict(logZ=-1830.2458983322867, sigma=0.08547107479660952, seconds=70.6, seed=170817),
+    "gw_ins": dict(logZ=-1830.3978474974801, sigma=0.019076774793770256, seconds=85.7, seed=151226,
+                   sampler_logZ=-1830.4147139398724),
+    "gw_toy_cbc": dict(logZ=-544.1221306848776, sigma=0.10270889907629788, seconds=339.2, seed=1234),
+    "gw_calibration": dict(logZ=-1889.4548254264284, sigma=0.07785369142809336, seconds=187.6, seed=150914),
+    "gw_full": dict(logZ=-1886.9923251386817, sigma=0.032386603735617914, seconds=3067.9, seed=150914),
+}
+GW_JAX_CPU_PROVENANCE = "tools/gw_jax_reference.py: JAX 0.9.0 on an Intel Xeon CPU, 2 threads a run, commit 1d1badc"
+#: the device likelihood on the card against the host's float64 one, as the
+#: JAX package's own test holds its float32 likelihood
+#: (tests/test_gw_example.py:60-64)
+GW_LIKELIHOOD_RTOL = 1e-4
+GW_LIKELIHOOD_ROWS = 4096
+#: iteration caps of the wider GW runs in the script (None runs to the end,
+#: as ``--gw-in-full`` does): each stops after its third training, two
+#: past the one that ends the uninformed phase (on the H100 the full model
+#: trained at iterations 5998, 6208 and 6704, the toy at 5543, 7155 and
+#: 8076, the calibration model at 2822, 2986 and 3374); the full model's
+#: cap is ``utils.profiling.GW_FULL_PROFILE_ITERATIONS``, where its profile
+#: stops too
+GW_SMOKE_ITERATIONS = {"gw_toy_cbc": 8100, "gw_calibration": 3500}
+#: the injected parameters that must lie inside the posterior's quantiles
+GW_QUANTILES = (0.001, 0.999)
+
+
+def _gw_module(name):
+    import importlib
+
+    return importlib.import_module(f"nessai_tpu_torch.examples.gw.{name}")
+
+
+class _K1Widths:
+    """Counts K1's forward and backward launches by the layer's width D
+    while it is entered."""
+
+    def __enter__(self):
+        from nessai_tpu_torch.ops import coupling
+
+        self.counts = {}
+        self._real = (coupling._forward, coupling._backward)
+        counts = self.counts
+        forward, backward = self._real
+
+        def counted_forward(x, *args, **kwargs):
+            counts.setdefault(int(x.shape[1]), [0, 0])[0] += 1
+            return forward(x, *args, **kwargs)
+
+        def counted_backward(x, *args, **kwargs):
+            counts.setdefault(int(x.shape[1]), [0, 0])[1] += 1
+            return backward(x, *args, **kwargs)
+
+        coupling._forward, coupling._backward = counted_forward, counted_backward
+        return self
+
+    def __exit__(self, *exc):
+        from nessai_tpu_torch.ops import coupling
+
+        coupling._forward, coupling._backward = self._real
+        return False
+
+
+def phase_gw_likelihood(smi):
+    """``gw_likelihood_gpu_vs_host``: each GW model's device likelihood
+    (toy, basic, full, calibration) on ``GW_LIKELIHOOD_ROWS`` prior draws
+    on the card against its float64 host likelihood, to
+    ``GW_LIKELIHOOD_RTOL``; the GPU time a call (CUDA events)."""
+    rows = {}
+    for name, cls in (("toy_cbc", "ToyCBCModel"), ("basic_gw_example", "BasicGWModel"),
+                      ("full_gw_example", "FullGWModel"), ("calibration_example", "CalibratedGWModel")):
+        model = getattr(_gw_module(name), cls)()
+        model.device = "cuda"
+        model.set_rng(np.random.default_rng(20261018))
+        x = model.new_point(GW_LIKELIHOOD_ROWS)
+        host = model.log_likelihood(x)
+        fn, data = model.device_log_likelihood_fn("cuda")
+        arr = torch.as_tensor(np.stack([x[n] for n in model.names], axis=1), dtype=torch.float32, device="cuda")
+        with torch.no_grad():
+            dev = fn(arr, data).double().cpu().numpy()
+            ms = time_ms(lambda: fn(arr, data), inner=10, repeats=10)
+        rel = float(np.max(np.abs(dev - host) / np.abs(host)))
+        rows[name] = dict(dims=model.dims, rows=GW_LIKELIHOOD_ROWS, max_rel_err=rel, ms=ms,
+                          data_bytes=int(sum(np.asarray(v).nbytes for v in model.torch_likelihood_data.values())),
+                          finite=bool(np.all(np.isfinite(dev))))
+    emit("gw_likelihood_gpu_vs_host", card=smi, rtol=GW_LIKELIHOOD_RTOL,
+         reference="the model's float64 numpy log_likelihood on the host", timer="CUDA events, median of 10 x 10 calls",
+         models=rows)
+    bad = {k: r for k, r in rows.items() if not r["finite"] or r["max_rel_err"] > GW_LIKELIHOOD_RTOL}
+    if bad:
+        raise RuntimeError(f"GW device likelihoods off the host's: {bad}")
+    return rows
+
+
+def _pull(logZ, sigma, reference, reference_sigma):
+    return (logZ - reference) / math.sqrt(sigma**2 + reference_sigma**2)
+
+
+def _gw_run(module, cls, max_iteration=None):
+    """One run of a GW example's model with its script's arguments on the
+    card, to ``max_iteration``; the summary with the counters, the K1
+    launches by width, the device populate's counts and the scan's
+    launches."""
+    m = _gw_module(module)
+    kwargs = dict(m.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
+    if max_iteration is not None:
+        kwargs["max_iteration"] = max_iteration
+    with _K1Widths() as widths:
+        fs, model, nested, wall, launches = _drive(kwargs, _k1_counters(), model=getattr(m, cls)())
+    result = _standard_result(fs, model, wall, launches, None)
+    proposal = fs.ns.flow_proposal
+    reasons = []
+    if not result["device_loop_calls"]:
+        reasons = [r for r, bad in (
+            ("no device inverse", not proposal.uses_device_inverse),
+            ("a prior that is neither a uniform box nor a torch_log_prior",
+             not (model.has_torch_prior or model.has_uniform_box_prior)),
+            ("a mesh", proposal.flow.mesh is not None),
+        ) if bad] or ["populate_mode or the truncation rules"]
+    result.update(
+        max_iteration=max_iteration,
+        k1_launches_by_width={str(k): v for k, v in sorted(widths.counts.items())},
+        flow_dims=len(proposal.prime_parameters),
+        prime_parameters=list(proposal.prime_parameters),
+        reparameterisations={k: type(r).__name__ for k, r in proposal._reparameterisation.items()},
+        device_loop_off_because=reasons,
+        device_steps=int(getattr(fs.ns, "_n_device_steps", 0)),
+        training_iterations=[int(i) for i in fs.ns.training_iterations],
+        uninformed_population_time_s=fs.ns._uninformed_proposal.population_time.total_seconds(),
+        likelihood_callback=bool(model.likelihood_callback),
+        has_torch_likelihood=bool(model.has_torch_likelihood),
+    )
+    live = fs.ns.live_points
+    host = model.log_likelihood(live)
+    result["live_logL_max_rel_err_vs_host"] = float(np.max(np.abs(live["logL"] - host) / np.abs(host)))
+    return result, nested, fs, model
+
+
+def _gw_check(name, result, nested, fs, model, dims=None):
+    """K1 forward and backward launched (at the flow's width ``dims``),
+    samples in bounds, the live points' stored logL the host's to
+    ``GW_LIKELIHOOD_RTOL``; the pull's gate where a reference is given."""
+    _check_standard(name, result, nested, fs, model)
+    if dims is not None and not all(result["k1_launches_by_width"].get(str(dims), [0, 0])):
+        raise RuntimeError(f"{name} launched no K1 at D = {dims}: {result['k1_launches_by_width']}")
+    if not result["live_logL_max_rel_err_vs_host"] <= GW_LIKELIHOOD_RTOL:
+        raise RuntimeError(f"{name}: live logL off the host's by {result['live_logL_max_rel_err_vs_host']}")
+    pull = result.get("pull_vs_jax_cpu")
+    if result["max_iteration"] is None and name in GW_JAX_CPU_LOGZ:
+        if pull is None or not math.isfinite(pull) or abs(pull) >= PULL_LIMIT:
+            raise RuntimeError(f"{name} logZ pull {pull} against the JAX package is not within {PULL_LIMIT} sigma")
+
+
+def _with_jax_pull(name, result):
+    ref = GW_JAX_CPU_LOGZ.get(name)
+    if ref is not None:
+        result.update(jax_cpu_logZ=ref["logZ"], jax_cpu_logZ_err=ref["sigma"], jax_cpu_seconds=ref["seconds"],
+                      jax_cpu_from=GW_JAX_CPU_PROVENANCE,
+                      pull_vs_jax_cpu=_pull(result["logZ"], result["logZ_err"], ref["logZ"], ref["sigma"]))
+    return result
+
+
+def phase_gw_basic():
+    """``gw_basic``: ``examples/gw/basic_gw_example.py`` as written (nlive
+    1000, seed 170817, angle-2pi on the phase, the data through
+    ``torch_likelihood_data``), in full. Fails unless |pull| < 3 against
+    the JAX package's logZ (``GW_JAX_CPU_LOGZ``), the injected chirp mass
+    and distance lie inside the posterior's 0.1-99.9% quantiles, the
+    samples are in bounds, K1 launched forward and backward at D = 5 and
+    the scan launched (the device populate loop and the prior's device
+    populate)."""
+    m = _gw_module("basic_gw_example")
+    result, nested, fs, model = _gw_run("basic_gw_example", "BasicGWModel")
+    _with_jax_pull("gw_basic", result)
+    post = fs.posterior_samples
+    inside = {}
+    for p in ("chirp_mass", "luminosity_distance"):
+        lo, hi = np.quantile(post[p], GW_QUANTILES)
+        inside[p] = dict(true=m.TRUE[p], quantiles=[float(lo), float(hi)], inside=bool(lo <= m.TRUE[p] <= hi))
+    result.update(injection_inside_posterior=inside)
+    emit("gw_basic", **result)
+    _gw_check("gw_basic", result, nested, fs, model, dims=5)
+    if not all(v["inside"] for v in inside.values()):
+        raise RuntimeError(f"gw_basic: an injected value lies outside the posterior's quantiles: {inside}")
+    _check_device_path("gw_basic", result, loop_kernel="k1_launches")
+    return result
+
+
+def phase_gw_callback(basic):
+    """``gw_callback``: ``examples/gw/callback_gw_example.py`` as written
+    (the host numpy likelihood with ``likelihood_callback``, nlive 1000,
+    seed 170817), in full. Fails unless |pull| < 3 against ``gw_basic``'s
+    logZ (the same data and likelihood, here in float64 on the host),
+    the callback stands in for the device likelihood, never on rejected
+    draws, and the scan never launched (the chain needs a device
+    likelihood, as in the JAX package)."""
+    result, nested, fs, model = _gw_run("callback_gw_example", "LalStyleGWModel")
+    _with_jax_pull("gw_callback", result)
+    proposal = fs.ns.flow_proposal
+    result.update(
+        pull_vs_gw_basic=_pull(result["logZ"], result["logZ_err"], basic["logZ"], basic["logZ_err"]),
+        callback_is_the_device_likelihood=model.get_device_log_likelihood("cuda") is not None,
+        callback_on_rejected_draws=bool(proposal._resolve_fuse_likelihood()),
+    )
+    emit("gw_callback", **result)
+    _gw_check("gw_callback", result, nested, fs, model)
+    if abs(result["pull_vs_gw_basic"]) >= PULL_LIMIT:
+        raise RuntimeError(f"gw_callback's logZ is {result['pull_vs_gw_basic']} sigma from gw_basic's")
+    if not (result["likelihood_callback"] and not result["has_torch_likelihood"]
+            and result["callback_is_the_device_likelihood"] and not result["callback_on_rejected_draws"]):
+        raise RuntimeError(f"gw_callback's likelihood callback is not in effect: {result}")
+    if result["ns_scan_launches"] or result["prior_device_populates"]:
+        raise RuntimeError(f"gw_callback launched the scan {result['ns_scan_launches']} times")
+    return result
+
+
+#: ``gw_ins`` in full took 229.8 s on the card (28 levels; PERF.md), over
+#: the 60 s the script allows it, so the script stops it after this many
+#: levels, without the redraw; ``--gw-in-full`` runs it as written
+GW_INS_SMOKE_LEVELS = 4
+
+
+def phase_gw_ins(basic=None, max_iteration=GW_INS_SMOKE_LEVELS):
+    """``gw_ins``: ``examples/gw/ins_gw_example.py`` (the importance
+    nested sampler on the basic model, nlive 2000, seed 151226), to
+    ``max_iteration`` levels. Fails unless logZ is finite, K1 launched
+    forward and backward, every ``log_prob_all`` covered every level and
+    the samples lie in bounds. Run as written (``max_iteration=None``: to
+    its end, then the final redraw to 2000 samples) it also fails unless
+    |pull| < 3 against the JAX package's logZ and ``basic``'s (where
+    given) and the redraw's ESS is at least 2000 (or stopped at
+    ``max_samples_ratio``)."""
+    from nessai_tpu_torch.flowmodel.importance import ImportanceFlowModel
+    from nessai_tpu_torch.utils.profiling import phase_times
+    from nessai_tpu_torch.utils.stats import effective_sample_size
+
+    m = _gw_module("ins_gw_example")
+    in_full = max_iteration is None
+    levels_seen = []
+    real = ImportanceFlowModel.log_prob_all
+
+    def recording(self, *args, **kwargs):
+        out = real(self, *args, **kwargs)
+        levels_seen.append((int(np.asarray(out).shape[-1]), int(self.n_models)))
+        return out
+
+    sampler_log = logging.getLogger("nessai_tpu_torch.samplers.importancesampler")
+    messages = _Messages()
+    sampler_log.addHandler(messages)
+    ImportanceFlowModel.log_prob_all = recording
+    try:
+        config = dict(m.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
+        if not in_full:
+            config["max_iteration"] = max_iteration
+        fs, model, samples, wall, launches = _drive(config, _k1_counters(), model=m.BasicGWModel(),
+                                                    run_kwargs=m.RUN_KWARGS if in_full else None)
+    finally:
+        ImportanceFlowModel.log_prob_all = real
+        sampler_log.removeHandler(messages)
+    ns = fs.ns
+    times = phase_times(fs)
+    result = dict(
+        max_iteration=max_iteration,
+        levels=times.pop("levels"),
+        samples=int(len(samples)),
+        # the sampler's own estimate, before the redraw where there is one
+        sampler_logZ=fs.initial_logZ if in_full else fs.logZ,
+        sampler_logZ_err=fs.initial_logZ_error if in_full else fs.logZ_error,
+        logZ=fs.logZ,
+        logZ_err=fs.logZ_error,
+        log_prob_all_calls=len(levels_seen),
+        wall_s=wall,
+        **times,
+        likelihood_evaluations=int(model.likelihood_evaluations),
+        **launches,
+        max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
+        posterior_samples=int(fs.posterior_samples.size),
+    )
+    pulls = []
+    if in_full:
+        n_post = m.RUN_KWARGS["n_posterior_samples"]
+        result.update(
+            redraw_ess=float(effective_sample_size(ns.final_log_w)),
+            redraw_stopped_at_max_samples_ratio=any(
+                "maximum number of redraw samples" in msg for msg in messages.messages
+            ),
+        )
+        _with_jax_pull("gw_ins", result)
+        pulls.append("pull_vs_jax_cpu")
+        if basic is not None:
+            result["pull_vs_gw_basic"] = _pull(fs.logZ, fs.logZ_error, basic["logZ"], basic["logZ_err"])
+            pulls.append("pull_vs_gw_basic")
+    emit("gw_ins", **result)
+    if launches["k1_launches"] == 0 or launches["k1_backward_launches"] == 0:
+        raise RuntimeError(f"gw_ins launched K1 {launches}")
+    if not math.isfinite(result["logZ"]):
+        raise RuntimeError(f"gw_ins logZ {result['logZ']}")
+    for key in pulls:
+        if not math.isfinite(result[key]) or abs(result[key]) >= PULL_LIMIT:
+            raise RuntimeError(f"gw_ins {key} {result[key]} is not within {PULL_LIMIT} sigma")
+    if not levels_seen or any(cols != n for cols, n in levels_seen):
+        raise RuntimeError(f"gw_ins: a log_prob_all call missed a level: {levels_seen}")
+    if not _in_bounds(samples, model) or not _in_bounds(fs.posterior_samples, model):
+        raise RuntimeError("gw_ins: samples are empty, not finite or out of bounds")
+    if in_full and result["redraw_ess"] < n_post and not result["redraw_stopped_at_max_samples_ratio"]:
+        raise RuntimeError(f"gw_ins: the redraw's ESS {result['redraw_ess']} is below {n_post}")
+    return result
+
+
+def phase_gw_full(max_iteration):
+    """``gw_full``: ``examples/gw/full_gw_example.py`` at full width (9
+    parameters, angle-2pi on the phase, angle-pi on psi, the angle pair on
+    (ra, dec): 12 prime dimensions; a 6 x 32 RealNVP; nlive 2000), to
+    ``max_iteration`` (None: to its end, with the pull's gate). Fails
+    unless the angle pair's three prime parameters and both angle
+    reparameterisations are in the stack, K1 launched forward and backward
+    at D = 12, the live points' logL are the host's, ra and dec stay in
+    their ranges and the samples in bounds."""
+    result, nested, fs, model = _gw_run("full_gw_example", "FullGWModel", max_iteration=max_iteration)
+    _with_jax_pull("gw_full", result)
+    post = fs.posterior_samples
+    ra = np.concatenate([nested["ra"], post["ra"]])
+    dec = np.concatenate([nested["dec"], post["dec"]])
+    result.update(
+        trainings_after_the_uninformed_phase=result["trainings"] - 1,
+        ra_range=[float(ra.min()), float(ra.max())],
+        dec_range=[float(dec.min()), float(dec.max())],
+    )
+    emit("gw_full", **result)
+    _gw_check("gw_full", result, nested, fs, model, dims=12)
+    prime = set(result["prime_parameters"])
+    kinds = sorted(result["reparameterisations"].values())
+    if not {"ra_x", "ra_y", "ra_z"} <= prime or result["flow_dims"] != 12:
+        raise RuntimeError(f"gw_full: the angle pair's prime parameters are missing: {result['prime_parameters']}")
+    if not {"AnglePair", "Angle"} <= set(kinds) or sum(k == "Angle" for k in kinds) < 2:
+        raise RuntimeError(f"gw_full: the stack is {result['reparameterisations']}")
+    if not (ra.min() >= 0.0 and ra.max() <= 2 * np.pi and dec.min() >= -np.pi / 2 and dec.max() <= np.pi / 2):
+        raise RuntimeError(f"gw_full: ra {result['ra_range']} or dec {result['dec_range']} out of range")
+    if max_iteration is not None and result["trainings"] < 3:
+        raise RuntimeError(f"gw_full stopped after {result['trainings']} trainings")
+    return result
+
+
+def phase_gw_toy_cbc(max_iteration=GW_SMOKE_ITERATIONS["gw_toy_cbc"]):
+    """``gw_toy_cbc``: ``examples/gw/toy_cbc.py`` at full width (5
+    parameters, angle-2pi on phi0: D = 6; nlive 2000, seed 1234), to
+    ``max_iteration`` (None: to its end, with the pull's gate). Fails
+    unless K1 launched at D = 6, the live points' logL are the host's and
+    the samples are in bounds."""
+    result, nested, fs, model = _gw_run("toy_cbc", "ToyCBCModel", max_iteration=max_iteration)
+    _with_jax_pull("gw_toy_cbc", result)
+    emit("gw_toy_cbc", **result)
+    _gw_check("gw_toy_cbc", result, nested, fs, model, dims=6)
+    return result
+
+
+def phase_gw_calibration(max_iteration=GW_SMOKE_ITERATIONS["gw_calibration"]):
+    """``gw_calibration``: ``examples/gw/calibration_example.py`` at full
+    width (4 source parameters and 6 calibration nodes with a truncated
+    Gaussian host prior, angle-2pi on the phase: D = 11; a 6 x 32 RealNVP;
+    nlive 1000), to ``max_iteration`` (None: to its end, with the pull's
+    gate). The non-box host prior keeps it on the rounds populate with the
+    prior on the host, as in the JAX package. Fails unless K1 launched at
+    D = 11, the device populate loop and the prior's device populate did
+    not run, the live points' logL are the host's and the samples are in
+    bounds."""
+    result, nested, fs, model = _gw_run("calibration_example", "CalibratedGWModel", max_iteration=max_iteration)
+    _with_jax_pull("gw_calibration", result)
+    emit("gw_calibration", **result)
+    _gw_check("gw_calibration", result, nested, fs, model, dims=11)
+    if result["device_loop_calls"] or result["prior_device_populates"]:
+        raise RuntimeError(f"gw_calibration took a device populate: {result}")
     return result
 
 
@@ -2843,11 +3317,75 @@ def child_ins_resume(output):
     )
 
 
+#: phases run in a process of their own, beside the main process's phases
+#: from ``flagship_mesh`` on (for the script's time: a
+#: sampler run keeps the GPU busy for a small share of its wall, PERF.md
+#: §5, and no phase reads another's wall); each prints its line as before,
+#: and their seconds are the ``seconds`` line's ``in_background``
+BACKGROUND_PHASES = {
+    "flagship_ins_mixture": phase_flagship_ins_mixture,
+    "ins_options": phase_ins_options,
+    "flagship_ins_hypercube": phase_flagship_ins_hypercube,
+    "standard_options": phase_standard_options,
+}
+#: seconds the background process may take, from its start
+BACKGROUND_TIMEOUT_S = 900
+
+
+def child_background(output):
+    """``BACKGROUND_PHASES`` one after another, with their seconds."""
+    _gpu_settings()
+    seconds = {}
+    results = {name: timed(seconds, name, phase) for name, phase in BACKGROUND_PHASES.items()}
+    _child_result(seconds=seconds, results=results)
+
+
+class _Background:
+    """``chip_smoke.py --child background``, started at once: the
+    ``BACKGROUND_PHASES`` run beside the phases that follow."""
+
+    def __init__(self):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.dir = tempfile.mkdtemp(dir=root, prefix=".chip_smoke_background_")
+        self.log = os.path.join(self.dir, "background.log")
+        self.start = time.perf_counter()
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--child", "background", self.dir],
+                stdout=out,
+                stderr=subprocess.STDOUT,
+            )
+
+    def collect(self):
+        """Wait for the process, print its phase lines and return its
+        seconds and results; raises if it failed."""
+        rc = self.proc.wait(timeout=max(1.0, BACKGROUND_TIMEOUT_S - (time.perf_counter() - self.start)))
+        with open(self.log) as f:
+            lines = f.read().splitlines()
+        result = None
+        for line in lines:
+            if line.startswith('{"phase"'):
+                print(line, flush=True)
+            elif line.startswith('{"child_result"'):
+                result = json.loads(line)["child_result"]
+        if rc != 0 or result is None:
+            print("\n".join(lines[-60:]), file=sys.stderr, flush=True)
+            raise RuntimeError(f"the background phases failed with exit code {rc}")
+        return result
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 CHILDREN = {
     "standard_first": child_standard_first,
     "standard_resume": child_standard_resume,
     "ins_first": child_ins_first,
     "ins_resume": child_ins_resume,
+    "background": child_background,
 }
 
 
@@ -3028,15 +3566,29 @@ def phase_resume_on_cpu(output):
 
 
 def phase_resume(seconds):
-    """The three resume phases in one fresh directory."""
+    """The three resume phases in one fresh directory. The standard and the
+    INS resume phases run at the same time, each in a thread of its own
+    waiting on its child processes (the children's start, not their runs,
+    takes most of each phase's wall; for the script's time),
+    so their seconds are one entry, ``resume_standard_and_ins``; each
+    phase's line gives its children's walls."""
+    import concurrent.futures
+
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_resume_") as output:
         standard = os.path.join(output, "standard")
         ins = os.path.join(output, "ins")
         os.makedirs(standard)
         os.makedirs(ins)
-        results = dict(resume_standard=timed(seconds, "resume_standard", phase_resume_standard, standard))
-        results["resume_ins"] = timed(seconds, "resume_ins", phase_resume_ins, ins)
+        start = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+            futures = dict(
+                resume_standard=pool.submit(phase_resume_standard, standard),
+                resume_ins=pool.submit(phase_resume_ins, ins),
+            )
+            # both are waited for, and the first failure is raised
+            results = {name: future.result() for name, future in futures.items()}
+        seconds["resume_standard_and_ins"] = time.perf_counter() - start
         timed(seconds, "resume_on_cpu", phase_resume_on_cpu, standard)
     return results
 
@@ -3125,8 +3677,25 @@ def main():
             traceback.print_exc()
             return 1
         return 0
+    if sys.argv[1:2] == ["--gw-in-full"]:
+        logging.getLogger("nessai_tpu_torch").setLevel(logging.INFO)
+        logging.getLogger("nessai_tpu_torch").addHandler(logging.StreamHandler())
+        seconds = {}
+        try:
+            timed(seconds, "environment", phase_environment)
+            timed(seconds, "build", phase_build)
+            timed(seconds, "gw_full", phase_gw_full, max_iteration=None)
+            timed(seconds, "gw_toy_cbc", phase_gw_toy_cbc, max_iteration=None)
+            timed(seconds, "gw_calibration", phase_gw_calibration, max_iteration=None)
+            timed(seconds, "gw_ins", phase_gw_ins, max_iteration=None)
+            emit("seconds", **seconds, total=sum(seconds.values()))
+        except Exception:
+            traceback.print_exc()
+            return 1
+        return 0
+    background = None
     try:
-        from nessai_tpu_torch.utils.profiling import FLAGSHIP, FLAGSHIP_NSF
+        from nessai_tpu_torch.utils.profiling import FLAGSHIP, FLAGSHIP_NSF, GW_FULL_PROFILE_ITERATIONS
 
         seconds = {}
         smi = timed(seconds, "environment", phase_environment)
@@ -3153,8 +3722,10 @@ def main():
               reference_dtype=torch.float64, context_features=CONTEXT_FEATURES)
         timed(seconds, "ins_flow", phase_ins_flow)
         timed(seconds, "reparam_inverse", phase_reparam_inverse)
+        timed(seconds, "gw_likelihood_gpu_vs_host", phase_gw_likelihood, smi)
         timed(seconds, "mesh_dp_step", phase_mesh_dp_step)
         flagship = timed(seconds, "flagship", phase_flagship)
+        background = _Background()
         flagship_mesh = timed(seconds, "flagship_mesh", phase_flagship_mesh, flagship)
         bookkeeping = timed(seconds, "flagship_device_loop", phase_flagship_device_loop, flagship)
         flagship_nsf = timed(seconds, "flagship_nsf", phase_flagship_nsf)
@@ -3162,24 +3733,33 @@ def main():
         split = timed(seconds, "flagship_fuse_likelihood_false", phase_flagship_fuse_likelihood_false, rounds)
         flagship_ins = timed(seconds, "flagship_ins", phase_flagship_ins)
         flagship_ins_mesh = timed(seconds, "flagship_ins_mesh", phase_flagship_ins_mesh, flagship_ins)
-        mixture = timed(seconds, "flagship_ins_mixture", phase_flagship_ins_mixture)
-        options = timed(seconds, "ins_options", phase_ins_options)
         inversion = timed(seconds, "flagship_reparam_inversion", phase_flagship_reparam_inversion)
         angle = timed(seconds, "flagship_reparam_angle", phase_flagship_reparam_angle)
         lu = timed(seconds, "flagship_lu", phase_flagship_lu)
-        hypercube = timed(seconds, "flagship_ins_hypercube", phase_flagship_ins_hypercube)
         eggbox = timed(seconds, "flagship_eggbox", phase_flagship_eggbox)
         augmented = timed(seconds, "flagship_augmented", phase_flagship_augmented)
         mcmc = timed(seconds, "flagship_mcmc", phase_flagship_mcmc)
         clustering = timed(seconds, "flagship_clustering", phase_flagship_clustering)
-        standard_options = timed(seconds, "standard_options", phase_standard_options)
+        gw_basic = timed(seconds, "gw_basic", phase_gw_basic)
+        gw_callback = timed(seconds, "gw_callback", phase_gw_callback, gw_basic)
+        gw_ins = timed(seconds, "gw_ins", phase_gw_ins, gw_basic)
+        gw_full = timed(seconds, "gw_full", phase_gw_full, GW_FULL_PROFILE_ITERATIONS)
+        gw_toy_cbc = timed(seconds, "gw_toy_cbc", phase_gw_toy_cbc)
+        gw_calibration = timed(seconds, "gw_calibration", phase_gw_calibration)
         checkpointing = timed(seconds, "flagship_checkpointing", phase_flagship_checkpointing, flagship)
         pool = timed(seconds, "pool_reparam_angle", phase_pool_reparam_angle, angle)
+        in_background = timed(seconds, "background_wait", background.collect)
+        mixture, options, hypercube, standard_options = (
+            in_background["results"][name] for name in BACKGROUND_PHASES
+        )
         resumed = phase_resume(seconds)
-        emit("seconds", **seconds, total=sum(seconds.values()))
+        emit("seconds", **seconds, total=sum(seconds.values()), in_background=in_background["seconds"])
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        if background is not None:
+            background.stop()
     kernels = []
     runs = {
         "flagship": flagship,
@@ -3200,6 +3780,12 @@ def main():
         "flagship_augmented": augmented,
         "flagship_mcmc": mcmc,
         "flagship_clustering": clustering,
+        "gw_basic": gw_basic,
+        "gw_callback": gw_callback,
+        "gw_ins": gw_ins,
+        "gw_full": gw_full,
+        "gw_toy_cbc": gw_toy_cbc,
+        "gw_calibration": gw_calibration,
         **standard_options,
         "flagship_checkpointing": checkpointing,
         "pool_reparam_angle": pool,

@@ -7,7 +7,12 @@ also needs the maps ``to_unit_hypercube`` and ``from_unit_hypercube``
 ``torch_log_likelihood(x)`` hook takes a ``[n, dims]`` float32 tensor on
 the model's device (columns ordered like ``names``) and returns ``[n]``
 log-likelihoods; when present, batched evaluation and the flow
-proposal's populate run it on the device. The device populate loop needs
+proposal's populate run it on the device. A likelihood that needs data
+(observed strain, PSDs) declares it as ``torch_likelihood_data``, a dict of
+numpy arrays: the hook is then called as ``torch_log_likelihood(x, data)``
+with the same dict as tensors on ``x``'s device, moved there once a device
+and never pickled. A host likelihood joins the populate's device call with
+``likelihood_callback = True``. The device populate loop needs
 the prior on the device too: a ``torch_log_prior(x)`` hook of the same
 form, or a uniform prior on the box of ``bounds`` (declared with
 ``uniform_prior_box = True``, or found by :attr:`Model.has_uniform_box_prior`).
@@ -21,6 +26,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from . import config
 from .livepoint import (
     empty_structured_array,
     live_points_to_array,
@@ -67,6 +73,9 @@ class Model(ABC):
     likelihood_evaluations: int = 0
     likelihood_evaluation_time = datetime.timedelta()
     allow_vectorised: bool = True
+    #: Allow the prior (and the unit-hypercube prior) to be evaluated on
+    #: batches; False makes both per point
+    allow_vectorised_prior: bool = True
     allow_multi_valued_likelihood: bool = False
     #: names of the discrete parameters (None if there are none): the
     #: model check then draws its probe with ``new_point``
@@ -75,8 +84,17 @@ class Model(ABC):
     #: Device of ``torch_log_likelihood`` (``None`` means CUDA); the
     #: sampler sets it to its own device.
     device = None
-    #: Optional device hook: ``[n, dims]`` float32 tensor -> ``[n]``.
+    #: Optional device hook: ``[n, dims]`` float32 tensor -> ``[n]``;
+    #: ``(x, data)`` where :attr:`torch_likelihood_data` is set.
     torch_log_likelihood = None
+    #: Optional data of ``torch_log_likelihood``: a dict of numpy arrays
+    #: (observed data, PSDs, ...), given to the hook as float32 tensors on
+    #: the device it runs on (:meth:`device_log_likelihood_fn`)
+    torch_likelihood_data = None
+    #: Let the host ``log_likelihood`` stand in for a device likelihood
+    #: where no ``torch_log_likelihood`` is defined: the populate's device
+    #: call may then evaluate it on its rows (copied to the host and back)
+    likelihood_callback: bool = False
     #: Optional device prior, of the same form as ``torch_log_likelihood``.
     torch_log_prior = None
     #: Whether ``log_prior`` is the uniform density on the box of
@@ -187,6 +205,70 @@ class Model(ABC):
     def has_torch_prior(self) -> bool:
         return callable(self.torch_log_prior)
 
+    def _callback_log_likelihood(self, arr) -> np.ndarray:
+        """The host ``log_likelihood`` of a ``[n, dims]`` array in
+        ``names`` order, as float32; counts nothing (the caller does)."""
+        x = numpy_array_to_live_points(np.asarray(arr, np.float64), self.names)
+        out = batch_evaluate_function(
+            self.log_likelihood, x, self.vectorised_likelihood, chunksize=self.likelihood_chunksize
+        )
+        return np.asarray(out, np.float32)
+
+    def device_log_likelihood_fn(self, device=None):
+        """``(fn, data)`` where ``fn(x, data)`` evaluates the likelihood of
+        a ``[n, dims]`` float32 tensor on ``device`` (by default the
+        model's), or None where there is no device path. ``data`` is
+        :attr:`torch_likelihood_data` as tensors on ``device`` (None when
+        unused). The ``torch_log_likelihood`` hook comes first; else, with
+        :attr:`likelihood_callback`, the host ``log_likelihood`` on the
+        rows, returned as float32 on the rows' device."""
+        if self.has_torch_likelihood:
+            ll = self.torch_log_likelihood
+            if self.torch_likelihood_data is not None:
+                device = get_device(self.device if device is None else device)
+                return (lambda x, data: ll(x, data)), self._device_likelihood_data(device)
+            return (lambda x, data: ll(x)), None
+        if not self.likelihood_callback:
+            return None
+
+        def callback_ll(x, data):
+            out = self._callback_log_likelihood(x.detach().cpu().numpy())
+            return torch.as_tensor(out, device=x.device)
+
+        return callback_ll, None
+
+    def _device_likelihood_data(self, device) -> dict:
+        """:attr:`torch_likelihood_data` as tensors on ``device``
+        (floating arrays as float32), moved once a device and cached until
+        the attribute is rebound to another object."""
+        data = self.torch_likelihood_data
+        if data is None:
+            return None
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        cache = self.__dict__.get("_ll_data_device_cache")
+        if cache is None or cache[0] is not data:
+            cache = (data, {})
+            self._ll_data_device_cache = cache
+        if device not in cache[1]:
+            tensors = {}
+            for k, v in data.items():
+                v = np.asarray(v)
+                floating = np.issubdtype(v.dtype, np.floating)
+                tensors[k] = torch.as_tensor(v, dtype=torch.float32 if floating else None, device=device)
+            cache[1][device] = tensors
+        return cache[1][device]
+
+    def get_device_log_likelihood(self, device=None):
+        """``fn(x)`` with the data of :meth:`device_log_likelihood_fn`
+        bound, or None."""
+        built = self.device_log_likelihood_fn(device)
+        if built is None:
+            return None
+        fn, data = built
+        return lambda x: fn(x, data)
+
     @property
     def has_uniform_box_prior(self) -> bool:
         """Whether ``log_prior`` is the uniform density on the box of
@@ -257,6 +339,33 @@ class Model(ABC):
     def unstructured_view(self, x) -> np.ndarray:
         return _unstructured_view(x, names=self.names)
 
+    def parameter_in_bounds(self, x, name) -> np.ndarray:
+        """Elementwise check that values of parameter ``name`` lie in its
+        bounds."""
+        return (x >= self.bounds[name][0]) & (x <= self.bounds[name][1])
+
+    def sample_parameter(self, name, n=1):
+        """Draw ``n`` values of one parameter from its prior; not
+        implemented by default."""
+        raise NotImplementedError("User must implement this method!")
+
+    @classmethod
+    def check_new_point_methods(cls):
+        """``new_point`` and ``new_point_log_prob`` must be redefined
+        together; raises :class:`ModelError` where one is alone."""
+        if cls.new_point != Model.new_point:
+            logger.debug("`new_point` method has been redefined.")
+            if cls.new_point_log_prob == Model.new_point_log_prob:
+                raise ModelError("`new_point` method has been redefined but `new_point_log_prob` has not.")
+        if cls.new_point_log_prob != Model.new_point_log_prob:
+            logger.debug("`new_point_log_prob` method has been redefined.")
+            if cls.new_point == Model.new_point:
+                raise ModelError("`new_point_log_prob` method has been redefined but `new_point` has not.")
+
+    def batch_evaluate_dtype(self):
+        """The float dtype of the live points' fields."""
+        return config.livepoints.default_float_dtype
+
     def new_point(self, N: int = 1):
         """Draw N points from the prior box with finite log-prior, by
         rejection."""
@@ -283,6 +392,8 @@ class Model(ABC):
 
     @property
     def vectorised_likelihood(self) -> bool:
+        """Whether ``log_likelihood`` accepts batches: found by comparing
+        batched and per-point outputs, unless set."""
         if self._vectorised_likelihood is None:
             if self.has_torch_likelihood:
                 self._vectorised_likelihood = True
@@ -294,28 +405,50 @@ class Model(ABC):
                 )
         return self._vectorised_likelihood
 
+    @vectorised_likelihood.setter
+    def vectorised_likelihood(self, value):
+        self._vectorised_likelihood = value
+
     @property
     def vectorised_prior(self) -> bool:
+        """Whether ``log_prior`` accepts batches (False where
+        :attr:`allow_vectorised_prior` is False or the probe fails)."""
         if self._vectorised_prior is None:
-            arr = self._require_rng().uniform(
-                self.lower_bounds, self.upper_bounds, (4, self.dims)
-            )
-            self._vectorised_prior = check_vectorised_function(
-                self.log_prior, numpy_array_to_live_points(arr, self.names)
-            )
+            if not self.allow_vectorised_prior:
+                self._vectorised_prior = False
+                return False
+            try:
+                arr = self._require_rng().uniform(self.lower_bounds, self.upper_bounds, (4, self.dims))
+                self._vectorised_prior = check_vectorised_function(
+                    self.log_prior, numpy_array_to_live_points(arr, self.names)
+                )
+            except Exception:
+                self._vectorised_prior = False
         return self._vectorised_prior
+
+    @vectorised_prior.setter
+    def vectorised_prior(self, value):
+        self._vectorised_prior = value
 
     @property
     def vectorised_prior_unit_hypercube(self) -> bool:
-        """Whether ``log_prior_unit_hypercube`` accepts batches."""
+        """Whether ``log_prior_unit_hypercube`` accepts batches, as
+        :attr:`vectorised_prior`."""
         if self._vectorised_prior_unit_hypercube is None:
-            self._vectorised_prior_unit_hypercube = (
-                self.allow_vectorised
-                and check_vectorised_function(
+            if not self.allow_vectorised_prior:
+                self._vectorised_prior_unit_hypercube = False
+                return False
+            try:
+                self._vectorised_prior_unit_hypercube = check_vectorised_function(
                     self.log_prior_unit_hypercube, self.sample_unit_hypercube(4)
                 )
-            )
+            except Exception:
+                self._vectorised_prior_unit_hypercube = False
         return self._vectorised_prior_unit_hypercube
+
+    @vectorised_prior_unit_hypercube.setter
+    def vectorised_prior_unit_hypercube(self, value):
+        self._vectorised_prior_unit_hypercube = value
 
     def configure_pool(self, pool=None, n_pool=None) -> None:
         """Use ``pool`` (any object with ``map``), or a new
@@ -364,13 +497,11 @@ class Model(ABC):
             x = self.from_unit_hypercube(x)
         st = datetime.datetime.now()
         if self.has_torch_likelihood:
-            arr = torch.as_tensor(
-                live_points_to_array(x, self.names),
-                dtype=torch.float32,
-                device=get_device(self.device),
-            )
+            device = get_device(self.device)
+            fn, data = self.device_log_likelihood_fn(device)
+            arr = torch.as_tensor(live_points_to_array(x, self.names), dtype=torch.float32, device=device)
             with torch.no_grad():
-                out = self.torch_log_likelihood(arr)
+                out = fn(arr, data)
             out = out.cpu().numpy().astype(np.float64)
         else:
             out = batch_evaluate_function(
@@ -423,6 +554,7 @@ class Model(ABC):
             raise ModelError("Names for model parameters are not set")
         if not self.bounds:
             raise ModelError("Bounds are not set for model")
+        self.check_new_point_methods()
         for n in self.names:
             b = self.bounds.get(n)
             if b is None or len(b) != 2:
@@ -485,10 +617,13 @@ class Model(ABC):
                 )
 
     def __getstate__(self):
-        """The pool stays out of a pickle."""
+        """The pool and the likelihood data's device tensors stay out of a
+        pickle (the data's numpy arrays stay in; the tensors are made again
+        on first use)."""
         state = self.__dict__.copy()
         state["pool"] = None
         state["_pool_configured"] = False
+        state.pop("_ll_data_device_cache", None)
         return state
 
 
@@ -505,6 +640,12 @@ class UniformPriorMixin:
         for n in self.names:
             log_p -= np.log(self.bounds[n][1] - self.bounds[n][0])
         return log_p
+
+    def sample_parameter(self, name, n=1):
+        """Uniform draws of one parameter in its bounds, from the model's
+        ``rng``."""
+        lo, hi = self.bounds[name]
+        return self._require_rng().uniform(lo, hi, int(n))
 
     def to_unit_hypercube(self, x):
         x_out = x.copy()

@@ -342,17 +342,24 @@ class FlowProposal(BaseFlowProposal):
 
     def _resolve_fuse_likelihood(self) -> bool:
         """Whether the populate's device call also evaluates the
-        likelihood (decided once): a rule that needs the likelihood forces
-        it, else ``fuse_likelihood``, else fused. Only a model with a
-        device likelihood fuses it."""
+        likelihood (decided once), by the JAX package's rule
+        (``flowproposal.py:412-440``). A host likelihood standing in for a
+        device one (``likelihood_callback``) runs on the host after the
+        call on a mesh, and on rejected draws only where a rule needs the
+        likelihood or ``fuse_likelihood`` asks for it. Otherwise a rule
+        that needs the likelihood forces it, else ``fuse_likelihood``,
+        else fused. A model with no device likelihood never fuses it."""
+        model = self.model
         if self._fuse_likelihood_resolved is None:
-            if self.truncation.requires_log_likelihood:
+            if not model.has_torch_likelihood and self.flow is not None and self.flow.mesh is not None:
+                self._fuse_likelihood_resolved = False
+            elif self.truncation.requires_log_likelihood:
                 self._fuse_likelihood_resolved = True
             elif self.fuse_likelihood is not None:
                 self._fuse_likelihood_resolved = bool(self.fuse_likelihood)
             else:
-                self._fuse_likelihood_resolved = True
-        return self._fuse_likelihood_resolved and self.model.has_torch_likelihood
+                self._fuse_likelihood_resolved = model.has_torch_likelihood
+        return self._fuse_likelihood_resolved and (model.has_torch_likelihood or model.likelihood_callback)
 
     @property
     def _can_fuse_populate(self) -> bool:
@@ -424,7 +431,8 @@ class FlowProposal(BaseFlowProposal):
         in_b = torch.all((x_model >= lower) & (x_model <= upper), dim=1)
         columns = [x, log_q[:, None], in_b[:, None].to(x.dtype)]
         if with_likelihood:
-            columns.append(model.torch_log_likelihood(x_model)[:, None])
+            ll_fn, ll_data = model.device_log_likelihood_fn(device)
+            columns.append(ll_fn(x_model, ll_data)[:, None])
         return torch.cat(columns, dim=1)
 
     def _bounds_on(self, device):
@@ -669,7 +677,8 @@ class FlowProposal(BaseFlowProposal):
         columns = [buf]
         log_l_dev = None
         if with_ll:
-            log_l_dev = model.torch_log_likelihood(buf[:, : len(model.names)]).to(torch.float32)
+            ll_fn, ll_data = model.device_log_likelihood_fn(device)
+            log_l_dev = ll_fn(buf[:, : len(model.names)], ll_data).to(torch.float32)
             columns.append(log_l_dev[:, None])
         scan_out = None
         if scan is not None and count_host >= cap:

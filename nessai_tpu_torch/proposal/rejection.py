@@ -73,13 +73,14 @@ class RejectionProposal(AnalyticProposal):
     def _device_populate(self, N: int) -> None:
         """One device call (``rejection.py:77-192``): ``_bucket_size(N)``
         uniform draws in the prior box from a device generator and the
-        model's ``torch_log_likelihood`` on them. The uniform box prior
-        makes every weight the same, so every draw is accepted and the pool
-        is exactly prior-distributed. The host stream ``rng`` gives the pop
-        order first, then the generator's seed, as in the JAX package;
-        where the sampler asks for the nested-sampling scan
-        (``_ns_scan_request``), it runs on the pool's likelihoods in pop
-        order and its outputs wait in ``_pending_ns_scan``."""
+        model's device likelihood (:meth:`Model.device_log_likelihood_fn`)
+        on them. The uniform box prior makes every weight the same, so every
+        draw is accepted and the pool is exactly prior-distributed. The host
+        stream ``rng`` gives the pop order first, then the generator's seed,
+        as in the JAX package; where the sampler asks for the
+        nested-sampling scan (``_ns_scan_request``), it runs on the pool's
+        likelihoods in pop order and its outputs wait in
+        ``_pending_ns_scan``."""
         m = self.model
         device = get_device(m.device)
         d = m.dims
@@ -92,7 +93,8 @@ class RejectionProposal(AnalyticProposal):
         lower = torch.as_tensor(np.asarray(m.lower_bounds, np.float32), device=device)
         upper = torch.as_tensor(np.asarray(m.upper_bounds, np.float32), device=device)
         x = lower + torch.rand(N, d, generator=gen, device=device) * (upper - lower)
-        log_l = m.torch_log_likelihood(x).to(torch.float32)
+        ll_fn, ll_data = m.device_log_likelihood_fn(device)
+        log_l = ll_fn(x, ll_data).to(torch.float32)
         prior_populate_counts.populates += 1
         if scan_req is not None:
             from ..samplers.ns_device import chain_scan

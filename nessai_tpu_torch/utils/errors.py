@@ -17,3 +17,7 @@ class RNGSetError(RNGError):
 
     def __init__(self, msg: str = "rng already set") -> None:
         super().__init__(msg)
+
+
+class SamplingError(RuntimeError):
+    """Raised when sampling fails irrecoverably."""

@@ -7,9 +7,9 @@ GPU spent. Run as a script on a GPU machine to trace the flagship runs::
 
     python -m nessai_tpu_torch.utils.profiling [realnvp] [nsf] [ins] [ins_mixture] \
         [reparam_inversion] [reparam_angle] [ins_hypercube] [lu] [eggbox] [augmented] \
-        [mcmc] [clustering]
+        [mcmc] [clustering] [gw_basic] [gw_full]
 
-It profiles the named runs, by default all twelve: the RealNVP flagship,
+It profiles the named runs, by default all fourteen: the RealNVP flagship,
 the neural-spline flagship, the importance nested sampler's flagship,
 its Gaussian-mixture configuration (with the final redraw), the
 half-Gaussian and angle examples through the reparameterisations, the
@@ -17,9 +17,10 @@ importance nested sampler with its neural spline flow on the unit
 hypercube (``tails=None``, the Rosenbrock likelihood in 4 dimensions;
 its trace holds the GPU alone), the documented RealNVP with LU
 linear layers, the egg-box and augmented-proposal examples and the MCMC
-example (their traces hold the GPU alone), and the RealNVP flagship with
-the clustering flow proposal. Each runs
-three times in one process: a first run (which also pays for the CUDA
+example (their traces hold the GPU alone), the RealNVP flagship with
+the clustering flow proposal, and the GW examples' basic model (5-D
+flow) and full model (12-D flow, to 7000 iterations), their traces the
+GPU alone. Each runs three times in one process: a first run (which also pays for the CUDA
 context, the kernel build or load and the library handles), a run
 without tracing and a run under the profiler (the mixture's traces the
 GPU alone). For each it prints one JSON object with the untraced runs'
@@ -49,6 +50,8 @@ import time
 
 import torch
 
+from ..examples.gw import basic_gw_example, full_gw_example
+
 __all__ = [
     "FLAGSHIP",
     "FLAGSHIP_NSF",
@@ -63,6 +66,8 @@ __all__ = [
     "FLAGSHIP_AUGMENTED",
     "FLAGSHIP_MCMC",
     "FLAGSHIP_CLUSTERING",
+    "FLAGSHIP_GW_BASIC",
+    "FLAGSHIP_GW_FULL",
     "OWN_KERNELS",
     "populate_counters",
     "gpu_kernel_events",
@@ -254,6 +259,20 @@ FLAGSHIP_MCMC = dict(
 #: package's default of 8 clusters: every coupling's net takes the
 #: one-hot cluster label as its context.
 FLAGSHIP_CLUSTERING = dict(FLAGSHIP, flow_class="clusteringflowproposal", max_clusters=8)
+
+#: ``examples/gw/basic_gw_example.py`` as written: the frequency-domain
+#: inspiral in two detectors, nlive 1000, seed 170817, angle-2pi on the
+#: phase (a 5-D flow), the data through ``torch_likelihood_data``
+FLAGSHIP_GW_BASIC = dict(basic_gw_example.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
+
+#: the iteration at which ``gw_full`` stops here and in ``chip_smoke.py``
+#: (in full the run took 1202 s on the H100), past its third training
+GW_FULL_PROFILE_ITERATIONS = 7000
+
+#: ``examples/gw/full_gw_example.py`` as written: 9 parameters with sky
+#: location, nlive 2000, seed 150914, a 6 x 32 RealNVP on 12 prime
+#: dimensions (angle-2pi, angle-pi and the angle pair)
+FLAGSHIP_GW_FULL = dict(full_gw_example.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
 
 
 @contextlib.contextmanager
@@ -488,7 +507,7 @@ def profile_flagship(
 
 
 def _main(names) -> None:
-    """Profile the named runs (all twelve by default) and print one JSON
+    """Profile the named runs (all fourteen by default) and print one JSON
     object for each."""
     from ..ops.coupling import affine_coupling
     from ..ops.rqs import rqs
@@ -525,6 +544,14 @@ def _main(names) -> None:
         "augmented": (dict(config=FLAGSHIP_AUGMENTED, model=BimodalGaussianModel, trace_cpu=False), k1),
         "mcmc": (dict(config=FLAGSHIP_MCMC, model=GaussianModel, trace_cpu=False), k1),
         "clustering": (dict(config=FLAGSHIP_CLUSTERING), k1),
+        # 1167 epochs: with the CPU's records the trace was not read back
+        # within 10 minutes on the H100
+        "gw_basic": (dict(config=FLAGSHIP_GW_BASIC, model=basic_gw_example.BasicGWModel, trace_cpu=False), k1),
+        "gw_full": (
+            dict(config=dict(FLAGSHIP_GW_FULL, max_iteration=GW_FULL_PROFILE_ITERATIONS),
+                 model=full_gw_example.FullGWModel, trace_cpu=False),
+            k1,
+        ),
     }
     for name in names or runs:
         kwargs, (wrapper, prefix) = runs[name]

@@ -1,8 +1,10 @@
 """The port's public surface against the JAX package's: for every module
 of ``nessai_tpu/`` with an ``__all__``, every name in it has a
 counterpart in the port's module of the same path (in that module's
-``__all__``), or stands in ``EXEMPT`` with its reason. Read from the
-sources (``ast``), nothing imported. Only JAX idiom is exempt."""
+``__all__``), or stands in ``EXEMPT`` with its reason; and every public
+member of every public class has a counterpart on the port's class, is
+JAX idiom (``EXEMPT_MEMBERS``) or is queued (``PENDING``, ROADMAP item
+14). Read from the sources (``ast``), nothing imported."""
 
 import ast
 import pathlib
@@ -75,3 +77,227 @@ def test_every_exemption_is_jax_idiom_with_a_reason():
             # an exempt name has no counterpart: where it had one, it
             # would not need the exemption
             assert name not in (_all(PORT / module) or []), (module, name)
+
+
+# ---------------------------------------------------------------------------
+# Members of public classes
+# ---------------------------------------------------------------------------
+#
+# For every public class of every JAX module, each public method, property
+# and class attribute (inherited ones included) has a counterpart of the
+# same name on the port's class of the same module path (a method,
+# property, class attribute or an attribute its methods set), or is JAX
+# idiom (``EXEMPT_MEMBERS``), or is still to be ported (``PENDING``).
+
+#: member name, or a prefix ending in "_", -> why the port has no
+#: counterpart of that name
+EXEMPT_MEMBERS = {
+    "init": _PYTREE + "; a bijector, base or flow makes its parameters in __init__",
+    "jax_": "a jnp function or a jitted program's runtime input; the port's counterpart is the torch_ member "
+    "(torch_inverse, torch_log_prior_fn, torch_log_likelihood, torch_log_prior, torch_likelihood_data)",
+    "has_jax_": "the port's counterparts are has_torch_likelihood and has_torch_prior",
+    "jit": "switches JAX's jit; the port runs eagerly",
+    "use_pallas": "switches the Pallas kernels; the port's kernels launch on every CUDA tensor",
+    "program_fingerprint": _TUNNEL + ": the key of the compiled-program cache",
+    "precompile_async": _TUNNEL + ": ahead-of-time XLA compilation",
+    "key": "a JAX PRNG key; the port draws from a torch.Generator (FlowModel.device_generator)",
+    "next_key": "splits a JAX PRNG key; the port draws from a torch.Generator (FlowModel.device_generator)",
+}
+
+#: "module:Class" of the JAX class that defines the members (subclasses
+#: inherit the entry) -> members still to be ported, in ROADMAP item 14
+PENDING = {
+    "config.py:LivepointsConfig": ("core_parameters_defaults", "core_parameters_dtype", "reset_properties"),
+    "config.py:_BaseConfig": ("asdict",),
+    "flowmodel/base.py:FlowModel": (
+        "base_distribution_log_prob",
+        "check_batch_size",
+        "freeze_transform",
+        "get_optimiser",
+        "move_to",
+        "noise_scale",
+        "noise_type",
+        "numpy_array_to_tensor",
+        "optimiser_kwargs",
+        "sample_and_log_prob",
+        "sample_latent_distribution",
+        "setup_from_input_dict",
+        "unfreeze_transform",
+        "update_mask",
+    ),
+    "flowmodel/config.py:TrainingConfig": ("dtype",),
+    "flowmodel/importance.py:ImportanceFlowModel": ("model",),
+    "flows/base.py:Flow": ("base_distribution_log_prob", "loss"),
+    "proposal/base.py:Proposal": ("evaluate_likelihoods", "reset"),
+    "proposal/flowproposal/base.py:BaseFlowProposal": (
+        "check_prior_bounds",
+        "flow_dims",
+        "internal_prime_parameters",
+        "latent_log_prob",
+        "population_dtype",
+        "rescaled_dims",
+        "reset_model_weights",
+        "sample_latent_distribution",
+        "x_prime_internal_dtype",
+    ),
+    "reparameterisations/combined.py:CombinedReparameterisation": ("update_bounds",),
+    "reparameterisations/rescale.py:RescaleToBounds": ("update_bounds_enabled",),
+    "reparameterisations/rescale.py:ScaleAndShift": ("as_affine",),
+    "samplers/base.py:BaseNestedSampler": ("posterior_effective_sample_size",),
+    "samplers/importancesampler.py:ImportanceNestedSampler": (
+        "add_level_post_sampling",
+        "check_configuration",
+        "current_proposal_entropy",
+        "get_proposal",
+        "log_q",
+        "posterior_samples_set",
+        "sort_samples",
+    ),
+    "samplers/nestedsampler.py:NestedSampler": (
+        "birth_log_likelihoods",
+        "posterior_effective_sample_size",
+        "proposal_population_time",
+        "simulate_evidence_uncertainty",
+    ),
+}
+
+
+def _trees(root: pathlib.Path):
+    return {p.relative_to(root).as_posix(): ast.parse(p.read_text(), filename=str(p)) for p in sorted(root.rglob("*.py"))}
+
+
+def _class_defs(trees):
+    return {(rel, node.name): node for rel, tree in trees.items() for node in tree.body if isinstance(node, ast.ClassDef)}
+
+
+def _imported_from(rel, tree):
+    """name -> module path of each relative ``from ... import name``."""
+    here = rel.split("/")[:-1]
+    out = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            parts = here[: len(here) - node.level + 1] + (node.module.split(".") if node.module else [])
+            for alias in node.names:
+                out[alias.asname or alias.name] = "/".join(parts)
+    return out
+
+
+class _Package:
+    def __init__(self, root):
+        self.trees = _trees(root)
+        self.classes = _class_defs(self.trees)
+
+    def resolve(self, rel, name, seen=()):
+        """The class ``name`` as seen from module ``rel``: defined there,
+        imported relatively, or the one class of that name."""
+        if (rel, name) in self.classes:
+            return (rel, name)
+        module = _imported_from(rel, self.trees[rel]).get(name)
+        for cand in (f"{module}.py", f"{module}/__init__.py") if module else ():
+            if cand in self.trees and cand not in seen:
+                found = self.resolve(cand, name, seen + (rel,))
+                if found:
+                    return found
+        hits = [k for k in self.classes if k[1] == name]
+        return hits[0] if len(hits) == 1 else None
+
+    @staticmethod
+    def own(node, with_self):
+        out = set()
+        for item in node.body:
+            if isinstance(item, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                out.add(item.name)
+                if with_self:
+                    out |= {
+                        sub.attr
+                        for sub in ast.walk(item)
+                        if isinstance(sub, ast.Attribute)
+                        and isinstance(sub.ctx, ast.Store)
+                        and isinstance(sub.value, ast.Name)
+                        and sub.value.id == "self"
+                    }
+            elif isinstance(item, ast.Assign):
+                out |= {t.id for t in item.targets if isinstance(t, ast.Name)}
+            elif isinstance(item, ast.AnnAssign) and isinstance(item.target, ast.Name):
+                out.add(item.target.id)
+        return out
+
+    def members(self, key, with_self=False):
+        """name -> the class that defines it, nearest first (own, then
+        each base in order), inherited members of the package included."""
+        out, order, seen = {}, [key], set()
+        while order:
+            k = order.pop(0)
+            if k in seen:
+                continue
+            seen.add(k)
+            node = self.classes[k]
+            for name in self.own(node, with_self):
+                out.setdefault(name, k)
+            for b in node.bases:
+                name = b.id if isinstance(b, ast.Name) else getattr(b, "attr", None)
+                found = self.resolve(k[0], name) if name else None
+                if found:
+                    order.append(found)
+        return out
+
+
+JAX_PKG = _Package(JAX)
+PORT_PKG = _Package(PORT)
+PUBLIC_CLASSES = sorted(k for k in JAX_PKG.classes if not k[1].startswith("_"))
+
+
+def _exempt(name):
+    return any(name == rule or (rule.endswith("_") and name.startswith(rule)) for rule in EXEMPT_MEMBERS)
+
+
+def _missing(key):
+    """The public members of JAX class ``key`` without a counterpart:
+    name -> "module:Class" that defines it."""
+    assert key in PORT_PKG.classes, f"the port has no class {key}"
+    ours = PORT_PKG.members(key, with_self=True)
+    return {
+        name: f"{where[0]}:{where[1]}"
+        for name, where in JAX_PKG.members(key).items()
+        if not name.startswith("_") and name not in ours
+    }
+
+
+@pytest.mark.parametrize("key", PUBLIC_CLASSES, ids=lambda k: f"{k[0]}:{k[1]}")
+def test_every_public_member_has_a_counterpart(key):
+    missing = {
+        name: where for name, where in _missing(key).items() if not _exempt(name) and name not in PENDING.get(where, ())
+    }
+    assert not missing, f"{key}: {missing}"
+
+
+def test_pending_members_are_still_missing_and_queued():
+    """The list only shrinks: each pending member is still missing on some
+    port class that inherits it, and ROADMAP item 14 names its class."""
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    still = {}
+    for key in PUBLIC_CLASSES:
+        for name, where in _missing(key).items():
+            still.setdefault(where, set()).add(name)
+    for where, names in PENDING.items():
+        assert names == tuple(sorted(set(names))), where
+        gone = set(names) - still.get(where, set())
+        assert not gone, f"{where}: {sorted(gone)} have counterparts now; take them out of PENDING"
+        assert where.split(":")[1] in roadmap, where
+
+
+def test_every_member_exemption_is_used():
+    used = {
+        rule
+        for key in PUBLIC_CLASSES
+        for name in _missing(key)
+        for rule in EXEMPT_MEMBERS
+        if name == rule or (rule.endswith("_") and name.startswith(rule))
+    }
+    assert used == set(EXEMPT_MEMBERS)
+
+
+def test_model_and_errors_have_nothing_pending():
+    assert not [w for w in PENDING if w.startswith(("model.py:", "utils/errors.py:"))]
+    for key in [("model.py", "Model"), ("model.py", "UniformPriorMixin"), ("utils/errors.py", "SamplingError")]:
+        assert not [n for n in _missing(key) if not _exempt(n)], key

@@ -322,3 +322,45 @@ def test_experimental_entry_points_without_gpu_raise(entry, tmp_path, monkeypatc
     with pytest.raises(RuntimeError, match="GPU"):
         build()
     assert build(device="cpu") is not None
+
+
+GW_EXAMPLES = [
+    "basic_gw_example",
+    "callback_gw_example",
+    "ins_gw_example",
+    "toy_cbc",
+    "full_gw_example",
+    "calibration_example",
+]
+
+
+@pytest.mark.parametrize("module", ["examples", "examples.gw"] + [f"examples.gw.{m}" for m in GW_EXAMPLES])
+def test_import_walk_reaches_the_examples(module):
+    """The walk of ``test_import_every_module_without_jax`` imports the
+    port's GW examples too: none imports JAX, the JAX package or a script
+    of the repository's ``examples/`` directory."""
+    import pkgutil
+
+    import nessai_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(nessai_tpu_torch.__path__, "nessai_tpu_torch.")}
+    assert f"nessai_tpu_torch.{module}" in names
+    path = PORT / (module.replace(".", "/") + ("/__init__.py" if module.count(".") < 2 else ".py"))
+    bad = [m for m in _top_level_imports(path) if m in FORBIDDEN + ("examples",) + tuple(GW_EXAMPLES)]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("module", ["basic_gw_example", "full_gw_example"])
+def test_gw_entry_points_without_gpu_raise(module, tmp_path, monkeypatch):
+    """A GW example's run needs the GPU unless asked for the CPU."""
+    import importlib
+
+    from nessai_tpu_torch.flowsampler import FlowSampler
+
+    m = importlib.import_module(f"nessai_tpu_torch.examples.gw.{module}")
+    model = next(v for k, v in vars(m).items() if k.endswith("GWModel"))()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="GPU"):
+        FlowSampler(model, output=str(tmp_path / "gpu"), resume=False, plot=False, **m.SAMPLER_KWARGS)
+    fs = FlowSampler(model, output=str(tmp_path / "cpu"), resume=False, plot=False, device="cpu", **m.SAMPLER_KWARGS)
+    assert fs.ns.model.device == "cpu" or str(fs.ns.model.device) == "cpu"

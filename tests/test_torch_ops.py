@@ -367,3 +367,26 @@ def test_compare_tool_loads_another_checkout_beside_this_one():
         for name in set(sys.modules) - before:
             if name.startswith("_other_nessai_tpu_torch"):
                 del sys.modules[name]
+
+
+def test_float64_distances_scale_by_the_larger_of_y_and_one():
+    """``chip_smoke.float64_distances``: the largest absolute distance
+    from y64 and the mean of |y - y64| / max(|y64|, 1), for the kernel's
+    y and the plain version's, as ``chip_smoke.py``'s float64 gates read
+    them."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    )
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    float64_distances = chip_smoke.float64_distances
+
+    y64 = torch.tensor([[0.5, -4.0], [100.0, 0.0]], dtype=torch.float64)
+    y = (y64 + torch.tensor([[1e-3, 4e-3], [1e-1, 0.0]], dtype=torch.float64)).float()
+    d = float64_distances(y, y64.float(), y64)
+    assert d["max_abs"] == pytest.approx(1e-1, rel=1e-4)
+    assert d["mean_scaled"] == pytest.approx((1e-3 + 1e-3 + 1e-3 + 0.0) / 4, rel=1e-4)
+    assert d["plain_max_abs"] == 0.0 and d["plain_mean_scaled"] == 0.0
