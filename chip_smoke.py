@@ -73,10 +73,16 @@ twin with ``likelihood_callback`` (``gw_callback``) and the importance
 nested sampler on it with the redraw (``gw_ins``), both against
 ``gw_basic``, and the 9-parameter sky-location model (12 prime
 dimensions), the toy chirp and the calibration model at full width to an
-iteration cap (``gw_full``, ``gw_toy_cbc``, ``gw_calibration``); a
+iteration cap (``gw_full``, ``gw_toy_cbc``, ``gw_calibration``); the
+class members that reach the kernels (``members``:
+``FlowModel.sample_and_log_prob`` in both forms, ``Flow.loss`` with its
+backward, a step under ``freeze_transform``) on the GPU against the CPU;
+the example modules (``nessai_tpu_torch/examples``, ``EXAMPLE_PHASES``),
+each at its script's width, in full or to the cap of ``EXAMPLE_CAPS``; a
 ``kernels`` summary. From ``flagship_mesh`` on, the INS mixture, its
 option runs, the hypercube run and the standard sampler's option runs
-(``BACKGROUND_PHASES``) run in a second process beside the others. The
+(``BACKGROUND_PHASES``) run in a second process, and the example phases in
+a third, beside the others. The
 last line is ``{"ok": true, "device": {...}}``. Any failing phase ends
 the script with a non-zero exit code and without that line. Without a
 GPU the script exits with code 2 at once. ``python3 chip_smoke.py
@@ -3317,6 +3323,499 @@ def child_ins_resume(output):
     )
 
 
+# ---------------------------------------------------------------------------
+# The last members of the public classes, on the card
+# ---------------------------------------------------------------------------
+#: the members phase's flows: the flagship's RealNVP at [900, 2] and at
+#: D = 5 (the width of ``examples/rosenbrock.py`` and of gw_basic's flow),
+#: the NSF flagship's spline at [900, 2]
+MEMBERS_ROWS = 900
+MEMBERS_DIMS = (2, 5)
+#: the draws' log-density on the card against the CPU flow's forward
+#: log_prob of the same draws (a round trip through every coupling in
+#: float32)
+MEMBERS_DRAW_ATOL = 1e-4
+#: the LARS base of the freeze_transform step
+MEMBERS_LARS = dict(distribution="lars", distribution_kwargs=dict(n_neurons=16))
+
+
+def _member_models(config, dims, seed=3):
+    """A ``FlowModel`` of ``config``'s flow on the card and one on the CPU
+    with the same weights, every weight perturbed by 0.05 N(0, 1)."""
+    from nessai_tpu_torch.flowmodel import FlowModel
+
+    models = []
+    for device in ("cuda", "cpu"):
+        fm = FlowModel(dict(config["flow_config"], n_inputs=dims), config.get("training_config"),
+                       rng=np.random.default_rng(seed), device=device)
+        fm.initialise()
+        models.append(fm)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in models[0].flow.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen).to(p.device))
+    models[1].flow.load_state_dict({k: v.cpu() for k, v in models[0].flow.state_dict().items()})
+    for fm in models:
+        fm.reset_optimiser()
+    return models
+
+
+def _members_sample_and_log_prob(name, config, dims):
+    """``FlowModel.sample_and_log_prob`` in both forms on the card against
+    the CPU: given latent points (with and without ``alt_dist``), the
+    points and their log-density within the flow tolerance; drawn, the
+    draws' log-density against the CPU flow's log_prob of the same
+    draws."""
+    gpu, cpu = _member_models(config, dims)
+    z = np.random.default_rng(dims).standard_normal((MEMBERS_ROWS * 4, dims))
+    z = z[np.linalg.norm(z, axis=1) <= 3.0][:MEMBERS_ROWS]
+    errs = {}
+    for form, kwargs in (("given_z", {}), ("alt_dist", dict(alt_dist=_AltDist()))):
+        x_g, lp_g = gpu.sample_and_log_prob(z=z, **kwargs)
+        x_c, lp_c = cpu.sample_and_log_prob(z=z, **kwargs)
+        for a, b in ((x_g, x_c), (lp_g, lp_c)):
+            torch.testing.assert_close(torch.as_tensor(a), torch.as_tensor(b), atol=FLOW_ATOL, rtol=FLOW_RTOL)
+        errs[form] = max(float(np.abs(x_g - x_c).max()), float(np.abs(lp_g - lp_c).max()))
+    x, lp = gpu.sample_and_log_prob(MEMBERS_ROWS)
+    lp_cpu = cpu.log_prob(x)
+    errs["draws"] = float(np.abs(lp - lp_cpu).max())
+    if not np.isfinite(lp).all() or errs["draws"] > MEMBERS_DRAW_ATOL:
+        raise RuntimeError(f"{name}: the draws' log-density is {errs['draws']} from the CPU flow's")
+    return errs
+
+
+class _AltDist:
+    """A latent density for ``sample_and_log_prob(z=..., alt_dist=...)``:
+    the unit Gaussian at a temperature of 2."""
+
+    def log_prob(self, z):
+        return -0.25 * np.sum(z**2, axis=1) - 0.5 * z.shape[1] * np.log(4 * np.pi)
+
+
+def _members_loss(name, config):
+    """``Flow.loss`` with its backward on the card against the CPU: the
+    loss (weighted too) within the flow tolerance and every weight's
+    gradient within the gradient tolerance of its largest."""
+    gpu, cpu = _member_models(config, 2)
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor(1.5 * rng.standard_normal((MEMBERS_ROWS, 2)), dtype=torch.float32)
+    w = torch.as_tensor(rng.uniform(0.1, 2.0, MEMBERS_ROWS), dtype=torch.float32)
+    out = {}
+    for weighted in (False, True):
+        grads, losses = [], []
+        for fm, device in ((gpu, "cuda"), (cpu, "cpu")):
+            fm.flow.zero_grad(set_to_none=True)
+            loss = fm.flow.loss(x.to(device), w.to(device) if weighted else None)
+            loss.backward()
+            losses.append(loss.item())
+            grads.append({n: p.grad.detach().cpu() for n, p in fm.flow.named_parameters()})
+        if abs(losses[0] - losses[1]) > FLOW_ATOL + FLOW_RTOL * abs(losses[1]):
+            raise RuntimeError(f"{name}: loss {losses[0]} on the card, {losses[1]} on the CPU")
+        share = 0.0
+        for n, ref in grads[1].items():
+            limit = GRAD_ATOL + GRAD_RTOL * ref.abs().max().item()
+            diff = (grads[0][n] - ref).abs().max().item()
+            share = max(share, diff / limit)
+            if diff > limit:
+                raise RuntimeError(f"{name}: the gradient in {n} differs by {diff} (limit {limit})")
+        out["weighted" if weighted else "unweighted"] = dict(loss=losses[0], loss_cpu=losses[1],
+                                                            max_share_of_gradient_tolerance=share)
+    return out
+
+
+def _members_freeze():
+    """``freeze_transform``: one training step of a LARS-based RealNVP on
+    the card and on the CPU from the same weights. The transform's
+    weights stay bit-equal on both, the base's move, and the base's new
+    weights agree within the gradient tolerance."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP
+
+    config = dict(FLAGSHIP, flow_config=dict(FLAGSHIP["flow_config"], **MEMBERS_LARS))
+    gpu, cpu = _member_models(config, 2)
+    x = np.random.default_rng(9).standard_normal((MEMBERS_ROWS, 2)).astype(np.float32)
+    after = []
+    for fm in (gpu, cpu):
+        fm.freeze_transform()
+        before = {n: p.detach().clone() for n, p in fm.flow.named_parameters()}
+        fm._train_step(torch.as_tensor(x, device=fm.device))
+        now = {n: p.detach().clone() for n, p in fm.flow.named_parameters()}
+        moved = [n for n in now if not torch.equal(now[n], before[n])]
+        if not moved or any(not n.startswith("base.") for n in moved):
+            raise RuntimeError(f"freeze_transform on {fm.device}: moved {moved}")
+        fm.unfreeze_transform()
+        after.append(now)
+    err = max((after[0][n].cpu() - after[1][n]).abs().max().item() for n in after[1])
+    if err > GRAD_ATOL:
+        raise RuntimeError(f"freeze_transform: the base's step differs by {err} between the card and the CPU")
+    return dict(base_weights_moved=sum(1 for n in after[1] if n.startswith("base.")), max_abs_err=err)
+
+
+def phase_members():
+    """The members that reach the kernels, on the card against the CPU:
+    ``FlowModel.sample_and_log_prob`` (K1's inverse) at [900, 2] and at
+    D = 5 and through the spline (K2's inverse); ``Flow.loss`` with its
+    backward (K1 and K2 forward and backward); and one step of a
+    LARS-based flow under ``freeze_transform``. Fails unless every output
+    is within its tolerance and each of K1, K2 and their backward kernels
+    launched."""
+    from nessai_tpu_torch.utils.profiling import FLAGSHIP, FLAGSHIP_NSF
+
+    counters = _k1_counters()
+    for wrapper, attr in counters.values():
+        setattr(wrapper, attr, 0)
+    result = dict(
+        sample_and_log_prob={
+            **{f"realnvp_d{d}": _members_sample_and_log_prob(f"realnvp_d{d}", FLAGSHIP, d) for d in MEMBERS_DIMS},
+            "nsf_d2": _members_sample_and_log_prob("nsf_d2", FLAGSHIP_NSF, 2),
+        },
+        loss={"realnvp": _members_loss("realnvp", FLAGSHIP), "nsf": _members_loss("nsf", FLAGSHIP_NSF)},
+        freeze_transform=_members_freeze(),
+    )
+    torch.cuda.synchronize()
+    launches = {key: int(getattr(w, a)) for key, (w, a) in counters.items()}
+    result.update(rows=MEMBERS_ROWS, atol=FLOW_ATOL, rtol=FLOW_RTOL, draw_atol=MEMBERS_DRAW_ATOL, **launches)
+    emit("members", **result)
+    kernels = ("k1_launches", "k1_backward_launches", "rqs_launches", "rqs_backward_launches")
+    if any(launches[k] == 0 for k in kernels):
+        raise RuntimeError(f"members launched {({k: launches[k] for k in kernels})}")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# The example modules (nessai_tpu_torch/examples/), each at its own width
+# ---------------------------------------------------------------------------
+#: the iteration cap of an example whose run in full takes over 30 s on the
+#: card (INS: a number of levels); None runs it to its end, with its pull.
+#: In full on an H100 (PERF.md, Findings): the 5-D Rosenbrock 110.8 s and
+#: 43,770 iterations, the INS Rosenbrock 94.8 s and 9 levels, the INS
+#: Gaussian 84.1 s and 13 levels; each of the others 9-24 s a run. The
+#: hypercube-prior example's INS run (94.2 s, 14 levels) stays in full: its
+#: gate holds the two samplers' evidences within 3 sigma of each other.
+EXAMPLE_CAPS = {
+    "example_gaussian_2d": None,
+    "example_unbounded_prior": None,
+    "example_discrete_parameter": None,
+    "example_rosenbrock": 12_000,
+    "example_parallelisation": None,
+    "example_corner_plot": None,
+    "example_basic_ins": 3,
+    "example_ins_gaussian": 4,
+    "example_hypercube_prior": None,
+    "example_ins_resume": None,
+}
+#: the level of ``ins_resume`` whose checkpoint the resumed run starts from
+#: (its script checkpoints every two levels)
+INS_RESUME_LEVEL = 4
+
+
+def _example(name):
+    import importlib
+
+    return importlib.import_module(f"nessai_tpu_torch.examples.{name}")
+
+
+def _example_config(kwargs, max_iteration):
+    config = dict(kwargs, resume=False, plot=False, checkpointing=False)
+    if max_iteration is not None:
+        config["max_iteration"] = max_iteration
+    return config
+
+
+def _example_standard(name, model, kwargs, max_iteration=None, run_kwargs=None):
+    """A standard-sampler example on the card, capped at ``max_iteration``
+    or in full against its analytic log-evidence, with the gates of
+    :func:`_check_standard`."""
+    fs, model, nested, wall, launches = _drive(_example_config(kwargs, max_iteration), _k1_counters(),
+                                               model=model, run_kwargs=run_kwargs)
+    analytic = None if max_iteration is not None else float(model.analytic_log_evidence)
+    result = _standard_result(fs, model, wall, launches, analytic)
+    result["max_iteration"] = max_iteration
+    emit(name, **result)
+    _check_standard(name, result, nested, fs, model)
+    return result, fs
+
+
+def _example_ins(name, model, kwargs, max_iteration=None, run_kwargs=None):
+    """An importance-nested-sampler example on the card, capped at
+    ``max_iteration`` levels or in full against its analytic
+    log-evidence. Fails unless K1 launched forward and backward, its
+    posterior samples lie in the prior bounds and, in full, |pull| < 3."""
+    from nessai_tpu_torch.utils.profiling import phase_times
+
+    fs, model, samples, wall, launches = _drive(_example_config(kwargs, max_iteration), _k1_counters(),
+                                                model=model, run_kwargs=run_kwargs)
+    ns = fs.ns
+    err = float(fs.logZ_error)
+    analytic = None if max_iteration is not None else float(model.analytic_log_evidence)
+    result = dict(
+        logZ=fs.logZ,
+        logZ_err=err,
+        analytic=analytic,
+        pull=None if analytic is None else (fs.logZ - analytic) / err,
+        max_iteration=max_iteration,
+        iterations=int(ns.iteration),
+        samples=int(len(samples)),
+        final_ess=float(ns.state.effective_n_posterior_samples),
+        likelihood_evaluations=int(model.likelihood_evaluations),
+        wall_s=wall,
+        **phase_times(fs),
+        **launches,
+        max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
+        posterior_samples=int(fs.posterior_samples.size),
+    )
+    emit(name, **result)
+    if launches["k1_launches"] == 0 or launches["k1_backward_launches"] == 0:
+        raise RuntimeError(f"{name} launched K1 {launches['k1_launches']} / {launches['k1_backward_launches']}")
+    if result["pull"] is not None and (not math.isfinite(result["pull"]) or abs(result["pull"]) >= PULL_LIMIT):
+        raise RuntimeError(f"{name} logZ pull {result['pull']} is not within {PULL_LIMIT} sigma")
+    if not _in_bounds(fs.posterior_samples, model):
+        raise RuntimeError(f"{name}: posterior samples are empty, not finite or outside the prior bounds")
+    return result, fs
+
+
+def _figure(name, write):
+    """``write()`` a figure and read it back: its path, bytes and pixels.
+    The card's machine may have no matplotlib: then nothing is written,
+    and the CPU tests hold the figure (tests/test_torch_examples.py)."""
+    if not _has_plotting():
+        return dict(figure=None, figure_not_written="matplotlib is not installed")
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.image
+
+    path = write()
+    image = matplotlib.image.imread(path)
+    if image.ndim != 3 or min(image.shape[:2]) < 100:
+        raise RuntimeError(f"{name}: the figure read back has the shape {image.shape}")
+    return dict(figure=os.path.basename(path), figure_bytes=os.path.getsize(path), figure_pixels=list(image.shape[:2]))
+
+
+def phase_example_gaussian_2d():
+    """``examples/2d_gaussian.py`` (nlive 2000, seed 1234, a device
+    likelihood) against -log 400."""
+    m = _example("gaussian_2d")
+    result, _ = _example_standard("example_gaussian_2d", m.GaussianModel(), m.SAMPLER_KWARGS,
+                                  EXAMPLE_CAPS["example_gaussian_2d"])
+    return {"example_gaussian_2d": result}
+
+
+def phase_example_unbounded_prior():
+    """``examples/unbounded_prior.py``: a normal prior on y drawn by the
+    model, the z-score reparameterisation on it, against its analytic
+    log-evidence."""
+    m = _example("unbounded_prior")
+    result, _ = _example_standard("example_unbounded_prior", m.GaussianPriorModel(), m.SAMPLER_KWARGS,
+                                  EXAMPLE_CAPS["example_unbounded_prior"])
+    return {"example_unbounded_prior": result}
+
+
+def phase_example_discrete_parameter():
+    """``examples/discrete_parameter.py``: ``dequantise`` on w, a host loop
+    likelihood, against the quadrature of its evidence; the posterior's w
+    must be integers."""
+    m = _example("discrete_parameter")
+    name = "example_discrete_parameter"
+    result, fs = _example_standard(name, m.DiscreteModel(), m.SAMPLER_KWARGS, EXAMPLE_CAPS[name])
+    w = fs.posterior_samples["w"]
+    if not np.array_equal(w, np.round(w)):
+        raise RuntimeError(f"{name}: the posterior's w is not integer")
+    result["posterior_w_ones"] = int((w == 1).sum())
+    return {name: result}
+
+
+def phase_example_rosenbrock():
+    """``examples/rosenbrock.py``: the 5-D Rosenbrock likelihood with a 4 ×
+    [10 × 3] RealNVP (K1 at D = 5), against the transfer-matrix
+    quadrature of its evidence."""
+    m = _example("rosenbrock")
+    name = "example_rosenbrock"
+    result, _ = _example_standard(name, m.RosenbrockModel(m.DIMS), m.SAMPLER_KWARGS, EXAMPLE_CAPS[name])
+    return {name: result}
+
+
+def phase_example_parallelisation():
+    """``examples/parallelisation_example.py``: a scalar host likelihood on
+    a pool of two worker processes. Fails unless the run has the same
+    bits, iterations and likelihood count as the same run without the
+    pool, and the pool is closed at its end (as ``pool_reparam_angle``)."""
+    import multiprocessing
+
+    m = _example("parallelisation_example")
+    name = "example_parallelisation"
+    plain_kwargs = {k: v for k, v in m.SAMPLER_KWARGS.items() if k != "n_pool"}
+    plain, _ = _example_standard(f"{name}_without_pool", m.ScalarGaussian(), plain_kwargs, EXAMPLE_CAPS[name])
+    model = m.ScalarGaussian()
+    pooled, _ = _example_standard(name, model, m.SAMPLER_KWARGS, EXAMPLE_CAPS[name])
+    children = multiprocessing.active_children()
+    checks = {
+        "logZ bits": pooled["logZ"] == plain["logZ"],
+        "iterations": pooled["iterations"] == plain["iterations"],
+        "likelihood evaluations": pooled["likelihood_evaluations"] == plain["likelihood_evaluations"],
+        "pool closed": model.pool is None and not children,
+    }
+    emit(f"{name}_checks", checks=checks, live_children=len(children))
+    if not all(checks.values()):
+        raise RuntimeError(f"{name}: failed {[k for k, v in checks.items() if not v]}")
+    return {f"{name}_without_pool": plain, name: pooled}
+
+
+def phase_example_corner_plot():
+    """``examples/corner_plot_example.py``: the run against -log 400, then
+    its corner plot (the seaborn pair grid without ``corner``) written and
+    read back."""
+    m = _example("corner_plot_example")
+    name = "example_corner_plot"
+    run_kwargs = {k: v for k, v in m.RUN_KWARGS.items() if k != "plot"}
+    root = os.path.dirname(os.path.abspath(__file__))
+    result, fs = _example_standard(name, m.GaussianModel(), m.SAMPLER_KWARGS, EXAMPLE_CAPS[name], run_kwargs)
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as output:
+        result.update(_figure(name, lambda: m.plot_posterior(fs, output)))
+    emit(f"{name}_figure", **{k: v for k, v in result.items() if k.startswith("figure")})
+    return {name: result}
+
+
+def phase_example_basic_ins():
+    """``examples/importance_nested_sampler/basic_ins_example.py``: the 2-D
+    Rosenbrock likelihood, nlive 2000, ``draw_constant``, against the
+    quadrature of its evidence."""
+    m = _example("importance_nested_sampler.basic_ins_example")
+    name = "example_basic_ins"
+    result, _ = _example_ins(name, m.RosenbrockModel(m.DIMS), m.SAMPLER_KWARGS, EXAMPLE_CAPS[name])
+    return {name: result}
+
+
+def phase_example_ins_gaussian():
+    """``examples/importance_nested_sampler/ins_gaussian.py``: the 4-D
+    Gaussian, nlive 2000, against -4 log 20."""
+    m = _example("importance_nested_sampler.ins_gaussian")
+    name = "example_ins_gaussian"
+    result, _ = _example_ins(name, m.GaussianModel(m.DIMS), m.SAMPLER_KWARGS, EXAMPLE_CAPS[name])
+    return {name: result}
+
+
+def phase_example_hypercube_prior():
+    """``examples/importance_nested_sampler/hypercube_prior.py``: both
+    samplers at nlive 1000 on the prior that is not uniform in the
+    hypercube, each against the analytic evidence and the two within 3
+    sigma of each other, then both posteriors in one figure, written and
+    read back."""
+    m = _example("importance_nested_sampler.hypercube_prior")
+    name = "example_hypercube_prior"
+    cap = EXAMPLE_CAPS[name]
+    standard, fs = _example_standard(f"{name}_standard", m.ModelWithNonUniformPrior(m.DIMS), m.STANDARD_KWARGS, cap)
+    ins, fs_ins = _example_ins(name, m.ModelWithNonUniformPrior(m.DIMS), m.SAMPLER_KWARGS, cap)
+    gap = (standard["logZ"] - ins["logZ"]) / math.hypot(standard["logZ_err"], ins["logZ_err"])
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as output:
+        figure = _figure(name, lambda: m.plot_comparison(fs, fs_ins, output))
+    emit(f"{name}_comparison", standard_logZ=standard["logZ"], ins_logZ=ins["logZ"], pull_between=gap, **figure)
+    if cap is None and (not math.isfinite(gap) or abs(gap) >= PULL_LIMIT):
+        raise RuntimeError(f"{name}: the two samplers are {gap} sigma apart")
+    ins.update(pull_between_samplers=gap, **figure)
+    return {f"{name}_standard": standard, name: ins}
+
+
+def phase_example_ins_resume():
+    """``examples/importance_nested_sampler/ins_resume.py`` (checkpointed
+    every two levels), interrupted at the checkpoint of level
+    ``INS_RESUME_LEVEL`` (a level cap), then resumed from the file in this
+    process on the card: the samples bit for bit as checkpointed, log_q
+    recomputed through the reloaded levels within 1e-5, logZ within 1e-8,
+    K1 launched after the resume, and the resumed run to its end within 3
+    sigma of -log 400 (as ``resume_ins``)."""
+    from nessai_tpu_torch.flowsampler import FlowSampler
+    from nessai_tpu_torch.samplers.base import safe_file_dump
+
+    m = _example("importance_nested_sampler.ins_resume")
+    name = "example_ins_resume"
+    recorded = {}
+
+    def at_checkpoint(sampler):
+        # the forced checkpoint of the finished (capped) run is not kept
+        if sampler.finalised:
+            return
+        safe_file_dump(sampler, sampler.resume_file)
+        recorded.update(
+            iteration=int(sampler.iteration),
+            samples=sampler.training_samples.samples.copy(),
+            log_q=sampler.training_samples.log_q.copy(),
+            logZ=float(sampler.log_evidence),
+        )
+
+    counters = _k1_counters()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as output:
+        config = dict(m.SAMPLER_KWARGS, plot=False)
+        start = time.perf_counter()
+        first = FlowSampler(m.GaussianModel(), output=output, device="cuda",
+                            **dict(config, max_iteration=INS_RESUME_LEVEL, checkpoint_callback=at_checkpoint))
+        first.run(plot=False, save=False)
+        first_wall = time.perf_counter() - start
+        model = m.GaussianModel()
+        fs = FlowSampler(model, output=output, device="cuda", **config)
+        ns = fs.ns
+        at_resume = dict(
+            iteration=int(ns.iteration),
+            samples_bitwise=ns.training_samples.samples.tobytes() == recorded["samples"].tobytes(),
+            log_q_max_abs_err=float(np.abs(ns.training_samples.log_q - recorded["log_q"]).max()),
+            logZ_abs_err=abs(float(ns.log_evidence) - recorded["logZ"]),
+        )
+        ns.configure_iterations(max_iteration=EXAMPLE_CAPS[name])
+        for wrapper, attr in counters.values():
+            setattr(wrapper, attr, 0)
+        start = time.perf_counter()
+        fs.run(plot=False, save=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = {key: int(getattr(w, a)) for key, (w, a) in counters.items()}
+    analytic = float(model.analytic_log_evidence)
+    err = float(fs.logZ_error)
+    result = dict(
+        checkpoint_level=recorded.get("iteration"),
+        at_resume=at_resume,
+        first_wall_s=first_wall,
+        logZ=fs.logZ,
+        logZ_err=err,
+        analytic=analytic,
+        pull=(fs.logZ - analytic) / err,
+        iterations=int(ns.iteration),
+        wall_s=wall,
+        log_q_tol=RESUME_LOG_Q_TOL,
+        logZ_tol=RESUME_LOGZ_TOL,
+        **launches,
+    )
+    emit(name, **result)
+    checks = {
+        f"checkpoint at level {INS_RESUME_LEVEL}": result["checkpoint_level"] == INS_RESUME_LEVEL,
+        "resumed at the checkpoint": at_resume["iteration"] == INS_RESUME_LEVEL,
+        "samples bit for bit": at_resume["samples_bitwise"],
+        "log_q within 1e-5": at_resume["log_q_max_abs_err"] <= RESUME_LOG_Q_TOL,
+        "logZ within 1e-8": at_resume["logZ_abs_err"] <= RESUME_LOGZ_TOL,
+        "K1 launched after resume": launches["k1_launches"] > 0 and launches["k1_backward_launches"] > 0,
+        "levels added after resume": result["iterations"] > INS_RESUME_LEVEL,
+        "|pull| < 3": math.isfinite(result["pull"]) and abs(result["pull"]) < PULL_LIMIT,
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"{name}: failed {[k for k, v in checks.items() if not v]}")
+    return {name: result}
+
+
+#: the example phases, each a dict of its runs by name
+EXAMPLE_PHASES = {
+    "example_gaussian_2d": phase_example_gaussian_2d,
+    "example_unbounded_prior": phase_example_unbounded_prior,
+    "example_discrete_parameter": phase_example_discrete_parameter,
+    "example_rosenbrock": phase_example_rosenbrock,
+    "example_parallelisation": phase_example_parallelisation,
+    "example_corner_plot": phase_example_corner_plot,
+    "example_basic_ins": phase_example_basic_ins,
+    "example_ins_gaussian": phase_example_ins_gaussian,
+    "example_hypercube_prior": phase_example_hypercube_prior,
+    "example_ins_resume": phase_example_ins_resume,
+}
+
+
 #: phases run in a process of their own, beside the main process's phases
 #: from ``flagship_mesh`` on (for the script's time: a
 #: sampler run keeps the GPU busy for a small share of its wall, PERF.md
@@ -3332,26 +3831,39 @@ BACKGROUND_PHASES = {
 BACKGROUND_TIMEOUT_S = 900
 
 
-def child_background(output):
-    """``BACKGROUND_PHASES`` one after another, with their seconds."""
+def _child_phases(phases):
+    """``phases`` one after another, with their seconds, at a lower
+    scheduling priority than the main process's phases (the host's cores
+    go to those first)."""
+    os.nice(10)
     _gpu_settings()
     seconds = {}
-    results = {name: timed(seconds, name, phase) for name, phase in BACKGROUND_PHASES.items()}
+    results = {name: timed(seconds, name, phase) for name, phase in phases.items()}
     _child_result(seconds=seconds, results=results)
 
 
-class _Background:
-    """``chip_smoke.py --child background``, started at once: the
-    ``BACKGROUND_PHASES`` run beside the phases that follow."""
+def child_background(output):
+    _child_phases(BACKGROUND_PHASES)
 
-    def __init__(self):
+
+def child_examples(output):
+    _child_phases(EXAMPLE_PHASES)
+
+
+class _Background:
+    """``chip_smoke.py --child <child>`` (``background``: the
+    ``BACKGROUND_PHASES``; ``examples``: the ``EXAMPLE_PHASES``), started
+    at once: its phases run beside the phases that follow."""
+
+    def __init__(self, child="background"):
         root = os.path.dirname(os.path.abspath(__file__))
-        self.dir = tempfile.mkdtemp(dir=root, prefix=".chip_smoke_background_")
-        self.log = os.path.join(self.dir, "background.log")
+        self.dir = tempfile.mkdtemp(dir=root, prefix=f".chip_smoke_{child}_")
+        self.log = os.path.join(self.dir, f"{child}.log")
+        self.child = child
         self.start = time.perf_counter()
         with open(self.log, "w") as out:
             self.proc = subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--child", "background", self.dir],
+                [sys.executable, os.path.abspath(__file__), "--child", child, self.dir],
                 stdout=out,
                 stderr=subprocess.STDOUT,
             )
@@ -3370,7 +3882,7 @@ class _Background:
                 result = json.loads(line)["child_result"]
         if rc != 0 or result is None:
             print("\n".join(lines[-60:]), file=sys.stderr, flush=True)
-            raise RuntimeError(f"the background phases failed with exit code {rc}")
+            raise RuntimeError(f"the {self.child} phases failed with exit code {rc}")
         return result
 
     def stop(self):
@@ -3386,6 +3898,7 @@ CHILDREN = {
     "ins_first": child_ins_first,
     "ins_resume": child_ins_resume,
     "background": child_background,
+    "examples": child_examples,
 }
 
 
@@ -3693,7 +4206,7 @@ def main():
             traceback.print_exc()
             return 1
         return 0
-    background = None
+    background = examples = None
     try:
         from nessai_tpu_torch.utils.profiling import FLAGSHIP, FLAGSHIP_NSF, GW_FULL_PROFILE_ITERATIONS
 
@@ -3706,6 +4219,7 @@ def main():
         max_err_k2_inverse, main_k2_inverse = timed(seconds, "k2_inverse_backward_vs_plain",
                                                     phase_k2_inverse_backward)
         nsf_inverse = timed(seconds, "nsf_inverse_training", phase_nsf_inverse_training)
+        members = timed(seconds, "members", phase_members)
         main_scan = timed(seconds, "ns_scan_vs_plain", phase_ns_scan)
         timed(seconds, "flow_realnvp", phase_flow, FLAGSHIP, "realnvp", scale=0.05)
         # the reference in float64: the plain spline in float32 strays
@@ -3726,6 +4240,7 @@ def main():
         timed(seconds, "mesh_dp_step", phase_mesh_dp_step)
         flagship = timed(seconds, "flagship", phase_flagship)
         background = _Background()
+        examples = _Background("examples")
         flagship_mesh = timed(seconds, "flagship_mesh", phase_flagship_mesh, flagship)
         bookkeeping = timed(seconds, "flagship_device_loop", phase_flagship_device_loop, flagship)
         flagship_nsf = timed(seconds, "flagship_nsf", phase_flagship_nsf)
@@ -3752,14 +4267,18 @@ def main():
         mixture, options, hypercube, standard_options = (
             in_background["results"][name] for name in BACKGROUND_PHASES
         )
+        in_examples = timed(seconds, "examples_wait", examples.collect)
+        example_runs = {run: r for name in EXAMPLE_PHASES for run, r in in_examples["results"][name].items()}
         resumed = phase_resume(seconds)
-        emit("seconds", **seconds, total=sum(seconds.values()), in_background=in_background["seconds"])
+        emit("seconds", **seconds, total=sum(seconds.values()), in_background=in_background["seconds"],
+             in_examples=in_examples["seconds"])
     except Exception:
         traceback.print_exc()
         return 1
     finally:
-        if background is not None:
-            background.stop()
+        for process in (background, examples):
+            if process is not None:
+                process.stop()
     kernels = []
     runs = {
         "flagship": flagship,
@@ -3793,6 +4312,8 @@ def main():
         "resume_standard": resumed["resume_standard"],
         "resume_ins": resumed["resume_ins"],
         "nsf_inverse_training": nsf_inverse,
+        "members": members,
+        **example_runs,
     }
     for name, replaces, key in (
         ("affine_coupling", "nessai_tpu/ops/coupling_pallas.py:56", "k1_launches"),

@@ -6,7 +6,7 @@ device mesh and the dtype name (the port always runs its kernels on
 CUDA tensors, in float32).
 """
 
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 from typing import List
 
 import numpy as np
@@ -14,9 +14,17 @@ import numpy as np
 __all__ = ["livepoints", "plotting", "general", "compute"]
 
 
+class _BaseConfig:
+    def asdict(self) -> dict:
+        """The configuration as a dictionary."""
+        return asdict(self)
+
+
 @dataclass
-class LivepointsConfig:
-    """Configuration for live-point structured arrays."""
+class LivepointsConfig(_BaseConfig):
+    """Configuration for live-point structured arrays. The port derives
+    the fields' dtypes and defaults anew at each read, so
+    :meth:`reset_properties` has no cache to clear."""
 
     logl_dtype: str = "f8"
     it_dtype: str = "i4"
@@ -33,24 +41,27 @@ class LivepointsConfig:
     extra_parameters_defaults: tuple = ()
 
     @property
+    def core_parameters_dtype(self) -> List[str]:
+        return [self.default_float_dtype, self.logl_dtype, self.it_dtype]
+
+    @property
+    def core_parameters_defaults(self) -> tuple:
+        return (self.default_float_value, self.default_float_value, self.it_default)
+
+    @property
     def non_sampling_parameters(self) -> List[str]:
         return list(self.core_parameters) + list(self.extra_parameters)
 
     @property
     def non_sampling_dtype(self) -> List[str]:
-        return [
-            self.default_float_dtype,
-            self.logl_dtype,
-            self.it_dtype,
-        ] + list(self.extra_parameters_dtype)
+        return self.core_parameters_dtype + list(self.extra_parameters_dtype)
 
     @property
     def non_sampling_defaults(self) -> tuple:
-        return (
-            self.default_float_value,
-            self.default_float_value,
-            self.it_default,
-        ) + tuple(self.extra_parameters_defaults)
+        return self.core_parameters_defaults + tuple(self.extra_parameters_defaults)
+
+    def reset_properties(self) -> None:
+        """Nothing to clear: the derived values are not cached."""
 
     def reset(self) -> None:
         """Remove every extra field."""
@@ -60,7 +71,7 @@ class LivepointsConfig:
 
 
 @dataclass
-class PlottingConfig:
+class PlottingConfig(_BaseConfig):
     """Plot style (``plot.nessai_style``) and clipping."""
 
     disable_style: bool = False
@@ -79,12 +90,12 @@ class PlottingConfig:
 
 
 @dataclass
-class GeneralConfig:
+class GeneralConfig(_BaseConfig):
     eps: float = 1e-8
 
 
 @dataclass
-class ComputeConfig:
+class ComputeConfig(_BaseConfig):
     """Compute settings (``nessai_tpu/config.py:156-177``)."""
 
     #: the flows' dtype, a name kept as the JAX package keeps it: both

@@ -37,6 +37,7 @@ one-entry mesh of ``device``.
 """
 
 import copy
+import dataclasses
 import logging
 import math
 import os
@@ -52,6 +53,7 @@ from ..flows.distributions import ResampledGaussian
 from ..parallel.mesh import _dp_backward, _sync_replicas, get_mesh, replicated_sharding, shard_batch
 from ..utils.distance import compute_minimum_distances
 from ..utils.device import get_device
+from ..utils.io import save_to_json
 from .config import (
     FlowConfig,
     TrainingConfig,
@@ -125,6 +127,12 @@ class FlowModel:
     #: no mesh: the defaults of a model unpickled from before meshes
     mesh = None
     _replicas = ()
+    #: the training noise's scale and type where they override the
+    #: training configuration's (None: the configuration's)
+    noise_scale = None
+    noise_type = None
+    #: while True, training moves the base distribution's parameters only
+    _transform_frozen = False
 
     def __init__(self, flow_config=None, training_config=None, output=None, rng=None, device=None, mesh=None):
         #: an optional :class:`~nessai_tpu_torch.parallel.Mesh`: the flow
@@ -157,6 +165,25 @@ class FlowModel:
     def dims(self):
         return self.flow_config.n_inputs
 
+    @property
+    def optimiser_kwargs(self) -> dict:
+        """The keyword arguments of the optimiser."""
+        return dict(self.training_config.optimiser_kwargs or {})
+
+    def setup_from_input_dict(self, flow_config, training_config) -> None:
+        """Merge the flow and training configurations onto the defaults
+        and write each to ``output`` as JSON."""
+        self.flow_config = update_flow_config(flow_config)
+        self.training_config = update_training_config(training_config)
+        if self.output is not None:
+            os.makedirs(self.output, exist_ok=True)
+            save_to_json(flow_config_to_dict(self.flow_config), os.path.join(self.output, "flow_config.json"))
+            save_to_json(dataclasses.asdict(self.training_config), os.path.join(self.output, "training_config.json"))
+
+    def update_mask(self) -> None:
+        """A hook for subclasses that change the flow's mask; nothing by
+        default."""
+
     # ------------------------------------------------------------------
     def initialise(self) -> None:
         """Build the flow on the device, with weights drawn from a seed
@@ -170,6 +197,75 @@ class FlowModel:
             self._replicas = replicated_sharding(self.mesh).place(self.flow)[1:]
         self.reset_optimiser()
         self.initialised = True
+
+    def get_optimiser(self, optimiser=None, **kwargs):
+        """A new optimiser of the flow's parameters: ``optimiser`` (by
+        default the configured one) at the configured learning rate, with
+        the configured keyword arguments updated by ``kwargs``, at optax's
+        defaults (see :func:`_get_optimiser`). Training clips the
+        gradients itself (``clip_grad_norm``)."""
+        if not self.initialised:
+            self.initialise()
+        tc = self.training_config
+        options = dict(tc.optimiser_kwargs)
+        options.update(kwargs)
+        return _get_optimiser(tc.optimiser if optimiser is None else optimiser, self.flow.parameters(), tc.lr, **options)
+
+    def move_to(self, device, update_default: bool = False) -> None:
+        """Move the flow, its replicas and its optimiser's moments to
+        ``device`` (None is the GPU, as everywhere in the package; "cpu"
+        only when asked for). The inference calls run where the flow is;
+        with ``update_default`` the model's training data go there too,
+        else the next training moves the flow back. On a mesh every entry
+        moves to ``device`` and the default is updated."""
+        device = get_device(device)
+        if self.mesh is not None:
+            self.mesh = get_mesh(devices=[device] * self.mesh.size)
+            update_default = True
+        if self.flow is not None:
+            for flow in self.replicas:
+                flow.to(device)
+            if self.optimiser is not None:
+                for state in self.optimiser.state.values():
+                    for k, v in state.items():
+                        if torch.is_tensor(v) and v.dim():
+                            state[k] = v.to(device)
+        if update_default and not _same_device(device, self.device):
+            self.device = device
+            # a generator cannot change its device
+            self._device_generator = None
+
+    @property
+    def _flow_device(self) -> torch.device:
+        """Where the flow is: :attr:`device` unless :meth:`move_to` moved
+        it elsewhere."""
+        if self.flow is None:
+            return self.device
+        return next(self.flow.parameters()).device
+
+    def numpy_array_to_tensor(self, array) -> torch.Tensor:
+        """``array`` as a tensor of the training dtype on the model's
+        device."""
+        return torch.as_tensor(np.asarray(array), dtype=getattr(torch, self.training_config.dtype), device=self.device)
+
+    def freeze_transform(self) -> None:
+        """Freeze the transform: training moves only the base
+        distribution's parameters (the gradients, their clipping and the
+        optimiser's moments are those of every parameter, as where the
+        JAX package masks the transform's updates)."""
+        if not self._transform_frozen:
+            self._transform_frozen = True
+            logger.debug("Transform parameters frozen")
+
+    def unfreeze_transform(self) -> None:
+        """Undo :meth:`freeze_transform`."""
+        if self._transform_frozen:
+            self._transform_frozen = False
+            logger.debug("Transform parameters unfrozen")
+
+    def _transform_parameters(self) -> list:
+        base = {id(p) for p in self.flow.base.parameters()}
+        return [p for p in self.flow.parameters() if id(p) not in base]
 
     @property
     def replicas(self) -> list:
@@ -215,6 +311,28 @@ class FlowModel:
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
+    def check_batch_size(self, x, batch_size=None, min_fraction=0.1) -> int:
+        """The batch size that training on ``x`` (the training rows, or
+        their number) takes: ``batch_size`` (by default the configured
+        one), all rows for "all", at most the number of rows, rounded up
+        to a multiple of a mesh's size. Nothing is padded, so
+        ``min_fraction`` never changes it; a batch size of 1 raises."""
+        n_train = len(x) if hasattr(x, "__len__") else int(x)
+        if batch_size is None:
+            batch_size = self.training_config.batch_size
+        if batch_size == "all":
+            batch_size = n_train
+        elif not isinstance(batch_size, int) or isinstance(batch_size, bool):
+            raise RuntimeError(f"Unknown batch size: {batch_size}")
+        if batch_size == 1:
+            raise ValueError("Cannot use a batch size of 1!")
+        if self.mesh is not None:
+            # a multiple of the mesh's size, as the JAX package rounds it;
+            # the port pads nothing, so the last batch may be shorter
+            n_dev = self.mesh.size
+            batch_size = -(-int(batch_size) // n_dev) * n_dev
+        return min(int(batch_size), n_train)
+
     def prep_data(self, samples, val_size, batch_size=None, weights=None, conditional=None):
         """Shuffle, split off ``val_size`` for validation and cut the
         training rows into batches (the last one may be smaller).
@@ -244,20 +362,7 @@ class FlowModel:
         n_train = n - n_val
         if n_train < 2:
             raise ValueError(f"Too few training samples: {n_train}")
-        if batch_size is None:
-            batch_size = self.training_config.batch_size
-        if batch_size == "all":
-            batch_size = n_train
-        elif not isinstance(batch_size, int) or isinstance(batch_size, bool):
-            raise RuntimeError(f"Unknown batch size: {batch_size}")
-        if batch_size == 1:
-            raise ValueError("Cannot use a batch size of 1!")
-        if self.mesh is not None:
-            # a multiple of the mesh's size, as the JAX package rounds it;
-            # the port pads nothing, so the last batch may be shorter
-            n_dev = self.mesh.size
-            batch_size = -(-int(batch_size) // n_dev) * n_dev
-        batch_size = min(int(batch_size), n_train)
+        batch_size = self.check_batch_size(n_train, batch_size)
         train = self._to_device(samples[:n_train])
         batches = list(torch.split(train, batch_size))
         val = self._to_device(samples[n_train:]) if n_val > 0 else None
@@ -329,7 +434,12 @@ class FlowModel:
             loss = _dp_backward(self.replicas, self.mesh, x, w, context)
         if self.training_config.clip_grad_norm:
             _clip_by_global_norm(self._trainable(), self.training_config.clip_grad_norm)
+        frozen = self._transform_parameters() if self._transform_frozen else []
+        kept = [p.detach().clone() for p in frozen]
         self.optimiser.step()
+        with torch.no_grad():
+            for p, v in zip(frozen, kept):
+                p.copy_(v)
         self.refresh_replicas()
         return loss
 
@@ -339,15 +449,17 @@ class FlowModel:
         (constant), or ``noise_scale`` times the row's distance to its
         nearest other training row (adaptive)."""
         tc = self.training_config
-        if tc.noise_type is None or not tc.noise_scale:
+        noise_type = self.noise_type or tc.noise_type
+        noise_scale = self.noise_scale if self.noise_scale is not None else tc.noise_scale
+        if noise_type is None or not noise_scale:
             return None
-        if tc.noise_type == "constant":
-            return [torch.full((len(b), 1), float(tc.noise_scale), device=b.device) for b in batches]
-        if tc.noise_type == "adaptive":
+        if noise_type == "constant":
+            return [torch.full((len(b), 1), float(noise_scale), device=b.device) for b in batches]
+        if noise_type == "adaptive":
             x = torch.cat(batches).cpu().numpy()
-            sigma = self._to_device(tc.noise_scale * compute_minimum_distances(x))[:, None]
+            sigma = self._to_device(noise_scale * compute_minimum_distances(x))[:, None]
             return list(torch.split(sigma, [len(b) for b in batches]))
-        raise ValueError(f"Unknown noise type: {tc.noise_type}")
+        raise ValueError(f"Unknown noise type: {noise_type}")
 
     @torch.no_grad()
     def _maybe_init_actnorm(self, x, conditional=None) -> None:
@@ -383,6 +495,8 @@ class FlowModel:
         history of this call, ``{"loss": [...], "val_loss": [...]}``."""
         if not self.initialised:
             self.initialise()
+        if not _same_device(self._flow_device, self.device):
+            self.move_to(self.device)
         samples = np.asarray(samples, dtype=np.float32)
         if samples.ndim != 2:
             raise ValueError("Samples must be a 2D array")
@@ -481,7 +595,7 @@ class FlowModel:
         ``devices[0]``. The first entry always runs, so zero rows give
         empty outputs."""
         flows = self.replicas if flows is None else flows
-        mesh = get_mesh(devices=[self.device]) if self.mesh is None else self.mesh
+        mesh = get_mesh(devices=[self._flow_device]) if self.mesh is None else self.mesh
         cut = [shard_batch(t, mesh) if t is not None else [None] * mesh.size for t in tensors]
         parts = []
         for r, (flow, device) in enumerate(zip(flows, mesh.devices, strict=True)):
@@ -526,10 +640,8 @@ class FlowModel:
         flow = self.flow if flow is None else flow
         if temperature in (None, 1.0):
             return flow.inverse_and_log_prob(zt, context)
-        sqrt_t = float(np.sqrt(temperature))
         x, log_j = flow.inverse(zt, context)
-        log_q = flow.base_log_prob(zt / sqrt_t) - zt.shape[-1] * float(np.log(sqrt_t))
-        return x, log_q - log_j
+        return x, _tempered_base_log_prob(flow, zt, temperature) - log_j
 
     def sharded_tempered_inverse(self, zt, temperature=1.0, context=None):
         """:meth:`tempered_inverse` with the rows cut over the mesh."""
@@ -553,13 +665,54 @@ class FlowModel:
         draw) as a float64 numpy array; the latent draws come from
         :meth:`device_generator` on the first device, then inverted shard
         by shard)."""
-        z = self.flow.sample_base(int(n), self.device_generator())
+        z = self._sample_base(n)
         x = self.sharded(lambda f, a, c: f.inverse(a, c)[0], z, _f32(conditional))
         return x.double().cpu().numpy()
 
+    def _sample_base(self, n: int) -> torch.Tensor:
+        """``n`` latent draws from :meth:`device_generator`, where the
+        flow is."""
+        return self.flow.sample_base(int(n), self.device_generator()).to(self._flow_device)
+
     @torch.no_grad()
-    def base_log_prob(self, z):
-        return self.flow.base_log_prob(self._to_device(z)).double().cpu().numpy()
+    def sample_and_log_prob(self, N: int = 1, z=None, alt_dist=None, conditional=None):
+        """``N`` draws from the flow and their log-density, as float64
+        numpy arrays; given latent points ``z``, those points through the
+        inverse instead, their density taken from ``alt_dist`` (an object
+        with ``log_prob(z)``) where it is given."""
+        if z is None:
+            z = self._sample_base(N)
+        else:
+            z = torch.as_tensor(_f32(z), device=self._flow_device)
+
+        def fn(f, a, c):
+            x, log_j = f.inverse(a, c)
+            return x, f.base_log_prob(a) - log_j, log_j
+
+        x, log_p, log_j = self.sharded(fn, z, _f32(conditional))
+        x, log_p = self._to_host(x, log_p)
+        if alt_dist is not None:
+            log_p = np.asarray(alt_dist.log_prob(z.cpu().numpy().astype(np.float64))) - log_j.double().cpu().numpy()
+        return x, log_p
+
+    @torch.no_grad()
+    def sample_latent_distribution(self, n: int = 1, context=None) -> np.ndarray:
+        """``n`` draws from the latent distribution, as float64 numpy;
+        a ``context`` raises, as the JAX package's."""
+        if context is not None:
+            raise NotImplementedError("Conditional latent sampling is not supported")
+        return self._sample_base(n).double().cpu().numpy()
+
+    @torch.no_grad()
+    def base_log_prob(self, z, temperature=None):
+        """The latent log-density of ``z``, tempered at ``temperature``
+        where it is not 1 (see :meth:`tempered_inverse`)."""
+        zt = torch.as_tensor(_f32(z), device=self._flow_device)
+        return _tempered_base_log_prob(self.flow, zt, temperature).double().cpu().numpy()
+
+    def base_distribution_log_prob(self, z, temperature=None):
+        """An alias of :meth:`base_log_prob`."""
+        return self.base_log_prob(z, temperature=temperature)
 
     # ------------------------------------------------------------------
     # Persistence
@@ -628,6 +781,21 @@ class FlowModel:
                 gen = torch.Generator(device=gen_state[1])
                 gen.set_state(gen_state[0])
                 setattr(self, name, gen)
+
+
+def _tempered_base_log_prob(flow, zt, temperature):
+    """The base log-density of ``zt`` at ``temperature`` T:
+    ``base(z / sqrt(T)) - (d / 2) log T`` (the base's own where T is 1)."""
+    if temperature in (None, 1.0):
+        return flow.base_log_prob(zt)
+    sqrt_t = float(np.sqrt(temperature))
+    return flow.base_log_prob(zt / sqrt_t) - zt.shape[-1] * float(np.log(sqrt_t))
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether ``a`` and ``b`` name one device ("cuda" is the current
+    GPU, which tensors report as "cuda:0")."""
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
 
 
 def _f32(x):

@@ -41,6 +41,9 @@ class TrainingConfig:
     noise_scale: float = 0.0
     #: the data-dependent ActNorm initialisation at the first training
     use_actnorm_init: bool = True
+    #: the dtype of tensors made from training data
+    #: (:meth:`FlowModel.numpy_array_to_tensor`)
+    dtype: str = "float32"
 
 
 def _update(cls, config):

@@ -73,6 +73,17 @@ class ImportanceFlowModel(FlowModel):
     def n_models(self) -> int:
         return len(self.models)
 
+    @property
+    def model(self) -> Optional[Flow]:
+        """The latest level, or None before the first."""
+        return self.models[-1] if self.models else None
+
+    @model.setter
+    def model(self, model: Optional[Flow]) -> None:
+        """Add ``model`` as the next level (None adds nothing)."""
+        if model is not None:
+            self.add_level(model)
+
     def initialise(self) -> None:
         if self.initialised:
             return

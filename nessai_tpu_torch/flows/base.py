@@ -45,6 +45,19 @@ class Flow(nn.Module):
     def base_log_prob(self, z):
         return self.base.log_prob(z)
 
+    def base_distribution_log_prob(self, z, context=None):
+        """An alias of :meth:`base_log_prob`; ``context`` is taken for the
+        JAX package's signature (the bases are unconditional)."""
+        return self.base_log_prob(z)
+
+    def loss(self, x, weights=None, context=None):
+        """The negative mean log-density of ``x``, or with ``weights``
+        ``-sum(w log p) / sum(w)``."""
+        log_p = self.log_prob(x, context)
+        if weights is None:
+            return -log_p.mean()
+        return -(weights * log_p).sum() / weights.sum()
+
     # the JAX package's ``nessai_tpu/flows/base.py:73-105``
     def end_iteration(self, generator=None) -> None:
         """After each training epoch: a LARS base moves its normalisation

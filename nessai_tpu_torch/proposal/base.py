@@ -55,6 +55,16 @@ class Proposal(ABC):
         """Rebind the model after unpickling."""
         self.model = model
 
+    def evaluate_likelihoods(self) -> None:
+        """The model's log-likelihood of every sample of the pool."""
+        self.samples["logL"] = self.model.batch_evaluate_log_likelihood(self.samples)
+
+    def reset(self) -> None:
+        """Drop the pool."""
+        self.samples = []
+        self.indices = []
+        self.populated = False
+
     def __getstate__(self):
         """The model stays out of the pickle (the sampler rebinds it at
         resume)."""

@@ -8,6 +8,7 @@ trains the flow, passes points through it (``forward_pass``,
 import inspect
 import logging
 import os
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -139,6 +140,55 @@ class BaseFlowProposal(RejectionProposal):
     @property
     def x_prime_dtype(self):
         return np.dtype([(p, "f8") for p in self.prime_parameters])
+
+    @property
+    def rescaled_dims(self) -> int:
+        """Deprecated: :attr:`prime_dims`."""
+        warnings.warn(
+            "rescaled_dims is deprecated and will be removed in a future release, use prime_dims instead",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return self.prime_dims
+
+    @property
+    def population_dtype(self):
+        return get_dtype(self.parameters)
+
+    @property
+    def internal_prime_parameters(self):
+        """The prime parameters with any intermediate ones; every prime
+        parameter is the flow's, so these are :attr:`prime_parameters`."""
+        return self.prime_parameters
+
+    @property
+    def x_prime_internal_dtype(self):
+        return self.x_prime_dtype
+
+    @property
+    def flow_dims(self) -> int:
+        return self.prime_dims
+
+    def latent_log_prob(self, z, temperature=None):
+        """The log-density of latent points ``z`` under the base
+        distribution, tempered at ``temperature`` where it is not 1."""
+        return self.flow.base_log_prob(z, temperature=temperature)
+
+    def sample_latent_distribution(self, n: int) -> np.ndarray:
+        """``n`` draws from the latent distribution."""
+        return self.flow.sample_latent_distribution(n)
+
+    def reset_model_weights(self, weights: bool = True, permutations: bool = False) -> None:
+        """Fresh weights and/or permutations for the flow."""
+        self.flow.reset_model(weights=weights, permutations=permutations)
+
+    def check_prior_bounds(self, x, *arrays):
+        """The points of ``x`` inside the prior bounds (the unit hypercube
+        with ``map_to_unit_hypercube``), with the same rows of each of
+        ``arrays``."""
+        keep = self.model.in_unit_hypercube(x) if self.map_to_unit_hypercube else self.model.in_bounds(x)
+        out = [x[keep]] + [a[keep] for a in arrays]
+        return out[0] if not arrays else tuple(out)
 
     def update_poolsize_scale(self, acceptance: float) -> None:
         """Scale the poolsize by 1/acceptance, up to ``max_poolsize_scale``."""

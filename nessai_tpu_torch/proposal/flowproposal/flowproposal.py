@@ -382,7 +382,7 @@ class FlowProposal(BaseFlowProposal):
         z = self.truncation.sample_latent(self, n)
         if z is not None:
             return z
-        z = self.flow.flow.base.sample(n, self.flow.device_generator()).double().cpu().numpy()
+        z = self.flow.sample_latent_distribution(n)
         if self.latent_temperature != 1.0:
             z = np.sqrt(self.latent_temperature) * z
         return z

@@ -147,6 +147,8 @@ class CombinedReparameterisation(dict):
         for r in self.values():
             r.update(x)
 
+    update_bounds = update
+
     def reset(self) -> None:
         for r in self.values():
             r.reset()

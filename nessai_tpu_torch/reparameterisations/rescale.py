@@ -210,6 +210,14 @@ class ScaleAndShift(Reparameterisation, PrePostRescalingMixin):
         if self.estimate_shift:
             self.shift = {p: 0.0 for p in self.parameters}
 
+    def as_affine(self):
+        """Each parameter's ``(scale, shift)`` of the inverse map ``x = x'
+        scale + shift``, where the map is affine alone (no pre- or
+        post-rescaling), else None."""
+        if self.has_pre_rescaling or self.has_post_rescaling:
+            return None
+        return {p: (float(self.scale[p]), float(self.shift[p])) for p in self.parameters}
+
     def reparameterise(self, x, x_prime, log_j, **kwargs):
         for p, pp in zip(self.parameters, self.prime_parameters):
             vals, lj_pre = self._apply_pre(np.asarray(x[p], dtype=float))
@@ -400,6 +408,11 @@ class RescaleToBounds(Reparameterisation, PrePostRescalingMixin):
         out = (hi - lo) * (x - rb[0]) / (rb[1] - rb[0]) + lo
         log_j = np.log(hi - lo) - np.log(rb[1] - rb[0])
         return out, log_j * np.ones_like(out)
+
+    @property
+    def update_bounds_enabled(self) -> bool:
+        """Whether :meth:`update` moves the bounds."""
+        return self._update
 
     def update_bounds(self, x, x_prime=None) -> None:
         """Update the data-driven bounds (a no-op when updates are

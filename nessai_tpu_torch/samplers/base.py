@@ -132,6 +132,11 @@ class BaseNestedSampler(ABC):
     def likelihood_calls(self):
         return self.model.likelihood_evaluations
 
+    @property
+    def posterior_effective_sample_size(self):
+        """Defined by each sampler."""
+        raise NotImplementedError()
+
     def initialise_history(self) -> None:
         if self.history is None:
             self.history = dict(

@@ -305,9 +305,7 @@ class ImportanceNestedSampler(BaseNestedSampler):
         self.bootstrap_log_evidence = None
         self.bootstrap_log_evidence_error = None
         self.configure_stopping_criterion(stopping_criterion, tolerance, check_criteria)
-        self.proposal = ImportanceFlowProposal(
-            self.model,
-            output=os.path.join(self.output, "levels", ""),
+        self.proposal = self.get_proposal(
             flow_config=flow_config,
             training_config=training_config,
             reparameterisation=reparameterisation,
@@ -337,10 +335,7 @@ class ImportanceNestedSampler(BaseNestedSampler):
         self._final_samples_unit = None
         self.final_log_w = None
         self._final_state = None
-        if self.min_samples > self.nlive:
-            raise ValueError("`min_samples` must be less than `nlive`")
-        if self.min_remove > self.nlive:
-            raise ValueError("`min_remove` must be less than `nlive`")
+        self.check_configuration()
         self.training_time = datetime.timedelta()
         self.draw_samples_time = datetime.timedelta()
         self.add_and_update_samples_time = datetime.timedelta()
@@ -349,6 +344,25 @@ class ImportanceNestedSampler(BaseNestedSampler):
         self.update_log_q_time = datetime.timedelta()
         #: time in :meth:`draw_final_samples`
         self.draw_final_samples_time = datetime.timedelta()
+
+    def check_configuration(self) -> bool:
+        """Check ``min_samples`` and ``min_remove`` against ``nlive``."""
+        if self.min_samples > self.nlive:
+            raise ValueError("`min_samples` must be less than `nlive`")
+        if self.min_remove > self.nlive:
+            raise ValueError("`min_remove` must be less than `nlive`")
+        return True
+
+    def get_proposal(self, subdir: str = "levels", **kwargs) -> ImportanceFlowProposal:
+        """The meta-proposal, writing into ``output/subdir``."""
+        return ImportanceFlowProposal(self.model, output=os.path.join(self.output, subdir, ""), **kwargs)
+
+    @staticmethod
+    def sort_samples(samples, *arrays):
+        """``samples`` (and arrays aligned with them) sorted by logL."""
+        order = np.argsort(samples, order="logL")
+        out = [samples[order]] + [a[order] for a in arrays]
+        return out[0] if not arrays else tuple(out)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -432,6 +446,21 @@ class ImportanceNestedSampler(BaseNestedSampler):
     @property
     def posterior_effective_sample_size(self) -> float:
         return self.state.effective_n_posterior_samples
+
+    @property
+    def posterior_samples_set(self) -> OrderedSamples:
+        """The main sample set (an alias of the older name)."""
+        return self._ordered_samples
+
+    @property
+    def log_q(self) -> np.ndarray:
+        """The training samples' log-density under each level."""
+        return self.training_samples.log_q
+
+    @property
+    def current_proposal_entropy(self) -> float:
+        """The differential entropy of the newest level's last draw."""
+        return getattr(self, "_current_proposal_entropy", np.nan)
 
     @property
     def log_posterior_weights(self) -> np.ndarray:
@@ -625,6 +654,22 @@ class ImportanceNestedSampler(BaseNestedSampler):
             self.iid_samples.add_samples(iid_samples, iid_log_q)
         self.live_points_ess = effective_sample_size(self.live_points_unit["logW"])
         self.add_and_update_samples_time += datetime.datetime.now() - st
+
+    def add_level_post_sampling(self, samples: np.ndarray, n: int) -> None:
+        """Add a level after the sampling has ended: train a flow on
+        ``samples``, draw ``n`` points from it into each sample set's
+        nested samples, update the evidence and count the level as an
+        iteration."""
+        self.proposal.train(samples)
+        self.add_new_proposal_weight(self.iteration, n)
+        for ordered in [self.training_samples] + ([self.iid_samples] if self.iid_samples is not None else []):
+            new_samples, log_q = self.draw_n_samples(n)
+            new_samples["it"] = self.iteration
+            self._refresh_ordered_samples(ordered)
+            ordered.add_samples(new_samples, log_q)
+            ordered.add_to_nested_samples(ordered.live_points_indices)
+            ordered.finalise()
+        self.iteration += 1
 
     def remove_samples(self) -> int:
         n_removed = self.training_samples.remove_samples()

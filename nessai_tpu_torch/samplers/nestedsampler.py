@@ -36,6 +36,7 @@ from ..proposal import AnalyticProposal, RejectionProposal
 from ..proposal.utils import check_proposal_kwargs, get_flow_proposal_class
 from ..stopping_criteria import StoppingCriterionRegistry
 from ..utils.indices import compute_indices_ks_test
+from ..utils.stats import effective_sample_size
 from .base import BaseNestedSampler
 
 logger = logging.getLogger(__name__)
@@ -332,6 +333,11 @@ class NestedSampler(BaseNestedSampler):
     def last_iteration_with_flow(self):
         return self.iteration - self.last_updated
 
+    @property
+    def proposal_population_time(self):
+        """The population time of both proposals together."""
+        return self._uninformed_proposal.population_time + self._flow_proposal.population_time
+
     def check_resume(self) -> None:
         """After a resume, restore the proposal switch and a populated
         pool that the proposal marked for resuming."""
@@ -364,6 +370,22 @@ class NestedSampler(BaseNestedSampler):
     @property
     def information(self) -> float:
         return self.state.info[-1]
+
+    @property
+    def posterior_effective_sample_size(self) -> float:
+        """Kish's effective sample size of the posterior weights."""
+        return effective_sample_size(self.state.log_posterior_weights())
+
+    @property
+    def birth_log_likelihoods(self) -> np.ndarray:
+        """The likelihood threshold at which each nested sample was born."""
+        return np.array(self.state.logLs)[self.nested_samples_array["it"]].flatten()
+
+    def simulate_evidence_uncertainty(self, n_simulations: int = 500, rng=None) -> np.ndarray:
+        """Draws of logZ under simulated prior-volume shrinkages, from the
+        sampler's ``rng`` unless one is given; their spread is the
+        simulated error."""
+        return self.state.simulate_log_evidence(n_simulations, rng=rng if rng is not None else self.rng)
 
     @property
     def nested_samples_array(self) -> np.ndarray:
@@ -1220,8 +1242,7 @@ class NestedSampler(BaseNestedSampler):
         if not self.simulated_evidence_error:
             return
         n_sims = 500 if isinstance(self.simulated_evidence_error, bool) else int(self.simulated_evidence_error)
-        draws = self.state.simulate_log_evidence(n_sims, rng=self.rng)
-        self.log_evidence_error_simulated = float(np.std(draws))
+        self.log_evidence_error_simulated = float(np.std(self.simulate_evidence_uncertainty(n_sims)))
 
     def nested_sampling_loop(self):
         """The main loop. Returns ``(logZ, nested_samples)``."""

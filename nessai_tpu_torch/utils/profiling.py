@@ -50,7 +50,9 @@ import time
 
 import torch
 
+from ..examples import augmented_example, eggbox, half_gaussian, mcmc_example, reparameterisations_example
 from ..examples.gw import basic_gw_example, full_gw_example
+from ..examples.importance_nested_sampler import ins_gaussian_mixture, nsf_unit_hypercube
 
 __all__ = [
     "FLAGSHIP",
@@ -126,14 +128,8 @@ FLAGSHIP_INS = dict(
 #: the defaults (a fresh RealNVP of 4 × [Permutation, AffineCoupling
 #: (resnet), ActNorm] per level); ``fs.run(**FLAGSHIP_INS_MIXTURE_RUN)``
 #: redraws to a posterior ESS of 2000.
-FLAGSHIP_INS_MIXTURE = dict(
-    FLAGSHIP_INS,
-    nlive=2000,
-    stopping_criterion=["ratio", "ess"],
-    tolerance=[0.0, 3000],
-    check_criteria="all",
-)
-FLAGSHIP_INS_MIXTURE_RUN = dict(redraw_samples=True, n_posterior_samples=2000)
+FLAGSHIP_INS_MIXTURE = dict(ins_gaussian_mixture.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
+FLAGSHIP_INS_MIXTURE_RUN = dict(ins_gaussian_mixture.RUN_KWARGS)
 
 #: The standard sampler at its defaults (nlive 2000, a RealNVP of 4 ×
 #: [Permutation, AffineCoupling (resnet), ActNorm], 500 epochs at most,
@@ -143,23 +139,13 @@ FLAGSHIP_INS_MIXTURE_RUN = dict(redraw_samples=True, n_posterior_samples=2000)
 #: x, bounded below at 0 where its density piles up, through
 #: ``inversion`` (edge detection, the split inversion), y through
 #: ``default`` (``RescaleToBounds`` with live bounds).
-FLAGSHIP_REPARAM_INVERSION = dict(
-    nlive=2000,
-    seed=1234,
-    resume=False,
-    plot=False,
-    checkpointing=False,
-    reparameterisations={"x": "inversion", "y": "default"},
-)
+FLAGSHIP_REPARAM_INVERSION = dict(half_gaussian.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
 
 #: The angle run of ``examples/reparameterisations_example.py`` on
 #: ``utils.testing.AngleModel``: theta through ``angle-2pi`` (Cartesian
 #: coordinates with an auxiliary chi(2) radius, three prime dimensions),
 #: amp through ``default``.
-FLAGSHIP_REPARAM_ANGLE = dict(
-    FLAGSHIP_REPARAM_INVERSION,
-    reparameterisations={"theta": {"reparameterisation": "angle-2pi"}, "amp": "default"},
-)
+FLAGSHIP_REPARAM_ANGLE = dict(reparameterisations_example.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
 
 
 #: The importance nested sampler with a flow on the unit hypercube, as
@@ -170,29 +156,7 @@ FLAGSHIP_REPARAM_ANGLE = dict(
 #: levels, and a neural spline flow of 4 × [RQSCoupling (resnet, 2
 #: layers of 32 neurons, 8 bins, ``tails=None`` on [0, 1])] with no linear
 #: transform and no ActNorm on a uniform base.
-FLAGSHIP_INS_HYPERCUBE = dict(
-    importance_nested_sampler=True,
-    nlive=10000,
-    seed=1234,
-    resume=False,
-    plot=False,
-    checkpointing=False,
-    draw_constant=True,
-    reparameterisation=None,
-    threshold_kwargs={"q": 0.66},
-    reset_flow=4,
-    flow_config=dict(
-        n_blocks=4,
-        n_neurons=32,
-        ftype="nsf",
-        distribution="uniform",
-        linear_transform=None,
-        batch_norm_between_layers=False,
-        tail_bound=1.0,
-        tails=None,
-        num_bins=8,
-    ),
-)
+FLAGSHIP_INS_HYPERCUBE = dict(nsf_unit_hypercube.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
 
 #: The documented flow configuration of
 #: ``docs/normalising-flows-configuration.md:52-66`` (a RealNVP of 4 ×
@@ -216,28 +180,14 @@ FLAGSHIP_LU = dict(
 #: otherwise (a RealNVP of 4 × [Permutation, AffineCoupling (resnet),
 #: ActNorm], 500 epochs at most, patience 20, batches of 1000, the latent
 #: radius at 95% of the latent mass).
-FLAGSHIP_EGGBOX = dict(
-    nlive=2000,
-    seed=170817,
-    resume=False,
-    plot=False,
-    checkpointing=False,
-    reset_flow=8,
-)
+FLAGSHIP_EGGBOX = dict(eggbox.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
 
 #: ``examples/augmented_example.py`` as written, on
 #: ``utils.testing.BimodalGaussianModel``: seed 1234, the augmented flow
 #: proposal with two unit-Gaussian augment dimensions (a 4-D RealNVP with
 #: the fixed coupling mask), the standard sampler's defaults otherwise
 #: (nlive 2000).
-FLAGSHIP_AUGMENTED = dict(
-    seed=1234,
-    resume=False,
-    plot=False,
-    checkpointing=False,
-    flow_class="augmentedflowproposal",
-    augment_dims=2,
-)
+FLAGSHIP_AUGMENTED = dict(augmented_example.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
 
 #: ``examples/mcmc_example.py`` as written, on
 #: ``utils.testing.GaussianModel`` (host likelihood and prior): seed 1234,
@@ -245,15 +195,7 @@ FLAGSHIP_AUGMENTED = dict(
 #: the standard sampler's defaults otherwise (nlive 2000, a RealNVP of
 #: 4 × [Permutation, AffineCoupling (resnet, 2 layers of 4 neurons),
 #: ActNorm], 500 epochs at most, patience 20).
-FLAGSHIP_MCMC = dict(
-    seed=1234,
-    resume=False,
-    plot=False,
-    checkpointing=False,
-    flow_class="mcmcflowproposal",
-    n_steps=20,
-    step_type="diff",
-)
+FLAGSHIP_MCMC = dict(mcmc_example.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
 
 #: The RealNVP flagship with the clustering flow proposal at the JAX
 #: package's default of 8 clusters: every coupling's net takes the

@@ -3,8 +3,8 @@ of ``nessai_tpu/`` with an ``__all__``, every name in it has a
 counterpart in the port's module of the same path (in that module's
 ``__all__``), or stands in ``EXEMPT`` with its reason; and every public
 member of every public class has a counterpart on the port's class, is
-JAX idiom (``EXEMPT_MEMBERS``) or is queued (``PENDING``, ROADMAP item
-14). Read from the sources (``ast``), nothing imported."""
+or is JAX idiom (``EXEMPT_MEMBERS``). Read from the sources (``ast``),
+nothing imported."""
 
 import ast
 import pathlib
@@ -87,7 +87,7 @@ def test_every_exemption_is_jax_idiom_with_a_reason():
 # and class attribute (inherited ones included) has a counterpart of the
 # same name on the port's class of the same module path (a method,
 # property, class attribute or an attribute its methods set), or is JAX
-# idiom (``EXEMPT_MEMBERS``), or is still to be ported (``PENDING``).
+# idiom (``EXEMPT_MEMBERS``).
 
 #: member name, or a prefix ending in "_", -> why the port has no
 #: counterpart of that name
@@ -105,8 +105,9 @@ EXEMPT_MEMBERS = {
 }
 
 #: "module:Class" of the JAX class that defines the members (subclasses
-#: inherit the entry) -> members still to be ported, in ROADMAP item 14
-PENDING = {
+#: inherit the entry) -> the members that were the last to be ported; each
+#: has a test against the JAX member in tests/test_torch_members.py
+LAST_PORTED = {
     "config.py:LivepointsConfig": ("core_parameters_defaults", "core_parameters_dtype", "reset_properties"),
     "config.py:_BaseConfig": ("asdict",),
     "flowmodel/base.py:FlowModel": (
@@ -265,25 +266,25 @@ def _missing(key):
 
 @pytest.mark.parametrize("key", PUBLIC_CLASSES, ids=lambda k: f"{k[0]}:{k[1]}")
 def test_every_public_member_has_a_counterpart(key):
-    missing = {
-        name: where for name, where in _missing(key).items() if not _exempt(name) and name not in PENDING.get(where, ())
-    }
+    missing = {name: where for name, where in _missing(key).items() if not _exempt(name)}
     assert not missing, f"{key}: {missing}"
 
 
-def test_pending_members_are_still_missing_and_queued():
-    """The list only shrinks: each pending member is still missing on some
-    port class that inherits it, and ROADMAP item 14 names its class."""
-    roadmap = (ROOT / "ROADMAP.md").read_text()
-    still = {}
+def test_the_last_ported_members_have_counterparts_and_tests():
+    """Each of the last members to be ported is a member of its JAX class,
+    has a counterpart on every port class that inherits it, and is named
+    in the test file that holds it against the JAX member."""
+    tests = (ROOT / "tests" / "test_torch_members.py").read_text()
+    assert sum(len(v) for v in LAST_PORTED.values()) == 48
+    for where, names in LAST_PORTED.items():
+        key = tuple(where.split(":"))
+        defined = JAX_PKG.members(key)
+        for name in names:
+            assert defined.get(name) == key, (where, name)
+            assert name in tests, (where, name)
     for key in PUBLIC_CLASSES:
         for name, where in _missing(key).items():
-            still.setdefault(where, set()).add(name)
-    for where, names in PENDING.items():
-        assert names == tuple(sorted(set(names))), where
-        gone = set(names) - still.get(where, set())
-        assert not gone, f"{where}: {sorted(gone)} have counterparts now; take them out of PENDING"
-        assert where.split(":")[1] in roadmap, where
+            assert name not in LAST_PORTED.get(where, ()), (key, name)
 
 
 def test_every_member_exemption_is_used():
@@ -298,6 +299,5 @@ def test_every_member_exemption_is_used():
 
 
 def test_model_and_errors_have_nothing_pending():
-    assert not [w for w in PENDING if w.startswith(("model.py:", "utils/errors.py:"))]
     for key in [("model.py", "Model"), ("model.py", "UniformPriorMixin"), ("utils/errors.py", "SamplingError")]:
         assert not [n for n in _missing(key) if not _exempt(n)], key

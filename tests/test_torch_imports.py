@@ -364,3 +364,39 @@ def test_gw_entry_points_without_gpu_raise(module, tmp_path, monkeypatch):
         FlowSampler(model, output=str(tmp_path / "gpu"), resume=False, plot=False, **m.SAMPLER_KWARGS)
     fs = FlowSampler(model, output=str(tmp_path / "cpu"), resume=False, plot=False, device="cpu", **m.SAMPLER_KWARGS)
     assert fs.ns.model.device == "cpu" or str(fs.ns.model.device) == "cpu"
+
+
+EXAMPLE_MODULES = [
+    "gaussian_2d",
+    "unbounded_prior",
+    "discrete_parameter",
+    "rosenbrock",
+    "parallelisation_example",
+    "corner_plot_example",
+    "eggbox",
+    "half_gaussian",
+    "augmented_example",
+    "mcmc_example",
+    "reparameterisations_example",
+] + [
+    f"importance_nested_sampler.{m}"
+    for m in ("basic_ins_example", "ins_gaussian", "hypercube_prior", "ins_resume", "ins_gaussian_mixture",
+              "nsf_unit_hypercube")
+]
+
+
+@pytest.mark.parametrize("module", ["importance_nested_sampler"] + EXAMPLE_MODULES)
+def test_import_walk_reaches_the_example_modules(module):
+    """The walk of ``test_import_every_module_without_jax`` imports every
+    example module, the importance nested sampler's subpackage too: none
+    imports JAX, the JAX package or a script of ``examples/``."""
+    import pkgutil
+
+    import nessai_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(nessai_tpu_torch.__path__, "nessai_tpu_torch.")}
+    assert f"nessai_tpu_torch.examples.{module}" in names
+    base = PORT / "examples" / module.replace(".", "/")
+    path = base / "__init__.py" if base.is_dir() else base.with_suffix(".py")
+    bad = [m for m in _top_level_imports(path) if m in FORBIDDEN + ("examples",)]
+    assert not bad, f"{path} imports {bad}"

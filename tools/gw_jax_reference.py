@@ -10,7 +10,10 @@ holds the port's GW runs on the card to these values
     JAX_PLATFORMS=cpu python tools/gw_jax_reference.py basic|callback|ins|toy|full|calibration [SEED]
 
 With two threads a run (``taskset -c 0,1``) the basic model took about
-2 minutes, the full model about 51.
+2 minutes, the full model about 51. With ``--port DEVICE`` after the seed
+the same configuration runs through the port instead (its model from
+``nessai_tpu_torch.examples.gw``) on ``DEVICE``, for the same line from
+the other package.
 """
 
 import json
@@ -37,33 +40,54 @@ EXAMPLES = {
 }
 
 
-def configuration(name):
-    """The script's model and sampler arguments, and its ``run`` arguments."""
+def configuration(name, package="jax"):
+    """The script's model (the JAX script's, or with ``package="port"`` the
+    port's module's) and sampler arguments, and its ``run`` arguments."""
     import importlib
 
     if name not in EXAMPLES:
         raise SystemExit(f"unknown example {name!r}")
     script, cls, port = EXAMPLES[name]
     arguments = importlib.import_module(f"nessai_tpu_torch.examples.gw.{port}")
-    model = getattr(importlib.import_module(script), cls)()
-    return model, dict(arguments.SAMPLER_KWARGS), dict(getattr(arguments, "RUN_KWARGS", {}))
+    module = arguments if package == "port" else importlib.import_module(script)
+    return getattr(module, cls)(), dict(arguments.SAMPLER_KWARGS), dict(getattr(arguments, "RUN_KWARGS", {}))
+
+
+def _run_port(model, kwargs, run_kwargs, device, output):
+    """The configuration through the port (``model`` is the port's)."""
+    import torch
+
+    from nessai_tpu_torch.flowsampler import FlowSampler
+
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fs = FlowSampler(model, output=output, resume=False, plot=False, checkpointing=False, device=device, **kwargs)
+    fs.run(plot=False, save=False, **run_kwargs)
+    return fs, model
 
 
 def main(argv):
-    import jax
-
-    from nessai_tpu.flowsampler import FlowSampler
-
     name = argv[0]
-    model, kwargs, run_kwargs = configuration(name)
+    port_device = argv[3] if argv[2:3] == ["--port"] else None
+    model, kwargs, run_kwargs = configuration(name, "jax" if port_device is None else "port")
     if len(argv) > 1:
         kwargs["seed"] = int(argv[1])
     start = time.perf_counter()
-    with tempfile.TemporaryDirectory() as output, jax.default_device(jax.devices("cpu")[0]):
-        fs = FlowSampler(model, output=output, resume=False, plot=False, checkpointing=False, **kwargs)
-        fs.run(plot=False, save=False, **run_kwargs)
+    if port_device is not None:
+        with tempfile.TemporaryDirectory() as output:
+            fs, model = _run_port(model, kwargs, run_kwargs, port_device, output)
+    else:
+        import jax
+
+        from nessai_tpu.flowsampler import FlowSampler
+
+        with tempfile.TemporaryDirectory() as output, jax.default_device(jax.devices("cpu")[0]):
+            fs = FlowSampler(model, output=output, resume=False, plot=False, checkpointing=False, **kwargs)
+            fs.run(plot=False, save=False, **run_kwargs)
     result = dict(
         name=name,
+        package="nessai_tpu_torch on " + port_device if port_device else "nessai_tpu",
         seed=kwargs["seed"],
         logZ=float(fs.logZ),
         sigma=float(fs.log_evidence_error),
