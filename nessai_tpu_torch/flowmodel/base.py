@@ -54,6 +54,7 @@ from ..parallel.mesh import _dp_backward, _sync_replicas, get_mesh, replicated_s
 from ..utils.distance import compute_minimum_distances
 from ..utils.device import get_device
 from ..utils.io import save_to_json
+from ..utils.profiling import annotate, counts
 from .config import (
     FlowConfig,
     TrainingConfig,
@@ -457,6 +458,7 @@ class FlowModel:
             return [torch.full((len(b), 1), float(noise_scale), device=b.device) for b in batches]
         if noise_type == "adaptive":
             x = torch.cat(batches).cpu().numpy()
+            counts.host_reads += 1
             sigma = self._to_device(noise_scale * compute_minimum_distances(x))[:, None]
             return list(torch.split(sigma, [len(b) for b in batches]))
         raise ValueError(f"Unknown noise type: {noise_type}")
@@ -492,7 +494,11 @@ class FlowModel:
         """Train the flow on ``samples`` ([n, dims]), with the weighted
         loss where ``weights`` are given and conditioned on
         ``conditional`` ([n, context_features]) where it is. Returns the
-        history of this call, ``{"loss": [...], "val_loss": [...]}``."""
+        history of this call, ``{"loss": [...], "val_loss": [...]}``.
+        Each epoch is traced as the span ``epoch`` (its index), with
+        ``train_step`` (each optimiser step), ``validation`` (the host's
+        read of the epoch's losses) and ``state_copy`` (a copy of the best
+        weights) under it; the weight file as ``save_weights``."""
         if not self.initialised:
             self.initialise()
         if not _same_device(self._flow_device, self.device):
@@ -527,33 +533,38 @@ class FlowModel:
         best_val = np.inf
         best_it = 0
         for epoch in range(int(max_epochs)):
-            self.flow.train()
-            losses = []
-            for i, (x, w, c) in enumerate(zip(batches, w_batches, c_batches)):
-                if decay_steps is not None:
-                    for group in self.optimiser.param_groups:
-                        group["lr"] = _cosine_decay(tc.lr, steps, decay_steps)
-                if sigma is not None:
-                    x = x + sigma[i] * torch.randn(x.shape, generator=self.device_generator(), device=x.device)
-                losses.append(self._train_step(x, w) if c is None else self._train_step(x, w, c))
-                steps += 1
-            loss = torch.stack(losses).mean()
-            self.flow.eval()
-            self.end_iteration()
-            if val is not None:
-                with torch.no_grad():
-                    metric = self._loss(val, w_val) if c_val is None else self._loss(val, w_val, c_val)
-                loss_v, metric_v = torch.stack([loss, metric]).tolist()
-                if np.isnan(metric_v):
-                    metric_v = loss_v
-            else:
-                loss_v = metric_v = loss.item()
-            history["loss"].append(loss_v)
-            history["val_loss"].append(metric_v)
-            if metric_v < best_val:
-                best_val = metric_v
-                best_it = epoch
-                best_state = self._state_copy()
+            with annotate("epoch", index=epoch):
+                self.flow.train()
+                losses = []
+                for i, (x, w, c) in enumerate(zip(batches, w_batches, c_batches)):
+                    if decay_steps is not None:
+                        for group in self.optimiser.param_groups:
+                            group["lr"] = _cosine_decay(tc.lr, steps, decay_steps)
+                    if sigma is not None:
+                        x = x + sigma[i] * torch.randn(x.shape, generator=self.device_generator(), device=x.device)
+                    with annotate("train_step"):
+                        losses.append(self._train_step(x, w) if c is None else self._train_step(x, w, c))
+                    steps += 1
+                loss = torch.stack(losses).mean()
+                self.flow.eval()
+                self.end_iteration()
+                with annotate("validation"):
+                    if val is not None:
+                        with torch.no_grad():
+                            metric = self._loss(val, w_val) if c_val is None else self._loss(val, w_val, c_val)
+                        loss_v, metric_v = torch.stack([loss, metric]).tolist()
+                        if np.isnan(metric_v):
+                            metric_v = loss_v
+                    else:
+                        loss_v = metric_v = loss.item()
+                    counts.host_reads += 1
+                history["loss"].append(loss_v)
+                history["val_loss"].append(metric_v)
+                if metric_v < best_val:
+                    best_val = metric_v
+                    best_it = epoch
+                    with annotate("state_copy"):
+                        best_state = self._state_copy()
             if not np.isfinite(loss_v):
                 logger.warning("Training loss is not finite at epoch %d", epoch)
                 break
@@ -583,6 +594,7 @@ class FlowModel:
         """``points`` [n, d] and ``per_row`` [n] as float64 numpy arrays,
         through one device-to-host copy."""
         out = torch.cat([points, per_row[:, None]], dim=1).double().cpu().numpy()
+        counts.host_reads += 1
         return out[:, :-1], out[:, -1]
 
     def sharded(self, fn, *tensors, flows=None):
@@ -657,6 +669,7 @@ class FlowModel:
     @torch.no_grad()
     def log_prob(self, x, conditional=None):
         out = self.sharded(lambda f, a, c: f.log_prob(a, c), _f32(x), _f32(conditional))
+        counts.host_reads += 1
         return out.double().cpu().numpy()
 
     @torch.no_grad()
@@ -667,6 +680,7 @@ class FlowModel:
         by shard)."""
         z = self._sample_base(n)
         x = self.sharded(lambda f, a, c: f.inverse(a, c)[0], z, _f32(conditional))
+        counts.host_reads += 1
         return x.double().cpu().numpy()
 
     def _sample_base(self, n: int) -> torch.Tensor:
@@ -693,6 +707,7 @@ class FlowModel:
         x, log_p = self._to_host(x, log_p)
         if alt_dist is not None:
             log_p = np.asarray(alt_dist.log_prob(z.cpu().numpy().astype(np.float64))) - log_j.double().cpu().numpy()
+            counts.host_reads += 2
         return x, log_p
 
     @torch.no_grad()
@@ -701,6 +716,7 @@ class FlowModel:
         a ``context`` raises, as the JAX package's."""
         if context is not None:
             raise NotImplementedError("Conditional latent sampling is not supported")
+        counts.host_reads += 1
         return self._sample_base(n).double().cpu().numpy()
 
     @torch.no_grad()
@@ -708,6 +724,7 @@ class FlowModel:
         """The latent log-density of ``z``, tempered at ``temperature``
         where it is not 1 (see :meth:`tempered_inverse`)."""
         zt = torch.as_tensor(_f32(z), device=self._flow_device)
+        counts.host_reads += 1
         return _tempered_base_log_prob(self.flow, zt, temperature).double().cpu().numpy()
 
     def base_distribution_log_prob(self, z, temperature=None):
@@ -720,10 +737,11 @@ class FlowModel:
     def save_weights(self, weights_file) -> None:
         """Save the flow's ``state_dict`` (as CPU tensors, so the file
         loads on any device), moving an existing file to
-        ``<file>.old``."""
-        if os.path.exists(weights_file):
-            shutil.move(weights_file, weights_file + ".old")
-        torch.save(_cpu_state_dict(self.flow), weights_file)
+        ``<file>.old``. Traced as the span ``save_weights``."""
+        with annotate("save_weights"):
+            if os.path.exists(weights_file):
+                shutil.move(weights_file, weights_file + ".old")
+            torch.save(_cpu_state_dict(self.flow), weights_file)
         self.weights_file = weights_file
 
     def load_weights(self, weights_file) -> None:
@@ -805,4 +823,6 @@ def _f32(x):
 
 
 def _cpu_state_dict(flow) -> dict:
-    return {k: v.detach().cpu().clone() for k, v in flow.state_dict().items()}
+    state = flow.state_dict()
+    counts.host_reads += len(state)
+    return {k: v.detach().cpu().clone() for k, v in state.items()}

@@ -27,6 +27,7 @@ import torch
 
 from ..flows import Flow
 from ..flows.utils import reset_weights
+from ..utils.profiling import counts
 from .base import WEIGHTS_FILE, FlowModel, _cpu_state_dict
 from .config import flow_config_to_dict, update_flow_config, update_training_config
 
@@ -208,12 +209,14 @@ class ImportanceFlowModel(FlowModel):
             flows=by_entry,
         )
         out = out.double().cpu().numpy()
+        counts.host_reads += 1
         self.log_prob_all_time += datetime.datetime.now() - st
         return out
 
     @torch.no_grad()
     def log_prob_ith(self, x, i: int) -> np.ndarray:
         """Float64 log-density of every row of ``x`` under level ``i``."""
+        counts.host_reads += 1
         return self.models[i].log_prob(self._to_device(x)).double().cpu().numpy()
 
     @torch.no_grad()
@@ -224,6 +227,7 @@ class ImportanceFlowModel(FlowModel):
         mapped through the level's inverse on the device."""
         z = self.models[i].sample_base(int(N), self._sample_generator)
         x, log_prob = self.sharded(lambda f, a: f.inverse_and_log_prob(a), z, flows=self.level_replicas(i))
+        counts.host_reads += 2
         return x.double().cpu().numpy(), log_prob.double().cpu().numpy()
 
     def sample_ith(self, i: int, N: int = 1) -> np.ndarray:

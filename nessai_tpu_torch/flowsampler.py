@@ -17,6 +17,7 @@ from .posterior import draw_posterior_samples
 from .samplers.importancesampler import ImportanceNestedSampler
 from .samplers.nestedsampler import NestedSampler
 from .utils.io import save_dict_to_hdf5, save_to_json
+from .utils.profiling import annotate
 from .utils.threading import configure_threads
 
 logger = logging.getLogger(__name__)
@@ -39,7 +40,15 @@ class FlowSampler:
     ``device`` (default ``None``, meaning CUDA) is where the flows train
     and run, and where a resumed run rebuilds them. Without a GPU,
     construction raises unless ``device="cpu"`` is passed.
+
+    Construction is traced as the span ``setup``, whose id is the run's
+    (:attr:`run_id`); :meth:`run` as the span ``run``, with
+    ``initialise``, ``finalise`` (in the sampler), ``posterior`` and
+    ``result_write`` among its children.
     """
+
+    #: the id of the run in a trace (None where construction was untraced)
+    run_id = None
 
     def __init__(
         self,
@@ -70,87 +79,90 @@ class FlowSampler:
         device=None,
         **kwargs,
     ):
-        configure_threads(max_threads or pytorch_threads)
-        self.exit_code = exit_code
-        self.eps = eps
-        if self.eps is not None:
-            logger.info("Setting eps to %s", self.eps)
-            config.general.eps = self.eps
-        # the JAX package keeps the name (nessai_tpu/flowsampler.py:76-81)
-        # and reads it nowhere: both packages compute in float32
-        name = "float32"
-        if torch_dtype is not None:
-            name = str(torch_dtype).replace("torch.", "")
-            if name not in ("float32", "float64"):
-                raise ValueError(f"Unknown torch_dtype: {torch_dtype}")
-        self.torch_dtype = name
-        self.close_pool = close_pool
-        self.result_extension = result_extension
-        self._result = None
-        self.importance_nested_sampler = importance_nested_sampler
+        with annotate("setup") as span:
+            span.set(run=span.id)
+            self.run_id = span.id
+            configure_threads(max_threads or pytorch_threads)
+            self.exit_code = exit_code
+            self.eps = eps
+            if self.eps is not None:
+                logger.info("Setting eps to %s", self.eps)
+                config.general.eps = self.eps
+            # the JAX package keeps the name (nessai_tpu/flowsampler.py:76-81)
+            # and reads it nowhere: both packages compute in float32
+            name = "float32"
+            if torch_dtype is not None:
+                name = str(torch_dtype).replace("torch.", "")
+                if name not in ("float32", "float64"):
+                    raise ValueError(f"Unknown torch_dtype: {torch_dtype}")
+            self.torch_dtype = name
+            self.close_pool = close_pool
+            self.result_extension = result_extension
+            self._result = None
+            self.importance_nested_sampler = importance_nested_sampler
 
-        if output is None:
-            output = os.getcwd()
-        self.output = os.path.join(output, "")
-        os.makedirs(self.output, exist_ok=True)
+            if output is None:
+                output = os.getcwd()
+            self.output = os.path.join(output, "")
+            os.makedirs(self.output, exist_ok=True)
 
-        if disable_vectorisation:
-            model.allow_vectorised = False
-        if likelihood_chunksize:
-            model.likelihood_chunksize = likelihood_chunksize
-        if allow_multi_valued_likelihood is not None:
-            model.allow_multi_valued_likelihood = allow_multi_valued_likelihood
-        if parallelise_prior is not None:
-            model.parallelise_prior = parallelise_prior
-        model.configure_pool(pool=pool, n_pool=n_pool)
+            if disable_vectorisation:
+                model.allow_vectorised = False
+            if likelihood_chunksize:
+                model.likelihood_chunksize = likelihood_chunksize
+            if allow_multi_valued_likelihood is not None:
+                model.allow_multi_valued_likelihood = allow_multi_valued_likelihood
+            if parallelise_prior is not None:
+                model.parallelise_prior = parallelise_prior
+            model.configure_pool(pool=pool, n_pool=n_pool)
 
-        SamplerClass = ImportanceNestedSampler if importance_nested_sampler else NestedSampler
-        self.save_kwargs(kwargs)
+            SamplerClass = ImportanceNestedSampler if importance_nested_sampler else NestedSampler
+            self.save_kwargs(kwargs)
 
-        resumed = False
-        weights_path = weights_path or weights_file
-        resume_kwargs = dict(
-            flow_config=kwargs.get("flow_config"),
-            training_config=kwargs.get("training_config"),
-            weights_path=weights_path,
-            rng=rng,
-            device=device,
-        )
-        if resume and not self.check_resume(resume_file, resume_data):
-            logger.debug("Nothing to resume from")
-        if resume_data is not None:
-            self.ns = SamplerClass.resume_from_pickled_sampler(resume_data, model, **resume_kwargs)
-            resumed = True
-        elif resume:
-            for rf in (
-                os.path.join(self.output, resume_file),
-                os.path.join(self.output, resume_file + ".old"),
-            ):
-                if os.path.exists(rf):
-                    try:
-                        self.ns = SamplerClass.resume(rf, model, **resume_kwargs)
-                        resumed = True
-                        break
-                    except Exception as e:
-                        logger.error("Could not resume from %s: %s", rf, e)
-        if not resumed:
-            self.ns = SamplerClass(
-                model,
-                output=self.output,
-                resume_file=resume_file,
-                seed=seed,
+            resumed = False
+            weights_path = weights_path or weights_file
+            resume_kwargs = dict(
+                flow_config=kwargs.get("flow_config"),
+                training_config=kwargs.get("training_config"),
+                weights_path=weights_path,
                 rng=rng,
                 device=device,
-                **kwargs,
             )
+            if resume and not self.check_resume(resume_file, resume_data):
+                logger.debug("Nothing to resume from")
+            if resume_data is not None:
+                self.ns = SamplerClass.resume_from_pickled_sampler(resume_data, model, **resume_kwargs)
+                resumed = True
+            elif resume:
+                for rf in (
+                    os.path.join(self.output, resume_file),
+                    os.path.join(self.output, resume_file + ".old"),
+                ):
+                    if os.path.exists(rf):
+                        try:
+                            self.ns = SamplerClass.resume(rf, model, **resume_kwargs)
+                            resumed = True
+                            break
+                        except Exception as e:
+                            logger.error("Could not resume from %s: %s", rf, e)
+            if not resumed:
+                self.ns = SamplerClass(
+                    model,
+                    output=self.output,
+                    resume_file=resume_file,
+                    seed=seed,
+                    rng=rng,
+                    device=device,
+                    **kwargs,
+                )
 
-        if signal_handling:
-            try:
-                signal.signal(signal.SIGTERM, self.safe_exit)
-                signal.signal(signal.SIGINT, self.safe_exit)
-                signal.signal(signal.SIGALRM, self.safe_exit)
-            except ValueError:
-                logger.error("Cannot set signal handlers outside main thread")
+            if signal_handling:
+                try:
+                    signal.signal(signal.SIGTERM, self.safe_exit)
+                    signal.signal(signal.SIGINT, self.safe_exit)
+                    signal.signal(signal.SIGALRM, self.safe_exit)
+                except ValueError:
+                    logger.error("Cannot set signal handlers outside main thread")
 
     def check_resume(self, resume_file, resume_data) -> bool:
         """Whether there is a resume file (or its ``.old`` copy), or
@@ -202,9 +214,10 @@ class FlowSampler:
         common = dict(plot=plot, save=save, close_pool=close_pool)
         if posterior_sampling_method is not None:
             common["posterior_sampling_method"] = posterior_sampling_method
-        if self.importance_nested_sampler:
-            return self.run_importance_nested_sampler(**common, **kwargs)
-        return self.run_standard_sampler(**common, **kwargs)
+        with annotate("run", run=self.run_id):
+            if self.importance_nested_sampler:
+                return self.run_importance_nested_sampler(**common, **kwargs)
+            return self.run_standard_sampler(**common, **kwargs)
 
     def run_standard_sampler(
         self,
@@ -222,23 +235,26 @@ class FlowSampler:
         close the pool (``close_pool``, by default the constructor's)."""
         if close_pool is None:
             close_pool = self.close_pool
-        self.ns.initialise()
+        with annotate("initialise"):
+            self.ns.initialise()
         _, nested_samples = self.ns.nested_sampling_loop()
         logger.info("Total sampling time: %s", self.ns.sampling_time)
-        n_ns = len(nested_samples)
-        nlive_schedule = np.concatenate(
-            [np.full(n_ns - self.ns.nlive, self.ns.nlive), np.arange(self.ns.nlive, 0, -1)]
-        )
-        self.posterior_samples = draw_posterior_samples(
-            nested_samples,
-            nlive=nlive_schedule,
-            method=posterior_sampling_method,
-            rng=self.ns.rng,
-        )
+        with annotate("posterior"):
+            n_ns = len(nested_samples)
+            nlive_schedule = np.concatenate(
+                [np.full(n_ns - self.ns.nlive, self.ns.nlive), np.arange(self.ns.nlive, 0, -1)]
+            )
+            self.posterior_samples = draw_posterior_samples(
+                nested_samples,
+                nlive=nlive_schedule,
+                method=posterior_sampling_method,
+                rng=self.ns.rng,
+            )
         logger.info("Returned %s posterior samples", self.posterior_samples.size)
         self.nested_samples = nested_samples
         if save:
-            self.save_results(os.path.join(self.output, "result"), extension=self.result_extension)
+            with annotate("result_write"):
+                self.save_results(os.path.join(self.output, "result"), extension=self.result_extension)
         if plot:
             from . import plot as _plot
 
@@ -283,7 +299,8 @@ class FlowSampler:
         :meth:`run_standard_sampler`."""
         if close_pool is None:
             close_pool = self.close_pool
-        self.ns.initialise()
+        with annotate("initialise"):
+            self.ns.initialise()
         self.ns.nested_sampling_loop()
         logger.info("Total sampling time: %s", self.ns.sampling_time)
         if redraw_samples:
@@ -303,7 +320,8 @@ class FlowSampler:
         logger.info("Returned %s posterior samples", self.posterior_samples.size)
         self.nested_samples = np.asarray(self.ns.nested_samples)
         if save:
-            self.save_results(os.path.join(self.output, "result"), extension=self.result_extension)
+            with annotate("result_write"):
+                self.save_results(os.path.join(self.output, "result"), extension=self.result_extension)
         if plot:
             self.ns.produce_plots()
             if plot_posterior:

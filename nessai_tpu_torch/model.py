@@ -44,6 +44,7 @@ from .utils.multiprocessing import (
     log_likelihood_wrapper,
     log_prior_wrapper,
 )
+from .utils.profiling import annotate, counts
 
 logger = logging.getLogger(__name__)
 
@@ -56,6 +57,19 @@ class ModelError(RuntimeError):
 
 class OneDimensionalModelError(ModelError):
     """Raised for 1-D models, which nessai does not support."""
+
+
+def _traced_likelihood(ll):
+    """``ll(x, data)`` counted in ``likelihood_rows`` and traced as the
+    device span ``likelihood``."""
+
+    def fn(x, data):
+        rows = int(x.shape[0])
+        counts.likelihood_rows += rows
+        with annotate("likelihood", device=x.is_cuda, rows=rows):
+            return ll(x, data)
+
+    return fn
 
 
 class Model(ABC):
@@ -219,15 +233,17 @@ class Model(ABC):
         a ``[n, dims]`` float32 tensor on ``device`` (by default the
         model's), or None where there is no device path. ``data`` is
         :attr:`torch_likelihood_data` as tensors on ``device`` (None when
-        unused). The ``torch_log_likelihood`` hook comes first; else, with
-        :attr:`likelihood_callback`, the host ``log_likelihood`` on the
-        rows, returned as float32 on the rows' device."""
+        unused). The ``torch_log_likelihood`` hook comes first, traced as
+        the span ``likelihood`` (its rows and device time) with its rows
+        counted; else, with :attr:`likelihood_callback`, the host
+        ``log_likelihood`` on the rows, returned as float32 on the rows'
+        device."""
         if self.has_torch_likelihood:
             ll = self.torch_log_likelihood
             if self.torch_likelihood_data is not None:
                 device = get_device(self.device if device is None else device)
-                return (lambda x, data: ll(x, data)), self._device_likelihood_data(device)
-            return (lambda x, data: ll(x)), None
+                return _traced_likelihood(ll), self._device_likelihood_data(device)
+            return _traced_likelihood(lambda x, data: ll(x)), None
         if not self.likelihood_callback:
             return None
 
@@ -503,6 +519,7 @@ class Model(ABC):
             with torch.no_grad():
                 out = fn(arr, data)
             out = out.cpu().numpy().astype(np.float64)
+            counts.host_reads += 1
         else:
             out = batch_evaluate_function(
                 self.log_likelihood,

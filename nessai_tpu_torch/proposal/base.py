@@ -16,6 +16,10 @@ class Proposal(ABC):
     """Base object for proposals: ``draw(old_point)`` returns a new
     sample. Tracks the population wall-time."""
 
+    #: the id of the ``populate`` span of the pool drawn last, which the
+    #: sampler's ``commit`` span of that pool carries (None untraced)
+    pool_id = None
+
     def __init__(self, model, rng=None):
         self.model = model
         self.rng = rng if rng is not None else np.random.default_rng()
@@ -67,7 +71,8 @@ class Proposal(ABC):
 
     def __getstate__(self):
         """The model stays out of the pickle (the sampler rebinds it at
-        resume)."""
+        resume), and so does the pool's trace id."""
         state = self.__dict__.copy()
         state["model"] = None
+        state.pop("pool_id", None)
         return state

@@ -57,6 +57,7 @@ from scipy.special import logsumexp
 
 from ...flows.distributions import StandardNormal
 from ...livepoint import empty_structured_array
+from ...utils.profiling import annotate, counts
 from ...utils.sampling import _bucket_size
 from .base import BaseFlowProposal
 from .truncation import TruncationScheme
@@ -66,10 +67,11 @@ logger = logging.getLogger(__name__)
 __all__ = ["FlowProposal", "device_loop_counts"]
 
 #: What the device populate loop did since the counts were last set to 0:
-#: its calls, the rounds queued, the host reads of the accepted count
-#: (one per chunk of rounds) and the nested-sampling scans chained onto
-#: its pools.
-device_loop_counts = types.SimpleNamespace(calls=0, rounds=0, chunk_reads=0, chained_scans=0)
+#: its calls, the rounds queued, the rounds that ran before the buffer
+#: filled (``active_rounds``: the rest were masked), the host reads of the
+#: accepted count (one per chunk of rounds) and the nested-sampling scans
+#: chained onto its pools.
+device_loop_counts = types.SimpleNamespace(calls=0, rounds=0, active_rounds=0, chunk_reads=0, chained_scans=0)
 
 
 class FlowProposal(BaseFlowProposal):
@@ -452,6 +454,7 @@ class FlowProposal(BaseFlowProposal):
         ``(x, log_q, log_l or None, in_bounds)``, in one device-to-host
         copy."""
         out = columns.cpu().numpy().astype(np.float64)
+        counts.host_reads += 1
         d = out.shape[1] - (3 if with_likelihood else 2)
         log_l = out[:, d + 2] if with_likelihood else None
         return out[:, :d], out[:, d], log_l, out[:, d + 1] > 0.5
@@ -467,6 +470,7 @@ class FlowProposal(BaseFlowProposal):
             self._logged_host_inverse.add(missing)
             logger.info("%s has no device inverse: the inverse reparameterisation runs on the host", missing)
         out = torch.cat([x_prime, log_q[:, None]], dim=1).cpu().numpy().astype(np.float64)
+        counts.host_reads += 1
         x_prime_host = np.zeros(len(out), dtype=self.x_prime_dtype)
         for i, pp in enumerate(self.prime_parameters):
             x_prime_host[pp] = out[:, i]
@@ -648,47 +652,61 @@ class FlowProposal(BaseFlowProposal):
 
         Returns ``(x [k, P], log_l [k] or None, accepted, proposed,
         scan outputs or None)``, x and log_l as float64 numpy arrays of
-        the first ``k = min(accepted, cap)`` rows."""
-        device = self.device
-        model = self.model
-        gen = torch.Generator(device=device).manual_seed(int(seed))
-        n_params = len(self.parameters)
-        loop = self._device_loop_constants(B, cap, r_max)
-        buf_x = torch.zeros(cap + 1, n_params, dtype=torch.float32, device=device)
-        count = torch.zeros((), dtype=torch.int64, device=device)
-        n_prop = torch.zeros((), dtype=torch.int64, device=device)
-        device_loop_counts.calls += 1
-        done = 0
-        chunk = max(1, min(int(first_chunk), int(rounds)))
-        count_host = 0
-        while done < rounds:
-            c = min(chunk, rounds - done)
-            for _ in range(c):
-                self._device_loop_round(loop, gen, buf_x, count, n_prop)
-            done += c
-            device_loop_counts.rounds += c
-            device_loop_counts.chunk_reads += 1
-            count_host = int(count)
-            if count_host >= cap:
-                break
-            chunk *= 2
-        k = min(count_host, cap)
-        buf = buf_x[:cap]
-        columns = [buf]
-        log_l_dev = None
-        if with_ll:
-            ll_fn, ll_data = model.device_log_likelihood_fn(device)
-            log_l_dev = ll_fn(buf[:, : len(model.names)], ll_data).to(torch.float32)
-            columns.append(log_l_dev[:, None])
-        scan_out = None
-        if scan is not None and count_host >= cap:
-            from ...samplers.ns_device import chain_scan
+        the first ``k = min(accepted, cap)`` rows. Traced as the span
+        ``device_loop`` (rounds queued, active and chunk reads), with
+        ``chunk_read`` (the host's wait on each chunk's count), the
+        model's ``likelihood``, ``scan`` and ``pool_to_host`` under it."""
+        with annotate("device_loop") as span:
+            device = self.device
+            model = self.model
+            gen = torch.Generator(device=device).manual_seed(int(seed))
+            n_params = len(self.parameters)
+            loop = self._device_loop_constants(B, cap, r_max)
+            buf_x = torch.zeros(cap + 1, n_params, dtype=torch.float32, device=device)
+            count = torch.zeros((), dtype=torch.int64, device=device)
+            n_prop = torch.zeros((), dtype=torch.int64, device=device)
+            device_loop_counts.calls += 1
+            done = reads = 0
+            chunk = max(1, min(int(first_chunk), int(rounds)))
+            count_host = 0
+            while done < rounds:
+                c = min(chunk, rounds - done)
+                for _ in range(c):
+                    self._device_loop_round(loop, gen, buf_x, count, n_prop)
+                done += c
+                reads += 1
+                device_loop_counts.rounds += c
+                device_loop_counts.chunk_reads += 1
+                counts.host_reads += 1
+                with annotate("chunk_read"):
+                    count_host = int(count)
+                if count_host >= cap:
+                    break
+                chunk *= 2
+            k = min(count_host, cap)
+            buf = buf_x[:cap]
+            columns = [buf]
+            log_l_dev = None
+            if with_ll:
+                ll_fn, ll_data = model.device_log_likelihood_fn(device)
+                log_l_dev = ll_fn(buf[:, : len(model.names)], ll_data).to(torch.float32)
+                columns.append(log_l_dev[:, None])
+            scan_out = None
+            if scan is not None and count_host >= cap:
+                from ...samplers.ns_device import chain_scan
 
-            scan_out = chain_scan(log_l_dev, *scan)
-            device_loop_counts.chained_scans += 1
-        out = torch.cat(columns, dim=1)[:k].cpu().numpy().astype(np.float64)
+                with annotate("scan"):
+                    scan_out = chain_scan(log_l_dev, *scan)
+                device_loop_counts.chained_scans += 1
+            with annotate("pool_to_host"):
+                out = torch.cat(columns, dim=1)[:k].cpu().numpy().astype(np.float64)
+                n_prop_host = int(n_prop)
+            counts.host_reads += 2
+            active = n_prop_host // B
+            device_loop_counts.active_rounds += active
+            span.set(rounds=done, active_rounds=active, chunk_reads=reads)
         log_l = out[:, n_params] if with_ll else None
-        return out[:, :n_params], log_l, count_host, int(n_prop), scan_out
+        return out[:, :n_params], log_l, count_host, n_prop_host, scan_out
 
     def _device_loop_constants(self, B, cap, r_max):
         """What every round of a call reads: the batch, the buffer size,
@@ -756,8 +774,8 @@ class FlowProposal(BaseFlowProposal):
     def populate(self, worst_point, n_samples: int = 10000, plot: bool = True, r=None, max_samples=None) -> None:
         """Fill the pool with ``n_samples`` accepted draws (at most
         ``max_samples`` latent draws, by default :attr:`max_samples`;
-        ``r`` overrides the latent radius)."""
-        st = datetime.datetime.now()
+        ``r`` overrides the latent radius). Traced as the span
+        ``populate``, whose id is the pool's (:attr:`pool_id`)."""
         if not self.initialised:
             raise RuntimeError("Proposal has not been initialised; call initialise() first")
         if max_samples is not None and max_samples != self.max_samples:
@@ -771,6 +789,14 @@ class FlowProposal(BaseFlowProposal):
             finally:
                 self.max_samples = previous
                 self._max_samples_explicit = previous_explicit
+        with annotate("populate") as span:
+            span.set(pool=span.id)
+            self.pool_id = span.id
+            self._populate(worst_point, n_samples, plot, r)
+
+    def _populate(self, worst_point, n_samples, plot, r) -> None:
+        """The populate of :meth:`populate`: the device loop or the rounds."""
+        st = datetime.datetime.now()
         scheme = self.truncation
         scheme.prepare(self, worst_point, radius=r)
         self.indices = []

@@ -16,6 +16,7 @@ import torch
 
 from ..livepoint import empty_structured_array
 from ..utils.device import get_device
+from ..utils.profiling import annotate, counts
 from ..utils.sampling import _bucket_size
 from .analytic import AnalyticProposal
 
@@ -99,9 +100,11 @@ class RejectionProposal(AnalyticProposal):
         if scan_req is not None:
             from ..samplers.ns_device import chain_scan
 
-            self._pending_ns_scan = chain_scan(log_l, perm, *scan_req)
+            with annotate("scan"):
+                self._pending_ns_scan = chain_scan(log_l, perm, *scan_req)
             prior_populate_counts.chained_scans += 1
         out = torch.cat([x, log_l[:, None]], dim=1).cpu().numpy().astype(np.float64)
+        counts.host_reads += 1
         samples = empty_structured_array(N, names=m.names)
         for i, name in enumerate(m.names):
             samples[name] = out[:, i]
@@ -135,19 +138,20 @@ class RejectionProposal(AnalyticProposal):
             scale = min(self.max_poolsize_scale, scale)
             N = int(self.poolsize * scale)
             self._pool_scale = min(self.max_poolsize_scale, self._pool_scale * 1.6)
-        st = datetime.datetime.now()
-        if self._device_populate_ok:
-            self._device_populate(N)
+        with annotate("populate") as span:
+            span.set(pool=span.id)
+            self.pool_id = span.id
+            st = datetime.datetime.now()
+            if self._device_populate_ok:
+                self._device_populate(N)
+            else:
+                x = self.draw_proposal(N=N)
+                log_w = self.compute_weights(x)
+                log_w = log_w - np.nanmax(log_w)
+                log_u = np.log(self.rng.random(N))
+                self.samples = x[np.flatnonzero(log_w > log_u)]
+                self.population_acceptance = self.samples.size / N
+                self.indices = self.rng.permutation(self.samples.size).tolist()
+                self.samples["logL"] = self.model.batch_evaluate_log_likelihood(self.samples)
             self.population_time += datetime.datetime.now() - st
             self.populated = True
-            return
-        x = self.draw_proposal(N=N)
-        log_w = self.compute_weights(x)
-        log_w = log_w - np.nanmax(log_w)
-        log_u = np.log(self.rng.random(N))
-        self.samples = x[np.flatnonzero(log_w > log_u)]
-        self.population_acceptance = self.samples.size / N
-        self.indices = self.rng.permutation(self.samples.size).tolist()
-        self.samples["logL"] = self.model.batch_evaluate_log_likelihood(self.samples)
-        self.population_time += datetime.datetime.now() - st
-        self.populated = True

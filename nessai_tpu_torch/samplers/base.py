@@ -19,6 +19,7 @@ import numpy as np
 
 from ..utils.device import get_device
 from ..utils.io import safe_file_dump
+from ..utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -180,7 +181,8 @@ class BaseNestedSampler(ABC):
         writes at once. A checkpoint that is not periodic is marked in
         the history. With ``save_existing`` (by default
         ``save_existing_checkpoint``, else True) the previous file moves
-        to ``<file>.old``.
+        to ``<file>.old``. A checkpoint written is traced as the span
+        ``checkpoint``.
         """
         if not force:
             if not self.checkpointing:
@@ -200,12 +202,13 @@ class BaseNestedSampler(ABC):
         st = datetime.datetime.now()
         self.sampling_time += st - self.sampling_start_time
         logger.info("Checkpointing nested sampling")
-        if self.checkpoint_callback is not None:
-            self.checkpoint_callback(self)
-        else:
-            if save_existing is None:
-                save_existing = getattr(self, "save_existing_checkpoint", True)
-            safe_file_dump(self, self.resume_file, module=pickle, save_existing=save_existing)
+        with annotate("checkpoint"):
+            if self.checkpoint_callback is not None:
+                self.checkpoint_callback(self)
+            else:
+                if save_existing is None:
+                    save_existing = getattr(self, "save_existing_checkpoint", True)
+                safe_file_dump(self, self.resume_file, module=pickle, save_existing=save_existing)
         self.sampling_start_time = datetime.datetime.now()
         self._last_checkpoint_time = time.time()
         self._last_checkpoint_iteration = self.iteration

@@ -36,6 +36,7 @@ from ..proposal import AnalyticProposal, RejectionProposal
 from ..proposal.utils import check_proposal_kwargs, get_flow_proposal_class
 from ..stopping_criteria import StoppingCriterionRegistry
 from ..utils.indices import compute_indices_ks_test
+from ..utils.profiling import annotate
 from ..utils.stats import effective_sample_size
 from .base import BaseNestedSampler
 
@@ -493,26 +494,30 @@ class NestedSampler(BaseNestedSampler):
     def train_proposal(self, force: bool = False) -> None:
         """Train the flow proposal on the current live points (with the
         last ``memory`` nested samples), not within the cooldown unless
-        ``force``."""
+        ``force``. Traced as the span ``training`` (its rows), whose id is
+        the training's."""
         if not force and (self.iteration - self.last_updated) < self.cooldown:
             logger.debug("Not training; within cooldown")
             return
-        self.check_flow_model_reset()
-        logger.info("Training flow proposal at iteration %s", self.iteration)
-        st = datetime.datetime.now()
-        training_data = self.live_points.copy()
-        if self.memory and len(self.nested_samples) >= self.memory:
-            training_data = np.concatenate(
-                [training_data, np.asarray(self.nested_samples[-int(self.memory) :], dtype=training_data.dtype)]
-            )
-        self._flow_proposal.train(training_data, plot=self.plot)
-        self.training_time += datetime.datetime.now() - st
-        self.training_iterations.append(self.iteration)
-        self.last_updated = self.iteration
-        self.block_iteration = 0
-        self.block_acceptance = 0.0
-        self.train_count += 1
-        self.completed_training = True
+        with annotate("training") as span:
+            span.set(training=span.id)
+            self.check_flow_model_reset()
+            logger.info("Training flow proposal at iteration %s", self.iteration)
+            st = datetime.datetime.now()
+            training_data = self.live_points.copy()
+            if self.memory and len(self.nested_samples) >= self.memory:
+                training_data = np.concatenate(
+                    [training_data, np.asarray(self.nested_samples[-int(self.memory) :], dtype=training_data.dtype)]
+                )
+            span.set(rows=len(training_data))
+            self._flow_proposal.train(training_data, plot=self.plot)
+            self.training_time += datetime.datetime.now() - st
+            self.training_iterations.append(self.iteration)
+            self.last_updated = self.iteration
+            self.block_iteration = 0
+            self.block_acceptance = 0.0
+            self.train_count += 1
+            self.completed_training = True
         if self.checkpoint_on_training:
             self.checkpoint(periodic=True, force=True)
 
@@ -623,18 +628,28 @@ class NestedSampler(BaseNestedSampler):
         ``searchsorted(side="left")``. Trailing entries that can no longer
         beat the worst point are left to the sequential path, so training
         and repopulation happen as they do there. Returns True if at least
-        one iteration was consumed.
+        one iteration was consumed. Traced as the span ``commit`` (the
+        pool's id, the iterations committed), with ``evidence_replay``
+        under it and ``history`` at each boundary inside that.
         """
         proposal = self.proposal
         indices = getattr(proposal, "indices", None)
         samples = getattr(proposal, "samples", None)
         if not self.completed_training or not getattr(proposal, "populated", False) or not indices or samples is None:
             return False
+        with annotate("commit", pool=proposal.pool_id) as span:
+            n_done = self._replay_pool(proposal, indices, samples)
+            span.set(iterations=n_done)
+        return n_done > 0
+
+    def _replay_pool(self, proposal, indices, samples) -> int:
+        """The host pass of :meth:`_consume_from_pool_batched`; returns
+        the iterations it committed."""
         state = self.state
         order = np.asarray(indices[::-1], dtype=np.int64)
         pool_logL = np.ascontiguousarray(samples["logL"][order], dtype=np.float64)
         if not np.all(np.isfinite(pool_logL)):
-            return False
+            return 0
         pool_l = pool_logL.tolist()
 
         n = self.nlive
@@ -703,90 +718,92 @@ class NestedSampler(BaseNestedSampler):
             buf_info.clear()
             buf_nlives.clear()
 
-        while cond > tol and j < K:
-            if max_it and it >= max_it:
-                break
-            if uninformed and (mean_acc < switch_thr or it >= max_uninformed):
-                break
-            w = float(llogL[0])
-            cnt = 1
-            while j < K and pool_l[j] <= w:
-                j += 1
-                cnt += 1
-            if j >= K:
-                # the remaining pops would exhaust the pool mid-iteration:
-                # rewind and let consume_sample drain them
-                j = K - (cnt - 1)
-                self._count_carry = carry
-                break
-            last_w = w
-            if w <= lastL:
-                state.nonmonotonic_count += 1
-                if state.nonmonotonic_count <= 5:
-                    logger.warning(
-                        "NS integrator received non-monotonic logL: %.5f -> %.5f",
-                        lastL,
-                        w,
-                    )
-                elif state.nonmonotonic_count % 1000 == 0:
-                    logger.warning(
-                        "NS integrator received %d non-monotonic logL values so "
-                        "far (ties are expected with float32 device likelihoods)",
-                        state.nonmonotonic_count,
-                    )
-            Wt = logw + w + log1mexp_logt
-            if Wt > logZ:
-                logZ = Wt + log1p(exp(logZ - Wt))
-            elif Wt == -inf_:
-                pass
-            else:
-                logZ = logZ + log1p(exp(Wt - logZ))
-            if isfinite(oldZ):
-                info_v = exp(Wt - logZ) * w + exp(oldZ - logZ) * (info_last + oldZ) - logZ
-                if isnan(info_v):
+        with annotate("evidence_replay"):
+            while cond > tol and j < K:
+                if max_it and it >= max_it:
+                    break
+                if uninformed and (mean_acc < switch_thr or it >= max_uninformed):
+                    break
+                w = float(llogL[0])
+                cnt = 1
+                while j < K and pool_l[j] <= w:
+                    j += 1
+                    cnt += 1
+                if j >= K:
+                    # the remaining pops would exhaust the pool mid-iteration:
+                    # rewind and let consume_sample drain them
+                    j = K - (cnt - 1)
+                    self._count_carry = carry
+                    break
+                last_w = w
+                if w <= lastL:
+                    state.nonmonotonic_count += 1
+                    if state.nonmonotonic_count <= 5:
+                        logger.warning(
+                            "NS integrator received non-monotonic logL: %.5f -> %.5f",
+                            lastL,
+                            w,
+                        )
+                    elif state.nonmonotonic_count % 1000 == 0:
+                        logger.warning(
+                            "NS integrator received %d non-monotonic logL values so "
+                            "far (ties are expected with float32 device likelihoods)",
+                            state.nonmonotonic_count,
+                        )
+                Wt = logw + w + log1mexp_logt
+                if Wt > logZ:
+                    logZ = Wt + log1p(exp(logZ - Wt))
+                elif Wt == -inf_:
+                    pass
+                else:
+                    logZ = logZ + log1p(exp(Wt - logZ))
+                if isfinite(oldZ):
+                    info_v = exp(Wt - logZ) * w + exp(oldZ - logZ) * (info_last + oldZ) - logZ
+                    if isnan(info_v):
+                        info_v = 0.0
+                else:
                     info_v = 0.0
-            else:
-                info_v = 0.0
-            buf_info.append(info_v)
-            info_last = info_v
-            oldZ = logZ
-            logw += logt
-            buf_logLs.append(w)
-            buf_vols.append(logw)
-            buf_nlives.append(n)
-            lastL = w
-            ns_append(R[ids[0]])
-            cond = self._logaddexp(logZ, logLmax + logw) - logZ
-            p = pool_l[j]
-            pid = n + j
-            j += 1
-            accepted += 1
-            block_acc += 1.0 / (cnt + carry)
-            carry = 0
-            R_it[pid] = it
-            idx = int(searchsorted(llogL, p))
-            llogL[0 : idx - 1] = llogL[1:idx]
-            llogL[idx - 1] = p
-            ids[0 : idx - 1] = ids[1:idx]
-            ids[idx - 1] = pid
-            ins_append(idx - 1)
-            last = float(llogL[n - 1])
-            if last > logLmax:
-                logLmax = last
-            it += 1
-            block_it += 1
-            n_done += 1
-            # consume_sample computes this before the loop increments
-            # block_iteration
-            mean_acc = block_acc / max(block_it - 1, 1)
-            if it % hist_interval == 0 or it % n == 0:
-                _sync()
-                self.live_points = R[ids]
-                self.update_state()
-                self.periodically_log_state()
+                buf_info.append(info_v)
+                info_last = info_v
+                oldZ = logZ
+                logw += logt
+                buf_logLs.append(w)
+                buf_vols.append(logw)
+                buf_nlives.append(n)
+                lastL = w
+                ns_append(R[ids[0]])
+                cond = self._logaddexp(logZ, logLmax + logw) - logZ
+                p = pool_l[j]
+                pid = n + j
+                j += 1
+                accepted += 1
+                block_acc += 1.0 / (cnt + carry)
+                carry = 0
+                R_it[pid] = it
+                idx = int(searchsorted(llogL, p))
+                llogL[0 : idx - 1] = llogL[1:idx]
+                llogL[idx - 1] = p
+                ids[0 : idx - 1] = ids[1:idx]
+                ids[idx - 1] = pid
+                ins_append(idx - 1)
+                last = float(llogL[n - 1])
+                if last > logLmax:
+                    logLmax = last
+                it += 1
+                block_it += 1
+                n_done += 1
+                # consume_sample computes this before the loop increments
+                # block_iteration
+                mean_acc = block_acc / max(block_it - 1, 1)
+                if it % hist_interval == 0 or it % n == 0:
+                    with annotate("history"):
+                        _sync()
+                        self.live_points = R[ids]
+                        self.update_state()
+                        self.periodically_log_state()
 
         if not n_done:
-            return False
+            return 0
         _sync()
         self.live_points = R[ids]
         del indices[-j:]
@@ -798,7 +815,7 @@ class NestedSampler(BaseNestedSampler):
         else:
             self._uninformed_proposal.ns_acceptance = self.mean_block_acceptance
         self.checkpoint(periodic=True)
-        return True
+        return n_done
 
     # ------------------------------------------------------------------
     # Stepping on the device
@@ -933,15 +950,25 @@ class NestedSampler(BaseNestedSampler):
         scan runs again on its own (:func:`~.ns_device.run_ns_scan`)
         with the exact accept cap, for the live set at that point.
 
-        Returns True if at least one iteration was consumed."""
+        Returns True if at least one iteration was consumed. Traced as the
+        span ``commit`` (the pool's id, the iterations committed), with
+        ``evidence_replay`` and ``history`` under it."""
         proposal = self.proposal
         pending = getattr(proposal, "_pending_ns_scan", None)
         if pending is None:
             return False
         proposal._pending_ns_scan = None
+        with annotate("commit", pool=proposal.pool_id) as span:
+            n_commit = self._commit_scanned_pool(proposal, pending)
+            span.set(iterations=n_commit)
+        return n_commit > 0
+
+    def _commit_scanned_pool(self, proposal, pending) -> int:
+        """The commit of :meth:`_consume_from_pool_device`; returns the
+        iterations it committed."""
         elig = self._device_step_eligible()
         if elig is None:
-            return False
+            return 0
         order, pool_logL, live32, pool32 = elig
         samples = proposal.samples
         indices = proposal.indices
@@ -951,7 +978,7 @@ class NestedSampler(BaseNestedSampler):
         if self.max_iteration and np.isfinite(self.max_iteration):
             max_acc = int(self.max_iteration) - it0
             if max_acc <= 0:
-                return False
+                return 0
         else:
             max_acc = 2**31 - 1
         # the chained scan must have seen this live set, pool and cap
@@ -960,108 +987,110 @@ class NestedSampler(BaseNestedSampler):
             or pending["max_acc"] != min(max_acc, 2**31 - 1)
             or not np.array_equal(pending["live32"], live32)
         ):
-            return False
+            return 0
         mask = pending["mask"]
         consumed_all = pending["consumed"]
         ins_all = pending["ins"]
         final_ids = pending["final_ids"]
         n_acc = pending["n_acc"]
         if n_acc == 0:
-            return False
+            return 0
 
-        pos = np.nonzero(mask)[0][:n_acc]
-        R = np.concatenate([self.live_points, samples[order]])
-        w = np.ascontiguousarray(R["logL"][consumed_all[pos]], dtype=np.float64)
-        p_acc = pool_logL[pos]
-        ins = ins_all[pos]
+        with annotate("evidence_replay"):
+            pos = np.nonzero(mask)[0][:n_acc]
+            R = np.concatenate([self.live_points, samples[order]])
+            w = np.ascontiguousarray(R["logL"][consumed_all[pos]], dtype=np.float64)
+            p_acc = pool_logL[pos]
+            ins = ins_all[pos]
 
-        # the float64 evidence, in the sequential integrator's op order
-        logt = state.log_shrinkage(n)
-        c_shrink = math.log(-math.expm1(logt))
-        lw = np.add.accumulate(np.concatenate(([state.logw], np.full(n_acc, logt))))
-        logw_pre, logw_post = lw[:-1], lw[1:]
-        Wt = (logw_pre + w) + c_shrink
-        logZ_tr = np.logaddexp.accumulate(np.concatenate(([state.logZ], Wt)))[1:]
-        oldZ_tr = np.concatenate(([state.oldZ], logZ_tr[:-1]))
-        # logLmax as the dlogZ condition reads it: moved only by a
-        # candidate in the top slot, and read before this insertion
-        cand = np.where(ins == n - 1, p_acc, -np.inf)
-        run_max = np.maximum.accumulate(cand)
-        logLmax0 = float(self.logLmax)
-        logLmax_pre = np.maximum(logLmax0, np.concatenate(([-np.inf], run_max[:-1])))
-        logLmax_post = np.maximum(logLmax0, run_max)
-        cond_tr = np.logaddexp(logZ_tr, logLmax_pre + logw_post) - logZ_tr
+            # the float64 evidence, in the sequential integrator's op order
+            logt = state.log_shrinkage(n)
+            c_shrink = math.log(-math.expm1(logt))
+            lw = np.add.accumulate(np.concatenate(([state.logw], np.full(n_acc, logt))))
+            logw_pre, logw_post = lw[:-1], lw[1:]
+            Wt = (logw_pre + w) + c_shrink
+            logZ_tr = np.logaddexp.accumulate(np.concatenate(([state.logZ], Wt)))[1:]
+            oldZ_tr = np.concatenate(([state.oldZ], logZ_tr[:-1]))
+            # logLmax as the dlogZ condition reads it: moved only by a
+            # candidate in the top slot, and read before this insertion
+            cand = np.where(ins == n - 1, p_acc, -np.inf)
+            run_max = np.maximum.accumulate(cand)
+            logLmax0 = float(self.logLmax)
+            logLmax_pre = np.maximum(logLmax0, np.concatenate(([-np.inf], run_max[:-1])))
+            logLmax_post = np.maximum(logLmax0, run_max)
+            cond_tr = np.logaddexp(logZ_tr, logLmax_pre + logw_post) - logZ_tr
 
-        # acceptance: the pops of each replacement from the accept
-        # positions; the first also owns the pops drained from the last
-        # pool's rejected tail
-        cnt = np.diff(np.concatenate(([-1], pos))).astype(np.float64)
-        cnt[0] += getattr(self, "_count_carry", 0)
-        self._count_carry = 0
-        ba_tr = np.add.accumulate(np.concatenate(([self.block_acceptance], 1.0 / cnt)))[1:]
-        block_it_tr = self.block_iteration + 1 + np.arange(n_acc)
-        mean_acc_tr = ba_tr / np.maximum(block_it_tr - 1, 1)
+            # acceptance: the pops of each replacement from the accept
+            # positions; the first also owns the pops drained from the last
+            # pool's rejected tail
+            cnt = np.diff(np.concatenate(([-1], pos))).astype(np.float64)
+            cnt[0] += getattr(self, "_count_carry", 0)
+            self._count_carry = 0
+            ba_tr = np.add.accumulate(np.concatenate(([self.block_acceptance], 1.0 / cnt)))[1:]
+            block_it_tr = self.block_iteration + 1 + np.arange(n_acc)
+            mean_acc_tr = ba_tr / np.maximum(block_it_tr - 1, 1)
 
-        # the stopping decision, checked after each replacement
-        below = np.nonzero(cond_tr <= self.tolerance)[0]
-        n_commit = int(below[0]) + 1 if below.size else int(n_acc)
-        if self.uninformed_sampling:
-            # check_proposal_switch at the top of each iteration: before
-            # step k it sees the mean after step k - 1 and it0 + k
-            mean_top = np.concatenate(([self.mean_block_acceptance], mean_acc_tr[:-1]))
-            it_top = it0 + np.arange(n_acc)
-            max_uninf = np.inf if self.maximum_uninformed is None else self.maximum_uninformed
-            fire = (mean_top < self.uninformed_acceptance_threshold) | (it_top >= max_uninf)
-            fire[0] = False
-            hit = np.nonzero(fire)[0]
-            if hit.size:
-                n_commit = min(n_commit, int(hit[0]))
-        if n_commit < n_acc:
-            from .ns_device import run_ns_scan
+            # the stopping decision, checked after each replacement
+            below = np.nonzero(cond_tr <= self.tolerance)[0]
+            n_commit = int(below[0]) + 1 if below.size else int(n_acc)
+            if self.uninformed_sampling:
+                # check_proposal_switch at the top of each iteration: before
+                # step k it sees the mean after step k - 1 and it0 + k
+                mean_top = np.concatenate(([self.mean_block_acceptance], mean_acc_tr[:-1]))
+                it_top = it0 + np.arange(n_acc)
+                max_uninf = np.inf if self.maximum_uninformed is None else self.maximum_uninformed
+                fire = (mean_top < self.uninformed_acceptance_threshold) | (it_top >= max_uninf)
+                fire[0] = False
+                hit = np.nonzero(fire)[0]
+                if hit.size:
+                    n_commit = min(n_commit, int(hit[0]))
+            if n_commit < n_acc:
+                from .ns_device import run_ns_scan
 
-            _, _, _, final_ids, n_chk = run_ns_scan(live32, pool32, n_commit, device=self.device)
-            if n_chk != n_commit:
-                return False
-            pos = pos[:n_commit]
-            w = w[:n_commit]
-            ins = ins[:n_commit]
-            logw_pre = logw_pre[:n_commit]
-            logw_post = logw_post[:n_commit]
-            Wt = Wt[:n_commit]
-            logZ_tr = logZ_tr[:n_commit]
-            oldZ_tr = oldZ_tr[:n_commit]
-            logLmax_post = logLmax_post[:n_commit]
-            cond_tr = cond_tr[:n_commit]
-            ba_tr = ba_tr[:n_commit]
-            block_it_tr = block_it_tr[:n_commit]
-            mean_acc_tr = mean_acc_tr[:n_commit]
-        j_commit = int(pos[-1]) + 1
-        consumed_ids = consumed_all[pos]
+                with annotate("scan"):
+                    _, _, _, final_ids, n_chk = run_ns_scan(live32, pool32, n_commit, device=self.device)
+                if n_chk != n_commit:
+                    return 0
+                pos = pos[:n_commit]
+                w = w[:n_commit]
+                ins = ins[:n_commit]
+                logw_pre = logw_pre[:n_commit]
+                logw_post = logw_post[:n_commit]
+                Wt = Wt[:n_commit]
+                logZ_tr = logZ_tr[:n_commit]
+                oldZ_tr = oldZ_tr[:n_commit]
+                logLmax_post = logLmax_post[:n_commit]
+                cond_tr = cond_tr[:n_commit]
+                ba_tr = ba_tr[:n_commit]
+                block_it_tr = block_it_tr[:n_commit]
+                mean_acc_tr = mean_acc_tr[:n_commit]
+            j_commit = int(pos[-1]) + 1
+            consumed_ids = consumed_all[pos]
 
-        # the information: a scalar loop in the increment's order
-        info_vals = [0.0] * n_commit
-        info_last = float(state.info[-1])
-        wl = w.tolist()
-        wtl = Wt.tolist()
-        zl = logZ_tr.tolist()
-        ozl = oldZ_tr.tolist()
-        for i in range(n_commit):
-            oz = ozl[i]
-            if math.isfinite(oz):
-                z = zl[i]
-                v = math.exp(wtl[i] - z) * wl[i] + math.exp(oz - z) * (info_last + oz) - z
-                if math.isnan(v):
+            # the information: a scalar loop in the increment's order
+            info_vals = [0.0] * n_commit
+            info_last = float(state.info[-1])
+            wl = w.tolist()
+            wtl = Wt.tolist()
+            zl = logZ_tr.tolist()
+            ozl = oldZ_tr.tolist()
+            for i in range(n_commit):
+                oz = ozl[i]
+                if math.isfinite(oz):
+                    z = zl[i]
+                    v = math.exp(wtl[i] - z) * wl[i] + math.exp(oz - z) * (info_last + oz) - z
+                    if math.isnan(v):
+                        v = 0.0
+                else:
                     v = 0.0
-            else:
-                v = 0.0
-            info_last = v
-            info_vals[i] = v
+                info_last = v
+                info_vals[i] = v
 
         # the commit sets the pool's final live set before it brings the
         # state up to each boundary: a checkpoint inside it, periodic or
         # taken by a signal handler, would pickle that live set beside an
         # earlier iteration, so both wait for its end
-        with self._checkpoints_held():
+        with annotate("history"), self._checkpoints_held():
             # the non-monotonic screen, rate-limited as the integrator's
             lastL_tr = np.concatenate(([state.logLs[-1]], w[:-1]))
             nm = np.nonzero(w <= lastL_tr)[0]
@@ -1120,7 +1149,7 @@ class NestedSampler(BaseNestedSampler):
                 self._uninformed_proposal.ns_acceptance = self.mean_block_acceptance
         self._n_device_steps = getattr(self, "_n_device_steps", 0) + n_commit
         self.checkpoint(periodic=True)
-        return True
+        return n_commit
 
     @contextlib.contextmanager
     def _checkpoints_held(self):
@@ -1245,7 +1274,8 @@ class NestedSampler(BaseNestedSampler):
         self.log_evidence_error_simulated = float(np.std(self.simulate_evidence_uncertainty(n_sims)))
 
     def nested_sampling_loop(self):
-        """The main loop. Returns ``(logZ, nested_samples)``."""
+        """The main loop. Returns ``(logZ, nested_samples)``. What follows
+        the loop is traced as the span ``finalise``."""
         self.sampling_start_time = datetime.datetime.now()
         if not self.initialised:
             self.initialise()
@@ -1274,23 +1304,24 @@ class NestedSampler(BaseNestedSampler):
             if self.max_iteration and self.iteration >= self.max_iteration:
                 logger.warning("Reached max iteration (%s)", self.max_iteration)
                 break
-        self.finalise()
-        self.check_insertion_indices(rolling=False)
-        self.compute_simulated_evidence_error()
-        logger.info(
-            "Final logZ: %.4f +/- %.4f (%d iterations, %d likelihood evaluations)",
-            self.state.logZ,
-            self.state.log_evidence_error,
-            self.iteration,
-            self.total_likelihood_evaluations,
-        )
-        self.sampling_time += datetime.datetime.now() - self.sampling_start_time
-        self.sampling_start_time = datetime.datetime.now()
-        if self.checkpointing:
-            self.checkpoint(force=True)
-        if self._close_pool:
-            self.close_pool()
-        return self.state.logZ, self.nested_samples_array
+        with annotate("finalise"):
+            self.finalise()
+            self.check_insertion_indices(rolling=False)
+            self.compute_simulated_evidence_error()
+            logger.info(
+                "Final logZ: %.4f +/- %.4f (%d iterations, %d likelihood evaluations)",
+                self.state.logZ,
+                self.state.log_evidence_error,
+                self.iteration,
+                self.total_likelihood_evaluations,
+            )
+            self.sampling_time += datetime.datetime.now() - self.sampling_start_time
+            self.sampling_start_time = datetime.datetime.now()
+            if self.checkpointing:
+                self.checkpoint(force=True)
+            if self._close_pool:
+                self.close_pool()
+            return self.state.logZ, self.nested_samples_array
 
     # ------------------------------------------------------------------
     # Plots: each logs its failure (no matplotlib, say) and carries on

@@ -21,6 +21,7 @@ import torch
 
 from ..ops.ns_scan import INT32_MAX, ns_scan
 from ..utils.device import get_device
+from ..utils.profiling import counts
 from ..utils.sampling import _bucket_size
 
 __all__ = ["chain_scan", "run_ns_scan", "scan_consume", "scan_outputs_to_host"]
@@ -34,6 +35,7 @@ def scan_outputs_to_host(mask, consumed, ins, final_ids, n_acc, k=None):
     kb = int(mask.shape[0])
     k = kb if k is None else int(k)
     packed = torch.cat([n_acc.reshape(1), mask.to(torch.int32), consumed, ins, final_ids]).cpu().numpy()
+    counts.host_reads += 1
     return (
         packed[1 : 1 + k].astype(bool),
         packed[1 + kb : 1 + kb + k].astype(np.int64),

@@ -1,9 +1,42 @@
-"""Device-time measurement with ``torch.profiler`` (CUPTI).
+"""The program's spans and counters, and device-time measurement with
+``torch.profiler`` (CUPTI).
 
-Counterpart of ``nessai_tpu/utils/profiling.py``. Event timers on the
-host clock measure what a caller waits for, which for small kernels is
-the launch overhead; the profiler's kernel records give the time the
-GPU spent. Run as a script on a GPU machine to trace the flagship runs::
+Counterpart of ``nessai_tpu/utils/profiling.py``.
+
+**Spans.** :func:`annotate` marks a region of the program at a layer
+boundary (a run, a training and its epochs, a populate and its device
+loop calls, the likelihood, a commit, a checkpoint)::
+
+    with annotate("populate") as span:
+        ...
+        span.set(rounds=n)
+
+Tracing is off by default, and then :func:`annotate` hands back one
+shared null context: no clock is read, nothing is recorded and no
+``record_function`` is opened. Between :func:`start_tracing` and
+:func:`stop_tracing` (or inside :func:`tracing`) each span keeps its
+name, its id, its parent's id, the id of the run it belongs to, its start
+and end on ``time.perf_counter_ns()`` and its attributes; a span under a
+populate or a training carries that pool's or training's id (``pool``,
+``training``), and every span the host reads of device values made
+inside it (``host_reads``). While a ``torch.profiler`` records, each
+span also opens a ``record_function`` of its name. A span opened with
+``device=True`` records a pair of CUDA events around its work; their
+time (``device_s``) is read when tracing stops, never on the way. The
+record (:class:`Trace`) is handed back when tracing stops, with the
+counters' changes over the traced stretch.
+
+**Counters.** :func:`populate_counters` names the program's always-on
+counts: the device populate loop's calls, rounds queued and active,
+chunk reads and chained scans, the prior populates on the device, the
+scan's launches, the host reads of device values in ``flowmodel``,
+``proposal``, ``samplers`` and the model's batch likelihood, and the
+rows the device likelihood evaluated.
+
+**Device time.** Event timers on the host clock measure what a caller
+waits for, which for small kernels is the launch overhead; the
+profiler's kernel records give the time the GPU spent. Run as a script
+on a GPU machine to trace the flagship runs::
 
     python -m nessai_tpu_torch.utils.profiling [realnvp] [nsf] [ins] [ins_mixture] \
         [reparam_inversion] [reparam_angle] [ins_hypercube] [lu] [eggbox] [augmented] \
@@ -26,12 +59,12 @@ without tracing and a run under the profiler (the mixture's traces the
 GPU alone). For each it prints one JSON object with the untraced runs'
 times before the traced run, and one at the end: the wall time of each
 run, the training times, the GPU time and record count of the traced
-run, the GPU busy share of the untraced wall time, the GPU seconds of
+run, the GPU seconds of
 each of the port's own kernels, and the kernels that take the most GPU
 time, the traced run's training epochs and GPU records per epoch, and
 the launches per run of the flagship's own kernels (K1 forward and
 backward, or K2 forward and backward), of the nested-sampling scan and
-the device populate loop's calls, rounds and host reads per run beside
+the counters of :func:`populate_counters` per run beside
 them, and the populate's share of the untraced wall. For the importance nested
 sampler it also prints the levels and the time in training, in draws,
 in the ``update_log_q`` passes, in ``log_prob_all`` and in the final
@@ -40,6 +73,8 @@ redraw.
 
 import contextlib
 import functools
+import importlib
+import itertools
 import json
 import logging
 import os
@@ -47,12 +82,10 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
+from typing import NamedTuple, Optional
 
 import torch
-
-from ..examples import augmented_example, eggbox, half_gaussian, mcmc_example, reparameterisations_example
-from ..examples.gw import basic_gw_example, full_gw_example
-from ..examples.importance_nested_sampler import ins_gaussian_mixture, nsf_unit_hypercube
 
 __all__ = [
     "FLAGSHIP",
@@ -71,6 +104,9 @@ __all__ = [
     "FLAGSHIP_GW_BASIC",
     "FLAGSHIP_GW_FULL",
     "OWN_KERNELS",
+    "Span",
+    "Trace",
+    "counts",
     "populate_counters",
     "gpu_kernel_events",
     "event_time_ms",
@@ -78,6 +114,9 @@ __all__ = [
     "profile_flagship",
     "profile_region",
     "annotate",
+    "start_tracing",
+    "stop_tracing",
+    "tracing",
 ]
 
 logger = logging.getLogger(__name__)
@@ -128,8 +167,7 @@ FLAGSHIP_INS = dict(
 #: the defaults (a fresh RealNVP of 4 × [Permutation, AffineCoupling
 #: (resnet), ActNorm] per level); ``fs.run(**FLAGSHIP_INS_MIXTURE_RUN)``
 #: redraws to a posterior ESS of 2000.
-FLAGSHIP_INS_MIXTURE = dict(ins_gaussian_mixture.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
-FLAGSHIP_INS_MIXTURE_RUN = dict(ins_gaussian_mixture.RUN_KWARGS)
+#: (``FLAGSHIP_INS_MIXTURE``, ``FLAGSHIP_INS_MIXTURE_RUN``)
 
 #: The standard sampler at its defaults (nlive 2000, a RealNVP of 4 ×
 #: [Permutation, AffineCoupling (resnet), ActNorm], 500 epochs at most,
@@ -139,13 +177,12 @@ FLAGSHIP_INS_MIXTURE_RUN = dict(ins_gaussian_mixture.RUN_KWARGS)
 #: x, bounded below at 0 where its density piles up, through
 #: ``inversion`` (edge detection, the split inversion), y through
 #: ``default`` (``RescaleToBounds`` with live bounds).
-FLAGSHIP_REPARAM_INVERSION = dict(half_gaussian.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
+#: (``FLAGSHIP_REPARAM_INVERSION``)
 
 #: The angle run of ``examples/reparameterisations_example.py`` on
 #: ``utils.testing.AngleModel``: theta through ``angle-2pi`` (Cartesian
 #: coordinates with an auxiliary chi(2) radius, three prime dimensions),
-#: amp through ``default``.
-FLAGSHIP_REPARAM_ANGLE = dict(reparameterisations_example.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
+#: amp through ``default``. (``FLAGSHIP_REPARAM_ANGLE``)
 
 
 #: The importance nested sampler with a flow on the unit hypercube, as
@@ -156,7 +193,7 @@ FLAGSHIP_REPARAM_ANGLE = dict(reparameterisations_example.SAMPLER_KWARGS, resume
 #: levels, and a neural spline flow of 4 × [RQSCoupling (resnet, 2
 #: layers of 32 neurons, 8 bins, ``tails=None`` on [0, 1])] with no linear
 #: transform and no ActNorm on a uniform base.
-FLAGSHIP_INS_HYPERCUBE = dict(nsf_unit_hypercube.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
+#: (``FLAGSHIP_INS_HYPERCUBE``)
 
 #: The documented flow configuration of
 #: ``docs/normalising-flows-configuration.md:52-66`` (a RealNVP of 4 ×
@@ -180,14 +217,14 @@ FLAGSHIP_LU = dict(
 #: otherwise (a RealNVP of 4 × [Permutation, AffineCoupling (resnet),
 #: ActNorm], 500 epochs at most, patience 20, batches of 1000, the latent
 #: radius at 95% of the latent mass).
-FLAGSHIP_EGGBOX = dict(eggbox.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
+#: (``FLAGSHIP_EGGBOX``)
 
 #: ``examples/augmented_example.py`` as written, on
 #: ``utils.testing.BimodalGaussianModel``: seed 1234, the augmented flow
 #: proposal with two unit-Gaussian augment dimensions (a 4-D RealNVP with
 #: the fixed coupling mask), the standard sampler's defaults otherwise
 #: (nlive 2000).
-FLAGSHIP_AUGMENTED = dict(augmented_example.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
+#: (``FLAGSHIP_AUGMENTED``)
 
 #: ``examples/mcmc_example.py`` as written, on
 #: ``utils.testing.GaussianModel`` (host likelihood and prior): seed 1234,
@@ -195,7 +232,7 @@ FLAGSHIP_AUGMENTED = dict(augmented_example.SAMPLER_KWARGS, resume=False, plot=F
 #: the standard sampler's defaults otherwise (nlive 2000, a RealNVP of
 #: 4 × [Permutation, AffineCoupling (resnet, 2 layers of 4 neurons),
 #: ActNorm], 500 epochs at most, patience 20).
-FLAGSHIP_MCMC = dict(mcmc_example.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
+#: (``FLAGSHIP_MCMC``)
 
 #: The RealNVP flagship with the clustering flow proposal at the JAX
 #: package's default of 8 clusters: every coupling's net takes the
@@ -205,7 +242,7 @@ FLAGSHIP_CLUSTERING = dict(FLAGSHIP, flow_class="clusteringflowproposal", max_cl
 #: ``examples/gw/basic_gw_example.py`` as written: the frequency-domain
 #: inspiral in two detectors, nlive 1000, seed 170817, angle-2pi on the
 #: phase (a 5-D flow), the data through ``torch_likelihood_data``
-FLAGSHIP_GW_BASIC = dict(basic_gw_example.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
+#: (``FLAGSHIP_GW_BASIC``)
 
 #: the iteration at which ``gw_full`` stops here and in ``chip_smoke.py``
 #: (in full the run took 1202 s on the H100), past its third training
@@ -214,7 +251,37 @@ GW_FULL_PROFILE_ITERATIONS = 7000
 #: ``examples/gw/full_gw_example.py`` as written: 9 parameters with sky
 #: location, nlive 2000, seed 150914, a 6 x 32 RealNVP on 12 prime
 #: dimensions (angle-2pi, angle-pi and the angle pair)
-FLAGSHIP_GW_FULL = dict(full_gw_example.SAMPLER_KWARGS, resume=False, plot=False, checkpointing=False)
+#: (``FLAGSHIP_GW_FULL``)
+
+#: The configurations above that an example script holds: name ->
+#: (module of ``nessai_tpu_torch.examples``, attribute). Each is made at
+#: its first use (:func:`__getattr__`), so that the program's modules
+#: import this one without the examples; a sampler's keyword arguments
+#: gain ``resume=False, plot=False, checkpointing=False``.
+_FROM_EXAMPLES = {
+    "FLAGSHIP_INS_MIXTURE": ("importance_nested_sampler.ins_gaussian_mixture", "SAMPLER_KWARGS"),
+    "FLAGSHIP_INS_MIXTURE_RUN": ("importance_nested_sampler.ins_gaussian_mixture", "RUN_KWARGS"),
+    "FLAGSHIP_REPARAM_INVERSION": ("half_gaussian", "SAMPLER_KWARGS"),
+    "FLAGSHIP_REPARAM_ANGLE": ("reparameterisations_example", "SAMPLER_KWARGS"),
+    "FLAGSHIP_INS_HYPERCUBE": ("importance_nested_sampler.nsf_unit_hypercube", "SAMPLER_KWARGS"),
+    "FLAGSHIP_EGGBOX": ("eggbox", "SAMPLER_KWARGS"),
+    "FLAGSHIP_AUGMENTED": ("augmented_example", "SAMPLER_KWARGS"),
+    "FLAGSHIP_MCMC": ("mcmc_example", "SAMPLER_KWARGS"),
+    "FLAGSHIP_GW_BASIC": ("gw.basic_gw_example", "SAMPLER_KWARGS"),
+    "FLAGSHIP_GW_FULL": ("gw.full_gw_example", "SAMPLER_KWARGS"),
+}
+
+
+def __getattr__(name):
+    """A configuration of :data:`_FROM_EXAMPLES`, made at its first use."""
+    if name not in _FROM_EXAMPLES:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module, attr = _FROM_EXAMPLES[name]
+    value = dict(getattr(importlib.import_module(f"..examples.{module}", __package__), attr))
+    if attr == "SAMPLER_KWARGS":
+        value.update(resume=False, plot=False, checkpointing=False)
+    globals()[name] = value
+    return value
 
 
 @contextlib.contextmanager
@@ -242,14 +309,206 @@ def profile_region(logdir: str, enabled: bool = True):
     logger.info("torch.profiler trace written to %s", path)
 
 
-def annotate(name: str):
-    """A named span in the profiler's timeline for a sub-region
-    (``torch.profiler.record_function``)::
+#: The program's counts since they were last set to 0: host reads of
+#: device values (a copy to the host, ``.item()``, ``.tolist()``,
+#: ``int()`` of a tensor) in ``flowmodel``, ``proposal``, ``samplers``
+#: and the model's batch likelihood, and the rows the model's device
+#: likelihood evaluated.
+counts = types.SimpleNamespace(host_reads=0, likelihood_rows=0)
 
-        with annotate("populate"):
-            proposal.populate(...)
+
+class Span(NamedTuple):
+    """A span of a trace: ``start`` and ``end`` in nanoseconds of
+    ``time.perf_counter_ns()``; ``run`` the id of the run it belongs to
+    (None outside a run); ``attrs`` its attributes, with ``pool`` and
+    ``training`` taken from its ancestors, ``host_reads`` and, for a
+    device span, ``device_s``."""
+
+    name: str
+    id: int
+    parent: Optional[int]
+    run: Optional[int]
+    start: int
+    end: int
+    attrs: dict
+
+
+class Trace:
+    """What tracing recorded: the spans, in the order they ended, and
+    each counter's change over the traced stretch by name."""
+
+    def __init__(self, spans=(), counters=None):
+        self.spans = list(spans)
+        self.counters = dict(counters or {})
+
+    def paths(self) -> dict:
+        """Each span's path from its root, by id: ``"run/populate/device_loop"``."""
+        by_id = {s.id: s for s in self.spans}
+        out = {}
+
+        def path(span):
+            if span.id not in out:
+                parent = by_id.get(span.parent)
+                out[span.id] = span.name if parent is None else path(parent) + "/" + span.name
+            return out[span.id]
+
+        for s in self.spans:
+            path(s)
+        return out
+
+
+class _NullSpan:
+    """The span while tracing is off: it records nothing."""
+
+    __slots__ = ()
+    id = None
+    run = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+    def set(self, **attrs):
+        pass
+
+
+_NULL_SPAN = _NullSpan()
+
+#: attributes a span takes from its parent where it is not given them
+_INHERITED = ("pool", "training")
+
+
+class _Recorder:
+    """The spans of one stretch of tracing: those ended, those open, the
+    CUDA events to read and the counters at the start."""
+
+    def __init__(self):
+        self.spans = []
+        self.open = []
+        self.events = []
+        self.ids = itertools.count(1)
+        self.counters = {k: getattr(obj, attr) for k, (obj, attr) in populate_counters().items()}
+        self.stopped = False
+
+
+class _OpenSpan:
+    """A span while tracing is on."""
+
+    __slots__ = ("rec", "name", "id", "parent", "run", "start", "attrs", "device", "reads", "function", "events")
+
+    def __init__(self, rec, name, device, attrs):
+        self.rec = rec
+        self.name = name
+        self.device = device
+        self.attrs = attrs
+        self.function = self.events = None
+
+    def __enter__(self):
+        rec = self.rec
+        parent = rec.open[-1] if rec.open else None
+        self.id = next(rec.ids)
+        self.parent = None if parent is None else parent.id
+        self.run = self.attrs.pop("run", None if parent is None else parent.run)
+        if parent is not None:
+            for key in _INHERITED:
+                if key in parent.attrs:
+                    self.attrs.setdefault(key, parent.attrs[key])
+        rec.open.append(self)
+        if torch.autograd._profiler_enabled():
+            self.function = torch.profiler.record_function(self.name)
+            self.function.__enter__()
+        if self.device:
+            self.events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        self.reads = counts.host_reads
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        rec = self.rec
+        if self.events is not None:
+            self.events[1].record()
+        if self.function is not None:
+            self.function.__exit__(*exc)
+        if self in rec.open:
+            del rec.open[rec.open.index(self) :]
+        if rec.stopped:
+            return None
+        self.attrs["host_reads"] = counts.host_reads - self.reads
+        rec.spans.append(Span(self.name, self.id, self.parent, self.run, self.start, end, self.attrs))
+        if self.events is not None:
+            rec.events.append((len(rec.spans) - 1, *self.events))
+        return None
+
+    def set(self, **attrs):
+        """Add attributes (``run`` sets the span's run)."""
+        if "run" in attrs:
+            self.run = attrs.pop("run")
+        self.attrs.update(attrs)
+
+
+#: the recorder while tracing is on, else None
+_recorder = None
+
+
+def annotate(name: str, device: bool = False, **attrs):
+    """The span ``name`` around a region of the program, with attributes
+    ``attrs`` (``run=`` sets the run a root span belongs to); ``device``
+    also times the device's work in the span with CUDA events. With
+    tracing off, one shared null context::
+
+        with annotate("device_loop") as span:
+            ...
+            span.set(rounds=rounds)
     """
-    return torch.profiler.record_function(name)
+    if _recorder is None:
+        return _NULL_SPAN
+    return _OpenSpan(_recorder, name, device, attrs)
+
+
+def start_tracing() -> None:
+    """Record every span from now on, and the counters' changes."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("tracing is already on")
+    _recorder = _Recorder()
+
+
+def stop_tracing() -> Trace:
+    """Stop recording and hand back the record: the spans that ended
+    (spans still open are left out), each device span's ``device_s``
+    read from its CUDA events, and the counters' changes."""
+    global _recorder
+    rec, _recorder = _recorder, None
+    if rec is None:
+        raise RuntimeError("tracing is not on")
+    rec.stopped = True
+    for i, start, end in rec.events:
+        end.synchronize()
+        rec.spans[i].attrs["device_s"] = start.elapsed_time(end) * 1e-3
+    now = {k: getattr(obj, attr) for k, (obj, attr) in populate_counters().items()}
+    return Trace(rec.spans, {k: v - rec.counters.get(k, 0) for k, v in now.items()})
+
+
+@contextlib.contextmanager
+def tracing():
+    """Trace the enclosed block; the :class:`Trace` it yields is filled
+    when the block ends::
+
+        with tracing() as trace:
+            fs.run()
+        trace.spans
+    """
+    start_tracing()
+    trace = Trace()
+    try:
+        yield trace
+    finally:
+        done = stop_tracing()
+        trace.spans, trace.counters = done.spans, done.counters
 
 
 def gpu_kernel_events(prof):
@@ -354,11 +613,13 @@ OWN_KERNELS = (
 
 
 def populate_counters() -> dict:
-    """The counts of the device populates and the scan, by name: the
-    flow proposal's device loop (calls, rounds, host reads of its count,
-    scans chained on), the prior populate on the device (populates,
-    scans chained on) and the scan kernel's launches, as ``(object,
-    attribute)``; set each to 0 before a run and read it after."""
+    """The program's always-on counts by name: the flow proposal's
+    device loop (calls, rounds queued, rounds active, host reads of its
+    count, scans chained on), the prior populate on the device
+    (populates, scans chained on), the scan kernel's launches, the host
+    reads of device values and the device likelihood's rows
+    (:data:`counts`), as ``(object, attribute)``; set each to 0 before a
+    run and read it after."""
     from ..ops.ns_scan import ns_scan
     from ..proposal.flowproposal.flowproposal import device_loop_counts
     from ..proposal.rejection import prior_populate_counts
@@ -366,11 +627,14 @@ def populate_counters() -> dict:
     return {
         "device_loop_calls": (device_loop_counts, "calls"),
         "device_loop_rounds": (device_loop_counts, "rounds"),
+        "device_loop_active_rounds": (device_loop_counts, "active_rounds"),
         "device_loop_chunk_reads": (device_loop_counts, "chunk_reads"),
         "device_loop_chained_scans": (device_loop_counts, "chained_scans"),
         "prior_device_populates": (prior_populate_counts, "populates"),
         "prior_chained_scans": (prior_populate_counts, "chained_scans"),
         "ns_scan_launches": (ns_scan, "launches"),
+        "host_reads": (counts, "host_reads"),
+        "likelihood_rows": (counts, "likelihood_rows"),
     }
 
 
@@ -437,7 +701,6 @@ def profile_flagship(
         training_epochs=epochs,
         gpu_records_per_epoch=len(events) / epochs if epochs else None,
         gpu_busy_s=busy_s,
-        gpu_busy_share_of_untraced_wall=None if busy_s is None else busy_s / untraced,
         logZ=fs.logZ,
         logZ_traced=fs_traced.logZ,
         own_kernel_gpu_s=own,
@@ -451,6 +714,7 @@ def profile_flagship(
 def _main(names) -> None:
     """Profile the named runs (all fourteen by default) and print one JSON
     object for each."""
+    from ..examples.gw import basic_gw_example, full_gw_example
     from ..ops.coupling import affine_coupling
     from ..ops.rqs import rqs
     from .testing import (
@@ -463,6 +727,7 @@ def _main(names) -> None:
         RosenbrockModel,
     )
 
+    flagship = {name: __getattr__(name) for name in _FROM_EXAMPLES}
     k1, k2 = (affine_coupling, "k1"), (rqs, "rqs")
     runs = {
         "realnvp": (dict(config=FLAGSHIP), k1),
@@ -471,26 +736,26 @@ def _main(names) -> None:
         # about 2.5 million GPU records: with the CPU's operator records
         # as well, the trace was not read back within 20 minutes on the H100
         "ins_mixture": (
-            dict(config=FLAGSHIP_INS_MIXTURE, model=functools.partial(GaussianMixture, 2),
-                 run_kwargs=FLAGSHIP_INS_MIXTURE_RUN, trace_cpu=False),
+            dict(config=flagship["FLAGSHIP_INS_MIXTURE"], model=functools.partial(GaussianMixture, 2),
+                 run_kwargs=flagship["FLAGSHIP_INS_MIXTURE_RUN"], trace_cpu=False),
             k1,
         ),
-        "reparam_inversion": (dict(config=FLAGSHIP_REPARAM_INVERSION, model=HalfGaussianModel), k1),
-        "reparam_angle": (dict(config=FLAGSHIP_REPARAM_ANGLE, model=AngleModel), k1),
+        "reparam_inversion": (dict(config=flagship["FLAGSHIP_REPARAM_INVERSION"], model=HalfGaussianModel), k1),
+        "reparam_angle": (dict(config=flagship["FLAGSHIP_REPARAM_ANGLE"], model=AngleModel), k1),
         "ins_hypercube": (
-            dict(config=FLAGSHIP_INS_HYPERCUBE, model=functools.partial(RosenbrockModel, 4), trace_cpu=False),
+            dict(config=flagship["FLAGSHIP_INS_HYPERCUBE"], model=functools.partial(RosenbrockModel, 4), trace_cpu=False),
             k2,
         ),
         "lu": (dict(config=FLAGSHIP_LU), k1),
-        "eggbox": (dict(config=FLAGSHIP_EGGBOX, model=EggboxModel, trace_cpu=False), k1),
-        "augmented": (dict(config=FLAGSHIP_AUGMENTED, model=BimodalGaussianModel, trace_cpu=False), k1),
-        "mcmc": (dict(config=FLAGSHIP_MCMC, model=GaussianModel, trace_cpu=False), k1),
+        "eggbox": (dict(config=flagship["FLAGSHIP_EGGBOX"], model=EggboxModel, trace_cpu=False), k1),
+        "augmented": (dict(config=flagship["FLAGSHIP_AUGMENTED"], model=BimodalGaussianModel, trace_cpu=False), k1),
+        "mcmc": (dict(config=flagship["FLAGSHIP_MCMC"], model=GaussianModel, trace_cpu=False), k1),
         "clustering": (dict(config=FLAGSHIP_CLUSTERING), k1),
         # 1167 epochs: with the CPU's records the trace was not read back
         # within 10 minutes on the H100
-        "gw_basic": (dict(config=FLAGSHIP_GW_BASIC, model=basic_gw_example.BasicGWModel, trace_cpu=False), k1),
+        "gw_basic": (dict(config=flagship["FLAGSHIP_GW_BASIC"], model=basic_gw_example.BasicGWModel, trace_cpu=False), k1),
         "gw_full": (
-            dict(config=dict(FLAGSHIP_GW_FULL, max_iteration=GW_FULL_PROFILE_ITERATIONS),
+            dict(config=dict(flagship["FLAGSHIP_GW_FULL"], max_iteration=GW_FULL_PROFILE_ITERATIONS),
                  model=full_gw_example.FullGWModel, trace_cpu=False),
             k1,
         ),

@@ -552,6 +552,76 @@ def test_device_time_ms_with_and_without_gpu_tracing(cuda, tracing, monkeypatch)
         assert timer == "cuda_events" and records is None
 
 
+#: the synchronising calls of one training that are not host reads of
+#: device values, by file and source line, with why they wait
+UNCOUNTED_SYNCS = {
+    ("base.py", "return torch.as_tensor(np.asarray(x, np.float32), device=self.device)"): (
+        "the training and validation rows copied to the card: a copy from pageable host memory waits for itself"
+    ),
+}
+
+
+@pytest.mark.cuda
+def test_a_trainings_syncs_are_its_counted_host_reads(cuda, tmp_path):
+    """Every call of one training that waits for the card is a host read
+    counted in ``host_reads``, or stands in ``UNCOUNTED_SYNCS``."""
+    import linecache
+    import os
+    import warnings
+
+    import numpy as np
+
+    from nessai_tpu_torch.flowmodel import FlowModel
+    from nessai_tpu_torch.utils import profiling
+
+    fm = FlowModel(dict(n_inputs=5), dict(max_epochs=30, patience=100), output=str(tmp_path),
+                   rng=np.random.default_rng(3), device=cuda)
+    x = np.random.default_rng(4).normal(size=(1000, 5))
+    fm.train(x)  # the first training initialises the flow and its ActNorms
+    before = profiling.counts.host_reads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            history = fm.train(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    reads = profiling.counts.host_reads - before
+    sites = [
+        (os.path.basename(w.filename), linecache.getline(w.filename, w.lineno).strip())
+        for w in caught
+        if "synchroniz" in str(w.message)
+    ]
+    uncounted = [site for site in sites if site in UNCOUNTED_SYNCS]
+    assert len(history["loss"]) == 30
+    assert len(sites) - len(uncounted) == reads, sorted(set(sites))
+    assert uncounted, sorted(set(sites))
+
+
+@pytest.mark.cuda
+def test_device_spans_read_their_cuda_events(cuda, tmp_path):
+    """A traced run on the card: its likelihood spans carry their device
+    time, and the device loop's spans their counts."""
+    from nessai_tpu_torch.flowsampler import FlowSampler
+    from nessai_tpu_torch.utils import profiling
+    from nessai_tpu_torch.utils.testing import IntegrationTestModel
+
+    with profiling.tracing() as trace:
+        fs = FlowSampler(IntegrationTestModel(2), output=str(tmp_path), resume=False, seed=1, nlive=200,
+                         device="cuda", plot=False, max_iteration=1500, populate_mode="device_loop",
+                         result_extension="json",
+                         flow_config=dict(n_blocks=2, n_neurons=8, n_layers=1),
+                         training_config=dict(max_epochs=10, batch_size=100, patience=5))
+        fs.run(plot=False)
+    likelihoods = [s for s in trace.spans if s.name == "likelihood"]
+    assert likelihoods and all(s.attrs["device_s"] > 0 for s in likelihoods)
+    assert all(s.start <= s.end for s in trace.spans)
+    loops = [s for s in trace.spans if s.name == "device_loop"]
+    assert loops and sum(s.attrs["active_rounds"] for s in loops) == trace.counters["device_loop_active_rounds"]
+    assert trace.counters["likelihood_rows"] == sum(s.attrs["rows"] for s in likelihoods)
+
+
 # ----------------------------------------------------------------------
 # The importance nested sampler on the card
 # ----------------------------------------------------------------------

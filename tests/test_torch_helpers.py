@@ -216,7 +216,8 @@ def test_scan_consume_matches_jax():
 
 def test_profile_region_and_annotate(tmp_path):
     logdir = tmp_path / "profile"
-    with profiling.profile_region(str(logdir)):
+    # a span reaches the profiler's timeline while tracing is on
+    with profiling.tracing(), profiling.profile_region(str(logdir)):
         with profiling.annotate("region_under_test"):
             torch.ones(8).sum()
     trace = json.loads((logdir / "trace.json").read_text())
